@@ -36,6 +36,10 @@ def pytest_configure(config):
         "slow: heavy compile/interpret-mode test with cheaper sibling "
         "coverage; excluded by default, enabled with --runslow or "
         "RUN_SLOW=1 (VERDICT r2 Next #8)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs a hand-written CUDA kernel of cholesky_tpu_torch on an "
+        "NVIDIA card; skips where torch sees no CUDA device")
 
 
 def pytest_collection_modifyitems(config, items):
