@@ -3,34 +3,54 @@
 
     python3 chip_smoke.py
 
-Builds the port's four CUDA kernels from ``cholesky_tpu_torch/ops/kernels/
-csrc``, holds each against its plain torch twin at the shapes the main
-path gives it, then drives the main path (``potrf`` and ``logdet``, f32,
-at n = 4096 and 8192) through the public API and checks, with the launch
-counters, that it went through every kernel. Every check raises on
-failure, so the script exits non-zero and prints no result line. Needs one
-CUDA card; imports nothing of JAX.
+Builds the port's eight CUDA kernels from ``cholesky_tpu_torch/ops/
+kernels/csrc``, holds each against its plain torch twin at the shapes its
+path gives it, then drives the paths below through the public API. Before
+each path every launch counter is set to 0, and after it the counters must
+show that the path went through each of its kernels:
+
+- phase 4, the potrf path: ``potrf`` and ``logdet``, f32, n = 4096, 8192
+  (one ``potrf_stream_f32`` launch each), then ``potrf`` with
+  ``block_size=512`` at 4096 (the blocked recursion over 512 leaves);
+- phase 5, the GP model: exact GP regression on n = 8192 points with d = 8
+  features, three ``gp_train_step``s and one ``gp_predict`` (potrf, trsm,
+  potri = trtri then lauum), held against an f64 ``torch.linalg`` oracle;
+  then ``potri`` at n = 4096 and ``lauum`` with 512 leaves at 2048.
+
+Every check raises on failure, so the script exits non-zero and prints no
+result line. Needs one CUDA card; imports nothing of JAX.
 
 The last two lines of standard output are one JSON object per kernel
-({"kernels": [...]}) and the result {"ok": true, "device": {...}}.
+({"kernels": [...]}, each with the path its launch count comes from) and
+the result {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import time
 
 import torch
 
 import cholesky_tpu_torch as ct
+from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import kernels
 from cholesky_tpu_torch.ops.kernels import _build
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32, gemm_plain
-from cholesky_tpu_torch.ops.kernels.mega import (potrf_block_f32,
+from cholesky_tpu_torch.ops.kernels.leaf import lauu2_f32, lauu2_plain
+from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
+                                                 lauum_stream_plain,
+                                                 potrf_block_f32,
                                                  potrf_block_plain,
+                                                 potrf_stream_f32,
+                                                 potrf_stream_plain,
                                                  trtri_block_f32,
-                                                 trtri_block_plain)
+                                                 trtri_block_plain,
+                                                 trtri_stream_f32,
+                                                 trtri_stream_plain)
 from cholesky_tpu_torch.ops.kernels.syrk import (syrk_lower_f32,
                                                  syrk_lower_plain)
 from cholesky_tpu_torch.rng import latmc
@@ -102,7 +122,30 @@ def check_gemm(gen, rec, on):
     print(f"gemm_f32 (4096x512)·(512x512)ᵀ: max err {err:.3e} (bound "
           f"{b:.3e}); in place beta=1 on a view: {err2:.3e} (bound "
           f"{b2:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {on}")
-    rec["gemm_f32"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    del buf, X, D
+    # the GP step's largest products: potri's trtri recursion at 8192,
+    # M' = -W2·M·W1 on 4096 halves, all three views of one 8192 buffer
+    L = torch.randn(8192, 8192, device=dev, generator=gen) / 64.0
+    W2, M, W1 = L[4096:, 4096:], L[4096:, :4096], L[:4096, :4096]
+    Mp = gemm_f32(W2, M)
+    want = gemm_plain(W2, M)
+    err3 = max_err(Mp, want)
+    b3 = bound(2 * 4096 + 3, float(want.abs().max()))
+    require(err3 <= b3, f"gemm_f32 4096³ W2·M: err {err3} > {b3}")
+    want2 = gemm_plain(Mp, W1, alpha=-1.0)
+    out = L[4096:, :4096]
+    gemm_f32(Mp, W1, alpha=-1.0, out=out)
+    err4 = max_err(out, want2)
+    b4 = bound(2 * 4096 + 3, float(want2.abs().max()))
+    require(err4 <= b4, f"gemm_f32 4096³ -T·W1 into a view: err {err4} > {b4}")
+    ms = bench_op(lambda m: gemm_f32(W2, m), M, reps=5) * 1e3
+    plain_ms = bench_op(lambda m: gemm_plain(W2, m), M, reps=5) * 1e3
+    print(f"gemm_f32 4096³ on views of an 8192 buffer: W2·M max err "
+          f"{err3:.3e} (bound {b3:.3e}); -T·W1 into the view M: {err4:.3e} "
+          f"(bound {b4:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"on {on}")
+    rec["gemm_f32"] = dict(max_abs_err=max(err3, err4), ms=ms,
+                           plain_ms=plain_ms)
 
 
 def check_syrk(gen, rec, on):
@@ -176,6 +219,48 @@ def check_potrf_block(gen, rec, on):
           "A[7,7]: info 8, nothing but (7,7) non-finite, strict upper unread")
 
 
+def check_potrf_stream(gen, rec, on):
+    for n in (2048, 4096, 8192):
+        # the caller's strict upper holds NaN: only the lower may be read
+        A = spd(gen, n)
+        F = A.clone()
+        F[torch.ones_like(F, dtype=torch.bool).triu(1)] = float("nan")
+        info = potrf_stream_f32(F)
+        want = A.clone()
+        i_ref = potrf_stream_plain(want)
+        require(int(info) == 0 and int(i_ref) == 0,
+                f"potrf_stream_f32 n={n}: info {int(info)}/{int(i_ref)}")
+        require(bool(torch.isfinite(F).all()),
+                f"potrf_stream_f32 n={n} read the NaN strict upper")
+        require(bool((torch.triu(F, 1) == 0).all()),
+                f"potrf_stream_f32 n={n}: strict upper not zero")
+        err = max_err(F, want)
+        b = bound(8 * n, float(want.abs().max()))
+        require(err <= b, f"potrf_stream_f32 n={n}: err {err} > {b}")
+        ms = bench_op(lambda a: potrf_stream_f32(a.clone()), A, reps=5) * 1e3
+        plain_ms = bench_op(lambda a: potrf_stream_plain(a.clone()), A,
+                            warmup=1, reps=3) * 1e3
+        print(f"potrf_stream_f32 n={n}: max err {err:.3e} (bound {b:.3e}), "
+              f"NaN strict upper unread; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (incl. a copy) on {on}")
+        if n == 8192:
+            rec["potrf_stream_f32"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms)
+    # failed pivots: info, nothing non-finite but an input NaN pivot, the
+    # leading block right
+    for n, k, v in ((4096, 3000, -1.0), (1152, 7, float("nan"))):
+        A = spd(gen, n, 10.0)
+        A[k, k] = v
+        info = potrf_stream_f32(A)
+        bad = (~torch.isfinite(A)).nonzero().tolist()
+        require(int(info) == k + 1 and all(ix == [k, k] for ix in bad),
+                f"potrf_stream_f32 A[{k},{k}]={v}: info {int(info)}, "
+                f"non-finite at {bad[:5]}")
+    print("potrf_stream_f32 non-PD A[3000,3000]=-1 at n=4096: info 3001, "
+          "finite; NaN pivot A[7,7] at n=1152: info 8, nothing but (7,7) "
+          "non-finite")
+
+
 def check_trtri_block(gen, rec, on):
     for n in (128, 512):
         L = spd(gen, n)
@@ -205,8 +290,85 @@ def check_trtri_block(gen, rec, on):
     print("trtri_block_f32 zero diagonal L[9,9]=0: info 10, finite")
 
 
+def check_trtri_stream(gen, rec, on):
+    for n in (2048, 4096, 8192):
+        # a potrf factor, the caller's matrix still above it: only the
+        # lower triangle may be read
+        F, info = ct.potrf("L", spd(gen, n))
+        require(int(info) == 0, f"trtri_stream input factor n={n}")
+        W, info = trtri_stream_f32(F)
+        want, i_ref = trtri_stream_plain(F)
+        require(int(info) == 0 == int(i_ref), f"trtri_stream n={n}: info")
+        err = max_err(W, want)
+        b = bound(60 * n, float(want.abs().max()))
+        require(err <= b, f"trtri_stream_f32 n={n}: err {err} > {b}")
+        require(bool((torch.triu(W, 1) == 0).all()),
+                f"trtri_stream_f32 n={n}: strict upper not zero")
+        ms = bench_op(lambda x: trtri_stream_f32(x), F, reps=5) * 1e3
+        plain_ms = bench_op(lambda x: trtri_stream_plain(x), F, reps=5) * 1e3
+        print(f"trtri_stream_f32 n={n}: max err {err:.3e} (bound {b:.3e}); "
+              f"kernel {ms:.4f} ms, plain (solve_triangular) "
+              f"{plain_ms:.4f} ms on {on}")
+        if n == 4096:
+            rec["trtri_stream_f32"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms)
+            Z = F.clone()
+            Z[9, 9] = 0.0
+            W, info = trtri_stream_f32(Z)
+            require(int(info) == 10 and bool(torch.isfinite(W).all()),
+                    f"trtri_stream zero diagonal: info {int(info)}")
+    print("trtri_stream_f32 zero diagonal L[9,9]=0 at n=4096: info 10, finite")
+
+
+def check_lauum_stream(gen, rec, on):
+    for n in (4096, 8192):
+        F, info = ct.potrf("L", spd(gen, n))
+        L = torch.tril(F)
+        want = lauum_stream_plain(L)
+        L[torch.ones_like(L, dtype=torch.bool).triu(1)] = float("nan")
+        B = lauum_stream_f32(L)
+        require(bool(torch.isfinite(B).all()),
+                f"lauum_stream_f32 n={n} read the NaN strict upper")
+        require(bool((torch.triu(B, 1) == 0).all()),
+                f"lauum_stream_f32 n={n}: strict upper not zero")
+        err = max_err(B, want)
+        b = bound(2 * n + 3, float(want.abs().max()))
+        require(err <= b, f"lauum_stream_f32 n={n}: err {err} > {b}")
+        ms = bench_op(lambda x: lauum_stream_f32(x), L, reps=5) * 1e3
+        plain_ms = bench_op(lambda x: lauum_stream_plain(x), L, reps=5) * 1e3
+        print(f"lauum_stream_f32 n={n}: max err {err:.3e} (bound {b:.3e}), "
+              f"NaN strict upper unread; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms on {on}")
+        if n == 8192:
+            rec["lauum_stream_f32"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms)
+
+
+def check_lauu2(gen, rec, on):
+    for n in (128, 512):
+        # a leaf of the working buffer: a view with a longer row
+        buf = torch.randn(n, 2 * n, device="cuda", generator=gen)
+        A = buf[:, n // 2:n // 2 + n]
+        B = lauu2_f32(A)
+        want = lauu2_plain(A)
+        err = max_err(torch.tril(B), torch.tril(want))
+        b = bound(2 * n + 3, float(want.abs().max()))
+        require(err <= b, f"lauu2_f32 n={n}: err {err} > {b}")
+        up = torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1)
+        require(torch.equal(B[up], A[up]),
+                f"lauu2_f32 n={n}: strict upper not passed through")
+        ms = bench_op(lambda x: lauu2_f32(x), A) * 1e3
+        plain_ms = bench_op(lambda x: lauu2_plain(x), A) * 1e3
+        print(f"lauu2_f32 n={n}: max err {err:.3e} (bound {b:.3e}), strict "
+              f"upper passed through bit for bit; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms on {on}")
+        if n == 512:
+            rec["lauu2_f32"] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms)
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path through the public API
+# phase 4: the potrf path through the public API
 # ---------------------------------------------------------------------------
 
 def backward_error(F, A, uplo="L"):
@@ -215,17 +377,25 @@ def backward_error(F, A, uplo="L"):
     return float((L @ L.T - A.double()).abs().max())
 
 
-def main_path(gen, name_power):
-    inputs = {n: spd(gen, n) for n in (4096, 8192)}
+def run_path(name, fn):
+    """Drive one path with every launch counter at 0; returns what fn
+    returns and the path's launch counts, which must be > 0 for each
+    kernel PATHS gives it."""
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    out = {n: (ct.potrf("L", A), ct.logdet("L", A))
-           for n, A in inputs.items()}
+    out = fn()
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    print(f"main path launches: {launches}")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel of the path was not launched: {launches}")
+    print(f"{name} launches: {launches}")
+    require(all(launches[k] > 0 for k in PATHS[name]),
+            f"{name}: a kernel of the path was not launched: {launches}")
+    return out, launches
+
+
+def main_path(gen, name_power):
+    inputs = {n: spd(gen, n) for n in (4096, 8192)}
+    out, launches = run_path("potrf", lambda: {
+        n: (ct.potrf("L", A), ct.logdet("L", A)) for n, A in inputs.items()})
     for n, ((F, info), (ld, info2)) in out.items():
         A = inputs[n]
         require(int(info) == 0 and int(info2) == 0,
@@ -240,6 +410,14 @@ def main_path(gen, name_power):
               f"logdet {float(ld):.6f} vs f64 slogdet {ref:.6f}, rel err "
               f"{rel:.3e} (bound n·eps {n * EPS32:.3e})")
     del out
+    # the blocked recursion over 512 leaves, as a block size asks
+    A = inputs[4096]
+    (F, info), blocked = run_path(
+        "potrf block_size=512", lambda: ct.potrf("L", A, block_size=512))
+    be = backward_error(F, A)
+    require(int(info) == 0 and be <= bound(4096, float(A.abs().max())),
+            f"potrf block_size=512: info {int(info)}, backward error {be}")
+    print(f"spotrf n=4096 block_size=512: info 0, max|LLᵀ-A| {be:.3e}")
     # upper at n = 1024 (the whole-block route)
     A = spd(gen, 1024)
     F, info = ct.potrf("U", A)
@@ -261,22 +439,252 @@ def main_path(gen, name_power):
     for n, A in inputs.items():
         t = bench_op(lambda a: ct.potrf("L", a), A, reps=5)
         t_ref = bench_op(lambda a: torch.linalg.cholesky(a), A, reps=5)
+        t_blk = bench_op(lambda a: ct.potrf("L", a, block_size=512), A,
+                         reps=5)
         print(f"spotrf n={n}: port {flops_potrf(n) / t / 1e9:.1f} GF/s "
               f"({t * 1e3:.3f} ms), torch.linalg.cholesky "
               f"{flops_potrf(n) / t_ref / 1e9:.1f} GF/s ({t_ref * 1e3:.3f} "
+              f"ms); port with block_size=512 "
+              f"{flops_potrf(n) / t_blk / 1e9:.1f} GF/s ({t_blk * 1e3:.3f} "
               f"ms) on {name_power}")
-    return launches
+    return {"potrf": launches, "potrf block_size=512": blocked}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the GP model's train step and prediction, n = 8192, d = 8
+# ---------------------------------------------------------------------------
+
+GP_N, GP_D, GP_M = 8192, 8, 1024
+
+
+def gp_linalg(params, X, y, dtype, route="cholesky_inverse"):
+    """NLL and gradients of the same model on torch.linalg (cuSOLVER) in
+    ``dtype``: the f64 oracle, and in f32 the yardsticks. K⁻¹ comes from
+    ``torch.cholesky_inverse``, or with route="potri" from the algorithm
+    the port and LAPACK's potri use, W = L⁻¹ by a triangular solve against
+    the identity and then WᵀW. Never the port."""
+    p = [v.to(dtype) for v in params]
+    X, y = X.to(dtype), y.to(dtype)
+    n = X.shape[0]
+    amp, ell2 = torch.exp(2.0 * p[0]), torch.exp(2.0 * p[1])
+    noise = torch.exp(2.0 * p[2])
+    D = gp._sqdist(X, X)
+    Kf = amp * torch.exp(-0.5 * D / ell2)
+    K = Kf.clone()
+    K.diagonal().add_(noise + 1e-6)
+    L = torch.linalg.cholesky(K)
+    z = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+    alpha = torch.linalg.solve_triangular(L.T, z, upper=True)[:, 0]
+    nll = 0.5 * (torch.sum(z * z) + 2.0 * torch.log(L.diagonal()).sum()
+                 + n * math.log(2.0 * math.pi))
+    if route == "potri":
+        Wi = torch.linalg.solve_triangular(
+            L, torch.eye(n, dtype=dtype, device=L.device), upper=False)
+        Kinv = Wi.T @ Wi
+    else:
+        Kinv = torch.cholesky_inverse(L)
+    W = Kinv - alpha[:, None] * alpha[None, :]
+    grads = (0.5 * torch.sum(W * 2.0 * Kf),
+             0.5 * torch.sum(W * Kf * (D / ell2)),
+             0.5 * torch.trace(W) * 2.0 * noise)
+    return nll, grads
+
+
+def linalg_step(params, X, y, lr):
+    nll, g = gp_linalg(params, X, y, torch.float32)
+    return [p - lr * gi for p, gi in zip(params, g)], nll
+
+
+#: the port's error may be at most this multiple of the worse of the two
+#: f32 torch.linalg yardsticks' errors on the same quantity
+YARD_MULT = 4.0
+
+
+def held(yard_err, limit):
+    """The stated limit, or twice the f32 torch.linalg yardstick's own
+    error where that yardstick misses the limit."""
+    return limit if yard_err <= limit else 2.0 * yard_err
+
+
+def wall_ms(fn, reps=3):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2] * 1e3
+
+
+def gp_path(name_power, dev="cuda"):
+    g = torch.Generator(device=dev).manual_seed(1)
+    X = torch.rand(GP_N, GP_D, device=dev, generator=g) * 2.0 - 1.0
+    w = torch.randn(GP_D, device=dev, generator=g)
+    y = torch.sin(3.0 * X @ w / math.sqrt(GP_D)) + 0.1 * torch.randn(
+        GP_N, device=dev, generator=g)
+    Xs = torch.rand(GP_M, GP_D, device=dev, generator=g) * 2.0 - 1.0
+    F4 = torch.tril(ct.potrf("L", spd(g, 4096, 30.0))[0])
+    A2 = torch.tril(ct.potrf("L", spd(g, 2048, 30.0))[0])
+    p0 = gp.GPParams.init(device=dev)
+
+    def train_and_predict():
+        nll0, g0, info0 = gp.gp_nll_and_grads(p0, X, y)
+        # a step of 0.05 in the largest coordinate: plain gradient steps
+        # at lr = 1e-2 overshoot at n = 8192, where the gradients grow
+        # with n
+        lr = 0.05 / max(abs(float(v)) for v in g0)
+        p, nlls, infos = p0, [], []
+        for _ in range(3):
+            p, nll, info = gp.gp_train_step(p, X, y, lr=lr)
+            nlls.append(float(nll))
+            infos.append(int(info))
+        mean, var, info_p = gp.gp_predict(p, X, y, Xs)
+        return nll0, g0, info0, lr, p, nlls, infos, mean, var, info_p
+
+    (nll0, g0, info0, lr, p, nlls, infos, mean, var, info_p), gp_l = \
+        run_path("GP", train_and_predict)
+
+    # the train steps: info 0, a decreasing NLL
+    require(int(info0) == 0 and infos == [0, 0, 0] and int(info_p) == 0,
+            f"GP info {int(info0)}, steps {infos}, predict {int(info_p)}")
+    require(nlls[0] > nlls[1] > nlls[2],
+            f"GP NLL does not decrease over three steps: {nlls}")
+    print(f"GP n={GP_N} d={GP_D}: lr {lr:.4e}; three train steps, info 0 "
+          f"each, NLL {nlls[0]:.4f} > {nlls[1]:.4f} > {nlls[2]:.4f}; "
+          f"params {[round(float(v), 6) for v in p]}")
+
+    # the first step against the f64 oracle, beside two f32 yardsticks:
+    # torch.cholesky_inverse, and potri's own algorithm on torch.linalg
+    nll64, g64 = gp_linalg(p0, X, y, torch.float64)
+    nll32, g32 = gp_linalg(p0, X, y, torch.float32)
+    _, g32p = gp_linalg(p0, X, y, torch.float32, route="potri")
+    rel = abs(float(nll0) - float(nll64)) / abs(float(nll64))
+    rel32 = abs(float(nll32) - float(nll64)) / abs(float(nll64))
+    lim = held(rel32, 1e-3)
+    require(rel <= lim and rel <= YARD_MULT * rel32,
+            f"GP NLL rel err {rel} > {lim} or > {YARD_MULT}x {rel32}")
+    print(f"GP NLL {float(nll0):.6f} vs f64 {float(nll64):.6f}: rel err "
+          f"{rel:.3e} (f32 torch.linalg {rel32:.3e}; limits {lim:.1e} and "
+          f"{YARD_MULT:g}x the yardstick)")
+    for name, a, r, y32, y32p in zip(gp.GPParams._fields, g0, g64, g32,
+                                     g32p):
+        scale = max(1.0, abs(float(r)))
+        e = abs(float(a) - float(r))
+        e32, e32p = abs(float(y32) - float(r)), abs(float(y32p) - float(r))
+        lim = held(e32, 1e-2 * scale)
+        lim_y = YARD_MULT * max(e32, e32p)
+        require(e <= lim and e <= lim_y,
+                f"GP gradient {name}: err {e} > {lim} or > {lim_y}")
+        print(f"GP gradient {name} {float(a):.6f} vs f64 {float(r):.6f}: "
+              f"err {e:.3e} (f32 torch.linalg: cholesky_inverse {e32:.3e}, "
+              f"potri's algorithm {e32p:.3e}; limits {lim:.3e} and "
+              f"{lim_y:.3e})")
+
+    # the prediction against the f64 posterior on the same parameters
+    K64 = gp._kmatrix(gp.GPParams(*(v.double() for v in p)), X.double())
+    L64 = torch.linalg.cholesky(K64)
+    Ks64 = gp.rbf_kernel(gp.GPParams(*(v.double() for v in p)), X.double(),
+                         Xs.double())
+    a64 = torch.cholesky_solve(y.double()[:, None], L64)[:, 0]
+    V64 = torch.linalg.solve_triangular(L64, Ks64, upper=False)
+    mean64 = Ks64.T @ a64
+    var64 = torch.exp(2.0 * p[0].double()) - torch.sum(V64 * V64, dim=0)
+    require(mean.shape == var.shape == (GP_M,)
+            and bool(torch.isfinite(mean).all() & torch.isfinite(var).all()),
+            "GP predict: shape or finiteness")
+    em, ev = max_err(mean, mean64), max_err(var, var64)
+    lm = 1e-2 * max(1.0, float(mean64.abs().max()))
+    lv = 1e-2 * max(1.0, float(var64.abs().max()))
+    require(em <= lm and ev <= lv, f"GP predict: mean err {em}, var err {ev}")
+    print(f"GP predict on {GP_M} points: mean err {em:.3e} (limit {lm:.3e}), "
+          f"var err {ev:.3e} (limit {lv:.3e}) against f64")
+    del K64, L64, Ks64, V64
+
+    # potri on the whole-matrix route, held against the f64 inverse beside
+    # both f32 yardsticks on the same factor
+    (inv4, info4), potri_l = run_path("potri", lambda: ct.potri("L", F4))
+    require(int(info4) == 0, "potri n=4096 info")
+    inv64 = torch.cholesky_inverse(F4.double())
+    W4 = torch.linalg.solve_triangular(
+        F4, torch.eye(4096, device=dev), upper=False)
+    yards = {"cholesky_inverse": torch.cholesky_inverse(F4),
+             "potri's algorithm": W4.T @ W4}
+    low = torch.ones(4096, 4096, dtype=torch.bool, device=dev).tril_()
+
+    def errs(R):
+        d = torch.where(low, R.double() - inv64, 0.0)
+        return (float(d.abs().max()),
+                float(d.norm() / torch.where(low, inv64, 0.0).norm()))
+
+    e4, r4 = errs(inv4)
+    ye = {k: errs(v) for k, v in yards.items()}
+    lim4 = YARD_MULT * max(v[0] for v in ye.values())
+    require(e4 <= lim4 and r4 <= 1e-4,
+            f"potri n=4096: err {e4} > {lim4} or relative {r4} > 1e-4")
+    print(f"potri n=4096: max err {e4:.3e}, relative Frobenius {r4:.3e} vs "
+          f"f64 cholesky_inverse; f32 yardsticks "
+          + ", ".join(f"{k} {v[0]:.3e} / {v[1]:.3e}" for k, v in ye.items())
+          + f"; limits {lim4:.3e} and 1e-4")
+    del yards, W4
+
+    # lauum on 512 leaves
+    lau2, lauum_l = run_path("lauum block_size=512",
+                             lambda: ct.lauum("L", A2, block_size=512))
+    e2 = max_err(torch.tril(lau2), lauum_stream_plain(A2))
+    b2 = bound(2 * 2048 + 3, float(lau2.abs().max()))
+    require(e2 <= b2, f"lauum block_size=512 n=2048: err {e2} > {b2}")
+    print(f"lauum n=2048 on 512 leaves: max err {e2:.3e} (bound {b2:.3e})")
+
+    # times, beside torch.linalg yardsticks (never the port)
+    step_ms = wall_ms(lambda: gp.gp_train_step(p0, X, y, lr=lr))
+    yard_ms = wall_ms(lambda: linalg_step(p0, X, y, lr))
+    print(f"GP train step n={GP_N} d={GP_D}: port {step_ms:.3f} ms, f32 "
+          f"torch.linalg {yard_ms:.3f} ms on {name_power}")
+    fl = 2 * 4096 ** 3 / 3
+    t = bench_op(lambda f: ct.potri("L", f), F4, reps=5)
+    t_ref = bench_op(lambda f: torch.cholesky_inverse(f), F4, reps=5)
+    print(f"spotri n=4096: port {fl / t / 1e9:.1f} GF/s ({t * 1e3:.3f} ms), "
+          f"torch.cholesky_inverse {fl / t_ref / 1e9:.1f} GF/s "
+          f"({t_ref * 1e3:.3f} ms) on {name_power}")
+    return {"GP": gp_l, "potri": potri_l, "lauum block_size=512": lauum_l}
+
+
+#: each path's kernels: the launch counters must show every one of them
+PATHS = {
+    "potrf": ("potrf_stream_f32",),
+    "potrf block_size=512": ("gemm_f32", "syrk_lower_f32", "potrf_block_f32",
+                             "trtri_block_f32"),
+    "GP": ("gemm_f32", "trtri_block_f32", "potrf_stream_f32",
+           "trtri_stream_f32", "lauum_stream_f32"),
+    "potri": ("trtri_stream_f32", "lauum_stream_f32"),
+    "lauum block_size=512": ("gemm_f32", "syrk_lower_f32", "lauu2_f32"),
+}
+
+#: each kernel: its source, the TPU kernel it replaces, and the path whose
+#: run gives its launch count in the kernels line
 SOURCES = {
     "gemm_f32": ("cholesky_tpu_torch/ops/kernels/csrc/gemm.cu",
-                 "cholesky_tpu/ops/pallas/gemm.py:64"),
+                 "cholesky_tpu/ops/pallas/gemm.py:64", "GP"),
     "syrk_lower_f32": ("cholesky_tpu_torch/ops/kernels/csrc/syrk.cu",
-                       "cholesky_tpu/ops/pallas/syrk.py:70"),
+                       "cholesky_tpu/ops/pallas/syrk.py:70",
+                       "potrf block_size=512"),
     "potrf_block_f32": ("cholesky_tpu_torch/ops/kernels/csrc/potrf_block.cu",
-                        "cholesky_tpu/ops/pallas/mega.py:234"),
+                        "cholesky_tpu/ops/pallas/mega.py:234",
+                        "potrf block_size=512"),
+    "potrf_stream_f32": ("cholesky_tpu_torch/ops/kernels/csrc/"
+                         "potrf_stream.cu",
+                         "cholesky_tpu/ops/pallas/mega.py:364", "GP"),
     "trtri_block_f32": ("cholesky_tpu_torch/ops/kernels/csrc/trtri_block.cu",
-                        "cholesky_tpu/ops/pallas/mega.py:519"),
+                        "cholesky_tpu/ops/pallas/mega.py:519", "GP"),
+    "trtri_stream_f32": ("cholesky_tpu_torch/ops/kernels/csrc/trtri_stream.cu",
+                         "cholesky_tpu/ops/pallas/mega.py:656", "GP"),
+    "lauum_stream_f32": ("cholesky_tpu_torch/ops/kernels/csrc/lauum.cu",
+                         "cholesky_tpu/ops/pallas/mega.py:444", "GP"),
+    "lauu2_f32": ("cholesky_tpu_torch/ops/kernels/csrc/lauum.cu",
+                  "cholesky_tpu/ops/pallas/leaf.py:297",
+                  "lauum block_size=512"),
 }
 
 
@@ -310,16 +718,24 @@ def main() -> int:
     check_gemm(gen, rec, name_power)
     check_syrk(gen, rec, name_power)
     check_potrf_block(gen, rec, name_power)
+    check_potrf_stream(gen, rec, name_power)
     check_trtri_block(gen, rec, name_power)
+    check_trtri_stream(gen, rec, name_power)
+    check_lauum_stream(gen, rec, name_power)
+    check_lauu2(gen, rec, name_power)
 
-    # 4. main path
-    launches = main_path(gen, name_power)
+    # 4. the potrf path
+    runs = main_path(gen, name_power)
+
+    # 5. the GP model, potri, lauum on leaves
+    runs.update(gp_path(name_power))
     require("jax" not in sys.modules, "jax was imported")
 
-    kernels = [dict(name=k, route="cuda", source=SOURCES[k][0],
-                    replaces=SOURCES[k][1], launches=launches[k], **rec[k])
-               for k in SOURCES]
-    print(json.dumps({"kernels": kernels}))
+    # each kernel's launches from the run of the path it serves
+    rows = [dict(name=k, route="cuda", source=src, replaces=tpu, path=path,
+                 launches=runs[path][k], **rec[k])
+            for k, (src, tpu, path) in SOURCES.items()]
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

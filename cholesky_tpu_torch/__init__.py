@@ -1,18 +1,23 @@
 """cholesky_tpu_torch: the PyTorch and CUDA port of cholesky_tpu.
 
-The ported slice is f32 (and, through the torch tile, f64) ``potrf`` and
-``logdet``, lower and upper, with LAPACK ``info`` semantics. On an NVIDIA
-Hopper card a float32 tensor runs through four hand-written CUDA kernels
+The ported slice is f32 (and, through the torch tile, f64) ``potrf``,
+``logdet``, ``trtri``/``trtri2``/``trti2``, ``lauum``/``lauu2``, ``potri``
+and ``trsm``, with LAPACK ``info`` semantics, and the Gaussian-process
+model built on them (``cholesky_tpu_torch.models``). On an NVIDIA Hopper
+card a float32 tensor runs through seven hand-written CUDA kernels
 (ops/kernels/); a CPU tensor runs through plain torch. ``cholesky_tpu``
 stays the reference the port is tested against.
 """
 
-from cholesky_tpu_torch.ops.api import logdet, logdet_from_factor, potrf
+from cholesky_tpu_torch.ops.api import (lauu2, lauum, logdet,
+                                        logdet_from_factor, potrf, potri,
+                                        trsm, trti2, trtri, trtri2)
 from cholesky_tpu_torch.types import Diag, Side, Trans, Uplo
 from cholesky_tpu_torch.utils.errors import set_error_handler, set_xerbla
 
 __all__ = [
     "potrf", "logdet", "logdet_from_factor",
+    "trtri", "trtri2", "trti2", "lauum", "lauu2", "potri", "trsm",
     "Side", "Uplo", "Trans", "Diag",
     "set_error_handler", "set_xerbla",
 ]

@@ -1,0 +1,6 @@
+from cholesky_tpu_torch.models.gp import (GPParams, gp_nll, gp_nll_and_grads,
+                                          gp_predict, gp_train_step,
+                                          params_from_jax, rbf_kernel)
+
+__all__ = ["GPParams", "gp_nll", "gp_nll_and_grads", "gp_predict",
+           "gp_train_step", "params_from_jax", "rbf_kernel"]

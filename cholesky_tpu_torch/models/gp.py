@@ -1,0 +1,143 @@
+"""Gaussian-process regression on the library: the port of
+``cholesky_tpu/models/gp.py``, the flagship application model.
+
+    NLL(θ) = ½ yᵀK⁻¹y + ½ log|K| + n/2·log 2π,   K = k_θ(X,X) + σₙ²I
+
+- factorization:    potrf (on the card: the blocked recursion over the
+                    CUDA kernels)
+- solves:           trsm twice through the factor
+- log-determinant:  logdet_from_factor
+- gradients:        the closed form ∂NLL/∂θ = ½ tr((K⁻¹ − ααᵀ)·∂K/∂θ),
+                    α = K⁻¹y, with K⁻¹ from potri: no autograd through the
+                    factorization and no optimizer object.
+
+Plain functions on tensors: everything runs on the device of X, and the
+parameters are 0-d tensors on that device. One train step runs potrf, two
+trsm, potri (trtri then lauum) and logdet together.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cholesky_tpu_torch.ops import api as ops
+
+
+class GPParams(NamedTuple):
+    log_amp: torch.Tensor      # log marginal variance
+    log_len: torch.Tensor      # log length-scale
+    log_noise: torch.Tensor    # log noise stddev
+
+    @staticmethod
+    def init(dtype=torch.float32, device=None):
+        def scalar(v):
+            return torch.tensor(v, dtype=dtype, device=device)
+        return GPParams(scalar(0.0), scalar(0.0), scalar(-1.0))
+
+
+def params_from_jax(p, device=None) -> GPParams:
+    """The port's parameters from the JAX package's ``GPParams`` (or any
+    triple of numpy-convertible scalars), dtype kept: the state carried
+    across the two packages."""
+    return GPParams(*(torch.from_numpy(np.array(v)).to(device) for v in p))
+
+
+def _sqdist(X1, X2):
+    """Squared distances in the difference form of the JAX package, which
+    rounds as it does, accumulated one feature at a time so that no
+    (n, m, d) temporary is made."""
+    D = torch.zeros((X1.shape[0], X2.shape[0]), dtype=X1.dtype,
+                    device=X1.device)
+    for f in range(X1.shape[1]):
+        d = X1[:, f, None] - X2[None, :, f]
+        D += d * d
+    return D
+
+
+def rbf_kernel(params: GPParams, X1, X2=None):
+    X2 = X1 if X2 is None else X2
+    amp = torch.exp(2.0 * params.log_amp)
+    ell2 = torch.exp(2.0 * params.log_len)
+    return amp * torch.exp(-0.5 * _sqdist(X1, X2) / ell2)
+
+
+def _kmatrix(params: GPParams, X, jitter=1e-6):
+    noise = torch.exp(2.0 * params.log_noise)
+    K = rbf_kernel(params, X)
+    K.diagonal().add_(noise + jitter)
+    return K
+
+
+def gp_nll(params: GPParams, X, y, backend: str = "auto"):
+    """Negative log marginal likelihood via potrf/trsm/logdet. Returns
+    (nll, info)."""
+    n = X.shape[0]
+    K = _kmatrix(params, X)
+    F, info = ops.potrf("L", K, backend=backend)
+    ld = ops.logdet_from_factor(F)
+    z = ops.trsm("L", "L", "N", "N", 1.0, F, y[:, None], backend=backend)
+    quad = torch.sum(z * z)
+    return 0.5 * (quad + ld + n * math.log(2.0 * math.pi)), info
+
+
+def gp_nll_and_grads(params: GPParams, X, y, backend: str = "auto"):
+    """NLL and its exact gradients w.r.t. (log_amp, log_len, log_noise):
+    ∂NLL/∂θ = ½·Σᵢⱼ Wᵢⱼ·(∂K/∂θ)ᵢⱼ with W = K⁻¹ − ααᵀ, K⁻¹ from potri.
+    Returns (nll, GPParams of gradients, info)."""
+    n = X.shape[0]
+    # each n² buffer is dropped once consumed: at n = 8192 one is 256 MB
+    K = _kmatrix(params, X)
+    F, info = ops.potrf("L", K, backend=backend)
+    del K
+    ld = ops.logdet_from_factor(F)
+    z = ops.trsm("L", "L", "N", "N", 1.0, F, y[:, None], backend=backend)
+    alpha = ops.trsm("L", "L", "T", "N", 1.0, F, z, backend=backend)[:, 0]
+    nll = 0.5 * (torch.sum(z * z) + ld + n * math.log(2.0 * math.pi))
+
+    Kinv_tri, _ = ops.potri("L", F, backend=backend)
+    del F
+    Kinv = torch.tril(Kinv_tri) + torch.tril(Kinv_tri, -1).T
+    del Kinv_tri
+    W = Kinv - alpha[:, None] * alpha[None, :]
+    del Kinv
+
+    amp = torch.exp(2.0 * params.log_amp)
+    ell2 = torch.exp(2.0 * params.log_len)
+    D = _sqdist(X, X)
+    Kf = amp * torch.exp(-0.5 * D / ell2)     # noise-free kernel
+    dK_damp = 2.0 * Kf                        # ∂K/∂log_amp
+    dK_dlen = Kf * (D / ell2)                 # ∂K/∂log_len
+    noise = torch.exp(2.0 * params.log_noise)
+
+    g_amp = 0.5 * torch.sum(W * dK_damp)
+    g_len = 0.5 * torch.sum(W * dK_dlen)
+    g_noise = 0.5 * torch.trace(W) * 2.0 * noise
+    return nll, GPParams(g_amp, g_len, g_noise), info
+
+
+def gp_train_step(params: GPParams, X, y, lr=1e-2, backend: str = "auto"):
+    """One gradient step on the hyperparameters. Returns
+    (params', nll, info)."""
+    nll, g, info = gp_nll_and_grads(params, X, y, backend=backend)
+    new = GPParams(*(p - lr * gi for p, gi in zip(params, g)))
+    return new, nll, info
+
+
+def gp_predict(params: GPParams, X, y, Xs, backend: str = "auto"):
+    """Posterior mean and variance at the test points Xs. Returns
+    (mean, var, info)."""
+    K = _kmatrix(params, X)
+    F, info = ops.potrf("L", K, backend=backend)
+    del K
+    Ks = rbf_kernel(params, X, Xs)            # (n, m)
+    alpha = ops.trsm("L", "L", "T", "N", 1.0, F,
+                     ops.trsm("L", "L", "N", "N", 1.0, F, y[:, None],
+                              backend=backend), backend=backend)[:, 0]
+    mean = Ks.T @ alpha
+    V = ops.trsm("L", "L", "N", "N", 1.0, F, Ks, backend=backend)
+    var = rbf_kernel(params, Xs, Xs).diagonal() - torch.sum(V * V, dim=0)
+    return mean, var, info

@@ -4,6 +4,16 @@ from __future__ import annotations
 
 from cholesky_tpu_torch.ops import dispatch as _dispatch
 
+# BLAS L3
+trsm = _dispatch.trsm
+
+# LAPACK
 potrf = _dispatch.potrf
+trtri = _dispatch.trtri
+trtri2 = _dispatch.trtri2
+trti2 = _dispatch.trti2
+lauum = _dispatch.lauum
+lauu2 = _dispatch.lauu2
+potri = _dispatch.potri
 logdet = _dispatch.logdet
 logdet_from_factor = _dispatch.logdet_from_factor

@@ -1,23 +1,25 @@
-"""Blocked single-device f32/f64 potrf and logdet.
+"""Blocked single-device f32/f64 potrf, logdet, trtri, lauum, potri, trsm.
 
-The counterpart of the potrf path of ``cholesky_tpu/ops/blocked.py``: the
-same halving recursion (``_potrf_lower``), the same panel solve by the
-inverse of each leaf (``_trsm_rlt``), identity padding to a block-size
-multiple, and upper canonicalized to lower by transposition.
+The counterpart of ``cholesky_tpu/ops/blocked.py`` for these routines: the
+same halving recursions (``_potrf_lower``, ``_trtri_lower``,
+``_lauum_lower``, ``_trsm_lln``/``_trsm_llt``), the same solves by the
+inverse of each leaf, identity padding to a block-size multiple, and upper
+(and right-side) cases canonicalized to lower-left by transposition.
 
-Where PyTorch differs from JAX, the port works in place: ``potrf`` copies
-the caller's matrix ONCE into a padded, row-major working buffer
-(``_pad_identity``), and the recursion then writes L21, the updated A22
-and every factor into views of that buffer, so it needs no concatenation.
-The caller's tensor is never modified. ``info`` stays a 0-d int32 tensor on
+Where PyTorch differs from JAX, the port works in place: each routine
+copies the caller's matrix ONCE into a row-major working buffer
+(``_working_copy``, padded with identity where the recursion needs it),
+and the recursion then writes every block of the result into views of
+that buffer, so it needs no concatenation. The caller's tensors are never
+modified. ``info`` stays a 0-d int32 tensor on
 the operand's device, combined with ``torch.where``: nothing inside the
 recursion waits for the device.
 
 Tile backends:
   'torch'   torch matmuls (TF32 off, see config.py) and the oracle tier's
             sweeps at the leaves: f32 and f64, any device (the CPU path).
-  'cuda'    the four hand-written CUDA kernels (ops/kernels/): f32 on a
-            CUDA device.
+  'cuda'    the hand-written CUDA kernels (ops/kernels/): f32 on a CUDA
+            device.
   'auto'    'cuda' for a float32 CUDA tensor, 'torch' for a CPU tensor.
 """
 
@@ -28,23 +30,25 @@ from typing import Optional
 import torch
 
 from cholesky_tpu_torch import config  # noqa: F401  (TF32 off)
-from cholesky_tpu_torch.ops import lapack_ref
+from cholesky_tpu_torch.ops import blas_ref, lapack_ref
 from cholesky_tpu_torch.ops import kernels as _k
 from cholesky_tpu_torch.ops.kernels import gemm as _gemm
+from cholesky_tpu_torch.ops.kernels import leaf as _leaf
 from cholesky_tpu_torch.ops.kernels import mega as _mega
 from cholesky_tpu_torch.ops.kernels import syrk as _syrk
 from cholesky_tpu_torch.tuning import get_params
-from cholesky_tpu_torch.types import Uplo, norm_uplo
+from cholesky_tpu_torch.types import (Diag, Side, Trans, Uplo, norm_diag,
+                                      norm_side, norm_trans, norm_uplo)
 from cholesky_tpu_torch.utils.errors import check
 
 BACKENDS = ("auto", "ref", "torch", "cuda")
 
-
 def _mega_ok(n: int, op: str = "potrf") -> bool:
-    """Can one whole-block kernel take this block? Up to the smaller of
-    the kernels' cap and the tuned ``{op}_f32.mega_max_n``, and, as in the
-    JAX package, n <= NB or a multiple of NB."""
-    cap = min(_mega.MAX_N, int(get_params(f"{op}_f32")["mega_max_n"]))
+    """Can one whole-matrix kernel take this block? Up to the smaller of
+    the *_stream_f32 kernels' cap and the tuned ``{op}_f32.mega_max_n``,
+    and, as in the JAX package, n <= NB or a multiple of NB (the
+    *_block_f32 kernels take n <= 1024, the stream kernels the rest)."""
+    cap = min(_mega.STREAM_MAX_N, int(get_params(f"{op}_f32")["mega_max_n"]))
     return 0 < n <= cap and (n <= _mega.NB or n % _mega.NB == 0)
 
 
@@ -57,8 +61,20 @@ def _round_up(x: int, m: int) -> int:
 #   mm(A, B, C=None, *, alpha, beta, out)  D = alpha·A·B + beta·C (into out)
 #   syrk_ln(alpha, A, beta, C)             lower C += ..., in place
 #   potf2(A) -> info                       lower factor of A, in place
-#   trti2(L) -> (W, info)                  W = tril(L)⁻¹, a new tensor
+#   trti2(L, unit) -> (W, info)            W = tril(L)⁻¹, a new tensor
+#   lauu2(L) -> B                          tril(LᵀL) below, L's strict
+#                                          upper above, a new tensor
 # ---------------------------------------------------------------------------
+
+def _unit_inverse(kern, L):
+    """The unit-diagonal inverse through a non-unit kernel (the JAX
+    package's trick, ``blocked.py:201-209``): invert tril(L, -1) + I, then
+    put L's own diagonal back, which LAPACK passes through untouched."""
+    n = L.shape[0]
+    W, info = kern(torch.tril(L, -1) + torch.eye(n, dtype=L.dtype,
+                                                 device=L.device))
+    return torch.tril(W, -1) + torch.diag(torch.diagonal(L)), info
+
 
 class _TorchTiles:
     """Tiles over plain torch (the kernels' twins): f32 and f64, any
@@ -67,7 +83,13 @@ class _TorchTiles:
     mm = staticmethod(_gemm.gemm_plain)
     syrk_ln = staticmethod(_syrk.syrk_lower_plain)
     potf2 = staticmethod(_mega.potrf_block_plain)
-    trti2 = staticmethod(_mega.trtri_block_plain)
+    lauu2 = staticmethod(_leaf.lauu2_plain)
+
+    @staticmethod
+    def trti2(L, unit=False):
+        if unit:
+            return _unit_inverse(_mega.trtri_block_plain, L)
+        return _mega.trtri_block_plain(L)
 
 
 class _KernelTiles:
@@ -90,12 +112,30 @@ class _KernelTiles:
                 "128")
 
     def potf2(self, A):
-        self._require_mega(A.shape[0], "potrf")
-        return _k.potrf_block_f32(A)
+        """One whole-matrix kernel: potrf_block_f32 up to 1024, then
+        potrf_stream_f32 (JAX ``_PallasTiles.potf2``)."""
+        n = A.shape[0]
+        self._require_mega(n, "potrf")
+        kern = _k.potrf_block_f32 if n <= _mega.MAX_N else _k.potrf_stream_f32
+        return kern(A)
 
-    def trti2(self, L):
-        self._require_mega(L.shape[0], "trtri")
-        return _k.trtri_block_f32(L)
+    def trti2(self, L, unit=False):
+        """One whole-matrix kernel: trtri_block_f32 up to 1024, then
+        trtri_stream_f32 (JAX ``_PallasTiles.trti2``)."""
+        n = L.shape[0]
+        self._require_mega(n, "trtri")
+        kern = _k.trtri_block_f32 if n <= _mega.MAX_N else _k.trtri_stream_f32
+        return _unit_inverse(kern, L) if unit else kern(L)
+
+    @staticmethod
+    def lauu2(L):
+        n = L.shape[0]
+        if n > _mega.MAX_N:
+            raise NotImplementedError(
+                f"lauu2 of an f32 leaf of n={n} on the card: lauu2_f32 "
+                f"takes n <= {_mega.MAX_N}; use a block_size <= "
+                f"{_mega.MAX_N}")
+        return _k.lauu2_f32(L)
 
 
 def _tiles_for(A, backend: str):
@@ -144,6 +184,43 @@ def _trsm_rlt(L, B, t, nb):
     _trsm_rlt(L[n1:, n1:], B2, t, nb)
 
 
+def _force_unit_diag(T):
+    return T - torch.diag(torch.diagonal(T)) + torch.eye(
+        T.shape[0], dtype=T.dtype, device=T.device)
+
+
+def _trsm_lln(L, B, t, nb, unit):
+    """Solve L·X = B in place (B := X), left, lower, no transpose."""
+    n = L.shape[0]
+    if n <= nb:
+        T, _ = t.trti2(L, unit=unit)
+        if unit:
+            T = _force_unit_diag(T)
+        B.copy_(t.mm(T, B))         # the product reads all of B
+        return
+    n1 = _split(n, nb)
+    _trsm_lln(L[:n1, :n1], B[:n1], t, nb, unit)
+    B2 = B[n1:]                     # B2 -= M·X1, in place
+    t.mm(L[n1:, :n1], B[:n1], B2, alpha=-1.0, beta=1.0, out=B2)
+    _trsm_lln(L[n1:, n1:], B2, t, nb, unit)
+
+
+def _trsm_llt(L, B, t, nb, unit):
+    """Solve Lᵀ·X = B in place (B := X), left, lower, transposed."""
+    n = L.shape[0]
+    if n <= nb:
+        T, _ = t.trti2(L, unit=unit)
+        if unit:
+            T = _force_unit_diag(T)
+        B.copy_(t.mm(T.T, B))
+        return
+    n1 = _split(n, nb)
+    _trsm_llt(L[n1:, n1:], B[n1:], t, nb, unit)
+    B1 = B[:n1]                     # B1 -= Mᵀ·X2, in place
+    t.mm(L[n1:, :n1].T, B[n1:], B1, alpha=-1.0, beta=1.0, out=B1)
+    _trsm_llt(L[:n1, :n1], B1, t, nb, unit)
+
+
 def _potrf_lower(A, t, nb, allow_mega=False):
     """Factor the lower triangle of the view A in place; returns info.
     Entries above the diagonal of A outside its diagonal leaves are left
@@ -160,6 +237,52 @@ def _potrf_lower(A, t, nb, allow_mega=False):
     t.syrk_ln(-1.0, A[n1:, :n1], 1.0, A[n1:, n1:])
     i2 = _potrf_lower(A[n1:, n1:], t, nb, allow_mega)
     return torch.where(i1 > 0, i1, torch.where(i2 > 0, i2 + n1, 0))
+
+
+def _trtri_lower(L, t, nb, unit, allow_mega=False):
+    """Invert the lower-triangular view L in place; returns info. The
+    strict upper of L must be zero: the off-diagonal products read the
+    inverted diagonal blocks whole."""
+    n = L.shape[0]
+    # with the default block size, diagonal sub-blocks re-enter the
+    # whole-matrix kernels as soon as they fit (see _potrf_lower)
+    if n <= nb or (allow_mega and isinstance(t, _KernelTiles)
+                   and _mega_ok(n, "trtri")):
+        W, info = t.trti2(L, unit=unit)
+        L.copy_(W)
+        return info
+    n1 = _split(n, nb)
+    i1 = _trtri_lower(L[:n1, :n1], t, nb, unit, allow_mega)
+    i2 = _trtri_lower(L[n1:, n1:], t, nb, unit, allow_mega)
+    W1, W2 = L[:n1, :n1], L[n1:, n1:]
+    W1e = _force_unit_diag(W1) if unit else W1
+    W2e = _force_unit_diag(W2) if unit else W2
+    # M' = -W2·M·W1 (reference strtri.c column update, collapsed)
+    Mp = t.mm(W2e, L[n1:, :n1])
+    t.mm(Mp, W1e, alpha=-1.0, out=L[n1:, :n1])
+    return torch.where(i1 > 0, i1, torch.where(i2 > 0, i2 + n1, 0))
+
+
+def _lauum_lower(L, t, nb, allow_mega=False):
+    """tril(LᵀL) of the lower triangle of the view L, in place; the strict
+    upper of L is never read."""
+    n = L.shape[0]
+    if n <= nb:
+        L.copy_(t.lauu2(L))
+        return
+    # the whole-diagonal route (JAX blocked.py:678-680): the kernel is out
+    # of place, so its result is copied back into the view
+    if (allow_mega and isinstance(t, _KernelTiles) and n % _mega.NB == 0
+            and _mega_ok(n, "lauum")):
+        L.copy_(_k.lauum_stream_f32(L))
+        return
+    n1 = _split(n, nb)
+    L1, M, L2 = L[:n1, :n1], L[n1:, :n1], L[n1:, n1:]
+    B21 = t.mm(torch.tril(L2).T, M)         # L2ᵀ·M, before L2 is squared
+    _lauum_lower(L1, t, nb, allow_mega)
+    t.syrk_ln(1.0, M.T, 1.0, L1)            # B11 += MᵀM
+    _lauum_lower(L2, t, nb, allow_mega)
+    M.copy_(B21)
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +310,15 @@ def _pad_identity(A, nb):
     return W
 
 
+def _working_copy(A, t, nb, op, allow_mega):
+    """The working buffer of a routine: padded to a multiple of nb for the
+    recursion, or not padded at all when one whole-matrix kernel takes the
+    matrix (the recursion's top-level call then launches it)."""
+    n = A.shape[0]
+    whole = allow_mega and isinstance(t, _KernelTiles) and _mega_ok(n, op)
+    return _pad_identity(A, n if whole else nb)
+
+
 def _merge_triangle(result, original, uplo):
     """The uplo triangle from result, the opposite strict triangle from
     the caller's original matrix (reference storage semantics)."""
@@ -209,13 +341,9 @@ def _potrf_work(uplo, A, backend, block_size):
         return A.clone(), torch.zeros((), dtype=torch.int32,
                                       device=A.device)
     nb = block_size or t.default_nb
-    W = _to_lower(A, uplo)
-    # whole-matrix fast path: one kernel launch where it reaches
-    if block_size is None and isinstance(t, _KernelTiles) and _mega_ok(n):
-        Wp = _pad_identity(W, n)
-        return Wp, t.potf2(Wp)
-    Wp = _pad_identity(W, nb)
-    info = _potrf_lower(Wp, t, nb, allow_mega=block_size is None)
+    allow_mega = block_size is None
+    Wp = _working_copy(_to_lower(A, uplo), t, nb, "potrf", allow_mega)
+    info = _potrf_lower(Wp, t, nb, allow_mega)
     return Wp[:n, :n], info
 
 
@@ -238,3 +366,125 @@ def logdet(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
         return lapack_ref.logdet(uplo, A)
     F, info = _potrf_work(uplo, A, backend, block_size)
     return lapack_ref.logdet_from_factor(F), info
+
+
+def trti2(uplo, diag, A, backend: str = "auto"):
+    """Unblocked triangular inverse of one block: the oracle sweep, as in
+    the JAX package for real dtypes. Returns (A_inv, info)."""
+    return lapack_ref.trti2(uplo, diag, A)
+
+
+def lauu2(uplo, A, backend: str = "auto"):
+    """Unblocked triangular square of one block: the oracle, as in the JAX
+    package for real dtypes."""
+    return lapack_ref.lauu2(uplo, A)
+
+
+def trtri(uplo, diag, A, backend: str = "auto",
+          block_size: Optional[int] = None):
+    """Blocked triangular inverse (reference cuStrtri, strtri.c:369-472).
+    Returns (A_inv, info); A itself is not modified. A zero diagonal sets
+    info and is read as 1. With diag='U' the diagonal passes through
+    (every leaf puts it back, ``_unit_inverse``)."""
+    uplo = norm_uplo(uplo)
+    unit = norm_diag(diag) == Diag.UNIT
+    n = lapack_ref._square(A, "trtri")
+    if backend == "ref":
+        return lapack_ref.trtri(uplo, diag, A)
+    t = _tiles_for(A, backend)
+    if n == 0:
+        return A.clone(), torch.zeros((), dtype=torch.int32,
+                                      device=A.device)
+    nb = block_size or t.default_nb
+    allow_mega = block_size is None
+    # the recursion reads whole inverted blocks: the strict upper of the
+    # working copy is cleared
+    Wp = _working_copy(_to_lower(A, uplo), t, nb, "trtri", allow_mega)
+    Wp.tril_()
+    info = _trtri_lower(Wp, t, nb, unit, allow_mega)
+    return _merge_triangle(_from_lower(Wp[:n, :n], uplo), A, uplo), info
+
+
+def trtri2(uplo, diag, A, backend: str = "auto",
+           block_size: Optional[int] = None):
+    """Out-of-place variant (reference strtri2): every routine here is out
+    of place, so it is :func:`trtri`."""
+    return trtri(uplo, diag, A, backend=backend, block_size=block_size)
+
+
+def lauum(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
+    """Blocked triangular square (reference cuSlauum, slauum.c:197-305):
+    Lᵀ·L (lower) or U·Uᵀ (upper) in the uplo triangle, the opposite strict
+    triangle the caller's. A itself is not modified."""
+    uplo = norm_uplo(uplo)
+    n = lapack_ref._square(A, "lauum")
+    if backend == "ref":
+        return lapack_ref.lauum(uplo, A)
+    t = _tiles_for(A, backend)
+    if n == 0:
+        return A.clone()
+    nb = block_size or t.default_nb
+    allow_mega = block_size is None
+    Wp = _working_copy(_to_lower(A, uplo), t, nb, "lauum", allow_mega)
+    _lauum_lower(Wp, t, nb, allow_mega)
+    return _merge_triangle(_from_lower(Wp[:n, :n], uplo), A, uplo)
+
+
+def potri(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
+    """SPD inverse from the Cholesky factor: trtri then lauum, the pure
+    composition of every tier of the reference (spotri.c). Returns
+    (A_inv, info), the inverse in the uplo triangle."""
+    W, info = trtri(uplo, Diag.NON_UNIT, A, backend=backend,
+                    block_size=block_size)
+    return lauum(uplo, W, backend=backend, block_size=block_size), info
+
+
+# ---------------------------------------------------------------------------
+# BLAS
+# ---------------------------------------------------------------------------
+
+def _flip(transa):
+    return Trans.NO_TRANS if transa != Trans.NO_TRANS else Trans.TRANS
+
+
+def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
+         block_size: Optional[int] = None):
+    """Blocked triangular solve by the inverse of each leaf (reference
+    cuStrsm): B := alpha·op(A)⁻¹·B (left) or alpha·B·op(A)⁻¹ (right).
+    Real dtypes; alpha a Python number. Returns a new tensor; A and B are
+    not modified."""
+    side = norm_side(side)
+    uplo = norm_uplo(uplo)
+    transa = norm_trans(transa)
+    diag = norm_diag(diag)
+    if backend == "ref":
+        return blas_ref.trsm(side, uplo, transa, diag, alpha, A, B)
+    check(isinstance(alpha, (int, float)) and not isinstance(alpha, bool),
+          "trsm", 5, f"alpha must be a Python number, got {type(alpha)}")
+    # canonicalize: side=R -> transposed left solve; upper -> lower on Aᵀ
+    if side == Side.RIGHT:
+        return trsm(Side.LEFT, uplo, _flip(transa), diag, alpha, A, B.T,
+                    backend=backend, block_size=block_size).T
+    if uplo == Uplo.UPPER:
+        return trsm(Side.LEFT, Uplo.LOWER, _flip(transa), diag, alpha, A.T,
+                    B, backend=backend, block_size=block_size)
+    n = lapack_ref._square(A, "trsm")
+    check(B.ndim == 2 and B.shape[0] == n, "trsm", 7,
+          f"B shape {tuple(B.shape)} does not match A ({n}x{n})")
+    t = _tiles_for(A, backend)
+    check(B.dtype == A.dtype and B.device == A.device, "trsm", 7,
+          "A and B must share dtype and device")
+    nb = block_size or t.default_nb
+    # only the lower triangle of the working copy is read; a unit
+    # diagonal is written into it, so the recursion runs non-unit
+    Lp = _pad_identity(A, nb)
+    if diag == Diag.UNIT:
+        Lp.diagonal().fill_(1.0)
+    Bp = torch.zeros((Lp.shape[0], B.shape[1]), dtype=B.dtype,
+                     device=B.device)
+    Bp[:n] = B if alpha == 1.0 else alpha * B
+    if transa == Trans.NO_TRANS:
+        _trsm_lln(Lp, Bp, t, nb, unit=False)
+    else:
+        _trsm_llt(Lp, Bp, t, nb, unit=False)
+    return Bp[:n]

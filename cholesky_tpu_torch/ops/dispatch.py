@@ -1,10 +1,12 @@
 """Backend dispatch for the ported routines.
 
-The counterpart of ``cholesky_tpu/ops/dispatch.py`` for potrf, logdet and
-logdet_from_factor. Backends: 'ref' (the oracle tier, ops/lapack_ref.py),
-'torch' (the blocked recursion over torch matmuls, the JAX package's 'xla'),
-'cuda' (the blocked recursion over the hand-written CUDA kernels, its 'pallas')
-and 'auto' ('cuda' for a float32 CUDA tensor, 'torch' on the CPU).
+The counterpart of ``cholesky_tpu/ops/dispatch.py`` for potrf, logdet,
+logdet_from_factor, trtri, trtri2, trti2, lauum, lauu2, potri and trsm.
+Backends: 'ref' (the oracle tier, ops/lapack_ref.py and ops/blas_ref.py),
+'torch' (the blocked recursions over torch matmuls, the JAX package's
+'xla'), 'cuda' (the blocked recursions over the hand-written CUDA kernels,
+its 'pallas') and 'auto' ('cuda' for a float32 CUDA tensor, 'torch' on the
+CPU).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import functools
 from cholesky_tpu_torch.ops import blocked, lapack_ref
 
 
-def _wrap_lapack(name):
+def _wrap(name):
     impl = getattr(blocked, name)
 
     @functools.wraps(impl)
@@ -24,6 +26,14 @@ def _wrap_lapack(name):
     return fn
 
 
-potrf = _wrap_lapack("potrf")
-logdet = _wrap_lapack("logdet")
+trsm = _wrap("trsm")
+
+potrf = _wrap("potrf")
+trtri = _wrap("trtri")
+trtri2 = _wrap("trtri2")
+trti2 = _wrap("trti2")
+lauum = _wrap("lauum")
+lauu2 = _wrap("lauu2")
+potri = _wrap("potri")
+logdet = _wrap("logdet")
 logdet_from_factor = lapack_ref.logdet_from_factor

@@ -1,10 +1,14 @@
-"""The hand-written CUDA kernels of the f32 potrf path, each beside its
-plain torch twin. Nothing is compiled at import: the first launch builds
-``csrc/`` (see ``_build.py``)."""
+"""The hand-written CUDA kernels of the f32 potrf, trsm, trtri, lauum and
+potri paths, each beside its plain torch twin. Nothing is compiled at
+import: the first launch builds ``csrc/`` (see ``_build.py``)."""
 
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32
-from cholesky_tpu_torch.ops.kernels.mega import (potrf_block_f32,
-                                                 trtri_block_f32)
+from cholesky_tpu_torch.ops.kernels.leaf import lauu2_f32
+from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
+                                                 potrf_block_f32,
+                                                 potrf_stream_f32,
+                                                 trtri_block_f32,
+                                                 trtri_stream_f32)
 from cholesky_tpu_torch.ops.kernels.syrk import syrk_lower_f32
 
 #: kernel name -> its wrapper, which counts its launches in ``.launches``
@@ -12,7 +16,11 @@ KERNELS = {
     "gemm_f32": gemm_f32,
     "syrk_lower_f32": syrk_lower_f32,
     "potrf_block_f32": potrf_block_f32,
+    "potrf_stream_f32": potrf_stream_f32,
     "trtri_block_f32": trtri_block_f32,
+    "trtri_stream_f32": trtri_stream_f32,
+    "lauum_stream_f32": lauum_stream_f32,
+    "lauu2_f32": lauu2_f32,
 }
 
 

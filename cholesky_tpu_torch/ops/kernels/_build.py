@@ -1,12 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-All of ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The
-library goes into ``build/`` beside this file (listed in ``.gitignore``),
-named by a hash of the sources and the flags, so an edit or a new tile
-shape rebuilds and an unchanged tree reuses the last build. The build runs
-on the first kernel launch, never at import. A failed build raises with
-nvcc's output; nothing falls back.
+Each of ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all
+at once, and the objects are linked into ONE shared library with a plain C
+interface, loaded with ``ctypes``. The library goes into ``build/`` beside
+this file (listed in ``.gitignore``), named by a hash of the sources and
+the flags, so an edit or a new tile shape rebuilds and an unchanged tree
+reuses the last build. The build runs on the first kernel launch, never at
+import. A failed build raises with nvcc's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -29,8 +29,9 @@ _HERE = Path(__file__).parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,15 +79,33 @@ def build() -> Build:
         return Build(so, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one compiler per source, all started together, then one link
+    jobs = []
+    for src in sources:
+        obj = BUILD_DIR / f"{stem}.{src.stem}.{os.getpid()}.o"
+        cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    steps = [(cmd, proc.communicate()[0], proc.returncode)
+             for cmd, _, proc in jobs]
+    if all(rc == 0 for _, _, rc in steps):
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        steps.append((cmd, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    log.write_text(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    log.write_text("".join(f"$ {' '.join(cmd)}\n{out}"
+                           for cmd, out, _ in steps))
+    for cmd, out, rc in steps:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed with exit code {rc}:\n"
+                               f"{' '.join(cmd)}\n{out}")
     os.replace(tmp, so)             # atomic: a concurrent build is harmless
     return Build(so, seconds, log)
 
@@ -107,7 +126,11 @@ def library() -> ctypes.CDLL:
                             I, I, I, F, F, I, P],
             "ct_syrk_lower_f32": [P, LL, LL, P, LL, LL, I, I, F, F, I, P],
             "ct_potrf_block_f32": [P, LL, I, P, I, P],
+            "ct_potrf_stream_f32": [P, LL, P, P, I, P, I, P],
             "ct_trtri_block_f32": [P, LL, P, LL, I, P, I, P],
+            "ct_trtri_stream_f32": [P, LL, P, LL, P, I, P, I, P],
+            "ct_lauum_stream_f32": [P, LL, P, LL, I, I, P],
+            "ct_lauu2_f32": [P, LL, P, LL, I, I, P],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

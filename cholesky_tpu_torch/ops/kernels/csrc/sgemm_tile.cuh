@@ -1,4 +1,5 @@
-// Shared-memory SGEMM tile used by gemm.cu and syrk.cu.
+// Shared-memory SGEMM tile used by gemm.cu, syrk.cu, trtri_stream.cu,
+// potrf_stream.cu and lauum.cu.
 //
 // One thread block computes a BM x BN tile of X·Yᵀ, where X (rows x K) and
 // Y (cols x K) are strided operands: element (r, k) lives at
@@ -29,8 +30,10 @@ __device__ __forceinline__ void tri_tile(int t, int& i, int& j) {
 
 // Stage rows [r0, r0 + R) x k [k0, k0 + BK) of a strided operand into
 // S[k][r]. Consecutive threads walk the operand's unit-stride axis so the
-// global loads coalesce in either layout.
-template <int R, int BK, int NT>
+// global loads coalesce in either layout. L2: load through L2 only
+// (__ldcg), for operands other thread blocks of a cooperative launch wrote
+// before its last grid sync, which a stale L1 line would hide.
+template <int R, int BK, int NT, bool L2 = false>
 __device__ __forceinline__ void load_slab(const float* __restrict__ X,
                                           long long s_r, long long s_k,
                                           int r0, int rows, int k0, int K,
@@ -46,14 +49,37 @@ __device__ __forceinline__ void load_slab(const float* __restrict__ X,
       k = idx / R;
     }
     const int gr = r0 + r, gk = k0 + k;
-    S[k][r] = (gr < rows && gk < K) ? X[gr * s_r + gk * s_k] : 0.f;
+    const float* p = X + gr * s_r + gk * s_k;
+    S[k][r] = (gr < rows && gk < K) ? (L2 ? __ldcg(p) : *p) : 0.f;
+  }
+}
+
+// acc[i][j] += Σ_k Xs[k][ty + i*BM/TM] · Ys[k][tx + j*BN/TN] over one staged
+// k-step: the register micro-tile product of every kernel here.
+template <int BM, int BN, int BK>
+__device__ __forceinline__ void mma_staged(float (*Xs)[BM + 1],
+                                           float (*Ys)[BN + 1],
+                                           float (&acc)[TM][TN]) {
+  const int tx = threadIdx.x % (BN / TN);
+  const int ty = threadIdx.x / (BN / TN);
+#pragma unroll
+  for (int k = 0; k < BK; ++k) {
+    float a[TM], b[TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) a[i] = Xs[k][ty + i * (BM / TM)];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) b[j] = Ys[k][tx + j * (BN / TN)];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
 }
 
 // acc[i][j] += Σ_k X[r0 + ty + i*BM/TM, k] · Y[c0 + tx + j*BN/TN, k] over the
 // whole K range, staging through shared memory. Ends with a barrier, so the
-// caller may reuse the shared slabs.
-template <int BM, int BN, int BK>
+// caller may reuse the shared slabs. L2 as in load_slab.
+template <int BM, int BN, int BK, bool L2 = false>
 __device__ __forceinline__ void tile_xyt(const float* __restrict__ X,
                                          long long sx_r, long long sx_k,
                                          int r0, int rows,
@@ -64,26 +90,29 @@ __device__ __forceinline__ void tile_xyt(const float* __restrict__ X,
                                          float (*Ys)[BN + 1],
                                          float (&acc)[TM][TN]) {
   constexpr int NT = (BM / TM) * (BN / TN);
-  const int tx = threadIdx.x % (BN / TN);
-  const int ty = threadIdx.x / (BN / TN);
   for (int k0 = 0; k0 < K; k0 += BK) {
-    load_slab<BM, BK, NT>(X, sx_r, sx_k, r0, rows, k0, K, Xs);
-    load_slab<BN, BK, NT>(Y, sy_r, sy_k, c0, cols, k0, K, Ys);
+    load_slab<BM, BK, NT, L2>(X, sx_r, sx_k, r0, rows, k0, K, Xs);
+    load_slab<BN, BK, NT, L2>(Y, sy_r, sy_k, c0, cols, k0, K, Ys);
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Xs[k][ty + i * (BM / TM)];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Ys[k][tx + j * (BN / TN)];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
+    mma_staged<BM, BN, BK>(Xs, Ys, acc);
     __syncthreads();
   }
+}
+
+// D[r0 + r, c0 + c] = alpha · acc for the thread's micro-tile of a full
+// BM x BN tile (no edge masking: the caller's tiles lie inside D).
+template <int BM, int BN>
+__device__ __forceinline__ void store_tile(float* D, long long ldd, int r0,
+                                           int c0, float alpha,
+                                           const float (&acc)[TM][TN]) {
+  const int tx = threadIdx.x % (BN / TN);
+  const int ty = threadIdx.x / (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      D[(r0 + ty + i * (BM / TM)) * ldd + c0 + tx + j * (BN / TN)] =
+          alpha * acc[i][j];
 }
 
 }  // namespace ct

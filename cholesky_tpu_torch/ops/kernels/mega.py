@@ -1,11 +1,17 @@
-"""Whole-block kernels: potrf_block_f32 (csrc/potrf_block.cu) and
-trtri_block_f32 (csrc/trtri_block.cu).
+"""Whole-matrix kernels, each beside its plain torch twin:
 
-They replace ``cholesky_tpu/ops/pallas/mega.py:potrf_vmem_f32`` and
-``trtri_vmem_f32`` and keep their limits: a block of n <= MAX_N, and the
-blocked recursion hands them n <= NB or a multiple of NB. A CPU tensor takes
-the plain twin (the oracle tier's sweeps); a CUDA tensor launches the
-kernel or raises.
+- potrf_block_f32 (csrc/potrf_block.cu) and trtri_block_f32
+  (csrc/trtri_block.cu) replace ``cholesky_tpu/ops/pallas/mega.py:
+  potrf_vmem_f32`` and ``trtri_vmem_f32`` and keep their limits: a block of
+  n <= MAX_N, and the blocked recursion hands them n <= NB or a multiple
+  of NB;
+- potrf_stream_f32 (csrc/potrf_stream.cu), trtri_stream_f32
+  (csrc/trtri_stream.cu) and lauum_stream_f32 (csrc/lauum.cu) replace
+  ``potrf_hbm_f32``, ``trtri_hbm_f32`` and ``lauum_hbm_f32``: any multiple
+  of NB up to STREAM_MAX_N.
+
+A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -18,16 +24,21 @@ from cholesky_tpu_torch.utils.errors import check
 
 NB = 128            # the blocked recursion's granularity for these kernels
 MAX_N = 1024        # one thread block holds a 32-wide panel of this height
+STREAM_MAX_N = 8192  # the JAX package's {POTRF,TRTRI,LAUUM}_HBM_MAX_N
 
 
-def _check_block(A, name):
+def _check_block(A, name, max_n=MAX_N, multiple=1):
     check(A.ndim == 2 and A.shape[0] == A.shape[1], name, 1,
           f"expected a square block, got {tuple(A.shape)}")
     n = A.shape[0]
     check(A.dtype == torch.float32, name, 1, "float32 only")
-    check(1 <= n <= MAX_N, name, 1, f"n={n} outside 1..{MAX_N}")
+    check(1 <= n <= max_n and n % multiple == 0, name, 1,
+          f"n={n} outside 1..{max_n}" +
+          (f" or not a multiple of {multiple}" if multiple > 1 else ""))
     check(A.stride(1) == 1 and A.stride(0) >= n, name, 1,
           "rows must be unit-stride (a row-major block or a slice of one)")
+    check(A.device.type in ("cpu", "cuda"), name, 1,
+          f"unsupported device {A.device}")
     return n
 
 
@@ -59,8 +70,6 @@ def potrf_block_f32(A):
     n = _check_block(A, "potrf_block_f32")
     if A.device.type == "cpu":
         return potrf_block_plain(A)
-    check(A.device.type == "cuda", "potrf_block_f32", 1,
-          f"unsupported device {A.device}")
     info = torch.empty((), dtype=torch.int32, device=A.device)
     err = _build.library().ct_potrf_block_f32(
         A.data_ptr(), A.stride(0), n, info.data_ptr(),
@@ -79,8 +88,6 @@ def trtri_block_f32(L):
     n = _check_block(L, "trtri_block_f32")
     if L.device.type == "cpu":
         return trtri_block_plain(L)
-    check(L.device.type == "cuda", "trtri_block_f32", 1,
-          f"unsupported device {L.device}")
     W = torch.empty((n, n), dtype=L.dtype, device=L.device)
     info = torch.empty((), dtype=torch.int32, device=L.device)
     err = _build.library().ct_trtri_block_f32(
@@ -91,5 +98,111 @@ def trtri_block_f32(L):
     return W, info
 
 
+def potrf_stream_plain(A):
+    """The plain torch version, any real dtype and device: the kernel's
+    right-looking walk over NB-wide panels, in place (each diagonal tile by
+    the oracle's potf2, the panel below it by a triangular solve, the
+    trailing matrix by a product); the strict upper is zeroed. Returns
+    info. A tile with a failed pivot is stored as potf2 leaves it, and
+    nothing after it is solved or updated."""
+    n = A.shape[0]
+    info = torch.zeros((), dtype=torch.int32, device=A.device)
+    for c0 in range(0, n, NB):
+        c1 = min(c0 + NB, n)
+        F, i = lapack_ref.potf2("L", A[c0:c1, c0:c1])
+        A[c0:c1, c0:c1] = torch.tril(F)
+        if int(i):
+            info = (i + c0).to(torch.int32)
+            break
+        # X·L11ᵀ = A21, then A22 -= X·Xᵀ (the strict upper is zeroed below)
+        X = torch.linalg.solve_triangular(A[c0:c1, c0:c1].T, A[c1:, c0:c1],
+                                          upper=True, left=False)
+        A[c1:, c0:c1] = X
+        A[c1:, c1:] -= X @ X.T
+    A.copy_(torch.tril(A))
+    return info
+
+
+def potrf_stream_f32(A):
+    """Lower Cholesky of the f32 matrix A, n a multiple of NB up to
+    STREAM_MAX_N, unit-stride rows, in place, as :func:`potrf_block_f32`
+    does: only the lower triangle is read, the strict upper is zeroed, and
+    info (0-d int32) is the first pivot with !(d > 0), the factor frozen
+    there. The launch also takes (n + NB)·NB floats of scratch on the
+    card, freed on return."""
+    n = _check_block(A, "potrf_stream_f32", STREAM_MAX_N, NB)
+    if A.device.type == "cpu":
+        return potrf_stream_plain(A)
+    P = torch.empty((n + NB, NB), dtype=A.dtype, device=A.device)
+    info = torch.empty((), dtype=torch.int32, device=A.device)
+    err = _build.library().ct_potrf_stream_f32(
+        A.data_ptr(), A.stride(0), P.data_ptr(), P[n:].data_ptr(), n,
+        info.data_ptr(), *_build.device_args(A))
+    _build.check_launch(err, "potrf_stream_f32")
+    potrf_stream_f32.launches += 1
+    return info
+
+
+def trtri_stream_plain(L):
+    """The plain torch version, any real dtype and device: a triangular
+    solve against the identity, zero diagonals read as 1. Returns (inverse
+    of tril(L) with the strict upper zero, info), info the first zero
+    diagonal."""
+    zero = torch.diagonal(L) == 0
+    T = torch.tril(L, -1) + torch.diag(torch.where(zero, 1.0, L.diagonal()))
+    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    W = torch.linalg.solve_triangular(T, eye, upper=False)
+    info = torch.where(zero.any(), zero.int().argmax() + 1, 0).to(torch.int32)
+    return torch.tril(W), info
+
+
+def trtri_stream_f32(L):
+    """Inverse of the lower-triangular f32 matrix L, n a multiple of NB up
+    to STREAM_MAX_N, unit-stride rows; only its lower triangle is read.
+    Returns (W, info) as :func:`trtri_block_f32` does: W a new contiguous
+    tensor with a zero strict upper, info (0-d int32) the 1-based index of
+    the first zero diagonal, which is treated as 1. The launch also takes
+    n²/4 floats of scratch on the card, freed on return."""
+    n = _check_block(L, "trtri_stream_f32", STREAM_MAX_N, NB)
+    if L.device.type == "cpu":
+        return trtri_stream_plain(L)
+    W = torch.empty((n, n), dtype=L.dtype, device=L.device)
+    S = torch.empty((n * n // 4,), dtype=L.dtype, device=L.device)
+    info = torch.empty((), dtype=torch.int32, device=L.device)
+    err = _build.library().ct_trtri_stream_f32(
+        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), S.data_ptr(),
+        n, info.data_ptr(), *_build.device_args(L))
+    _build.check_launch(err, "trtri_stream_f32")
+    trtri_stream_f32.launches += 1
+    return W, info
+
+
+def lauum_stream_plain(L):
+    """The plain torch version, any real dtype and device: tril(LᵀL) from
+    the lower triangle of L, a new tensor with a zero strict upper."""
+    T = torch.tril(L)
+    return torch.tril(T.T @ T)
+
+
+def lauum_stream_f32(L):
+    """tril(LᵀL) for the f32 matrix L, n a multiple of NB up to
+    STREAM_MAX_N, unit-stride rows; only the lower triangle of L is read.
+    Out of place: returns a new contiguous tensor (n² floats beside the
+    input) with a zero strict upper."""
+    n = _check_block(L, "lauum_stream_f32", STREAM_MAX_N, NB)
+    if L.device.type == "cpu":
+        return lauum_stream_plain(L)
+    B = torch.empty((n, n), dtype=L.dtype, device=L.device)
+    err = _build.library().ct_lauum_stream_f32(
+        L.data_ptr(), L.stride(0), B.data_ptr(), B.stride(0), n,
+        *_build.device_args(L))
+    _build.check_launch(err, "lauum_stream_f32")
+    lauum_stream_f32.launches += 1
+    return B
+
+
 potrf_block_f32.launches = 0
+potrf_stream_f32.launches = 0
 trtri_block_f32.launches = 0
+trtri_stream_f32.launches = 0
+lauum_stream_f32.launches = 0

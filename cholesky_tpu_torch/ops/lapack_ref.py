@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from cholesky_tpu_torch.ops import blas_ref
 from cholesky_tpu_torch.types import Diag, Uplo, norm_diag, norm_uplo
 from cholesky_tpu_torch.utils.errors import check
 
@@ -133,6 +134,56 @@ def trti2(uplo, diag, A):
         if not unit:
             A[j, j] = ajj
     return A, info
+
+
+def trtri(uplo, diag, A):
+    """Triangular inverse (reference strtri.c:43-164): the unblocked sweep,
+    as at this tier of the JAX package (the blocked one is ops/blocked.py).
+    """
+    return trti2(uplo, diag, A)
+
+
+def trtri2(uplo, diag, A):
+    """Out-of-place triangular inverse (reference strtri2,
+    strtri.c:166-299): the same computation; ``A`` is never modified."""
+    return trti2(uplo, diag, A)
+
+
+# ---------------------------------------------------------------------------
+# LAUU2 / LAUUM — triangular square (reference lapack/slauum.c:43-129)
+# ---------------------------------------------------------------------------
+
+def lauu2(uplo, A):
+    """U·Uᵀ (upper) or Lᵀ·L (lower) of the uplo triangle, stored in that
+    triangle; the opposite strict triangle is returned unchanged (LAPACK
+    xlauu2 semantics). ``A`` itself is not modified."""
+    uplo = norm_uplo(uplo)
+    _square(A, "lauu2")
+    if uplo == Uplo.UPPER:
+        U = torch.triu(A)
+        prod = U @ U.T
+    else:
+        L = torch.tril(A)
+        prod = L.T @ L
+    return blas_ref._set_triangle(A, prod, uplo)
+
+
+def lauum(uplo, A):
+    """The blocked version collapses to the same computation at this
+    tier."""
+    return lauu2(uplo, A)
+
+
+# ---------------------------------------------------------------------------
+# POTRI — SPD inverse from the Cholesky factor (reference lapack/spotri.c)
+# ---------------------------------------------------------------------------
+
+def potri(uplo, A):
+    """``A`` holds the Cholesky factor (from potrf); returns (A_inv, info)
+    with the inverse in the uplo triangle: trtri then lauum, the pure
+    composition of every tier of the reference (spotri.c)."""
+    W, info = trtri(uplo, Diag.NON_UNIT, A)
+    return lauum(uplo, W), info
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 The counterpart of ``cholesky_tpu/tuning/table.py``, with the same key set
 (``matmul_f32``, ``syrk_f32``, ``potrf_f32.{leaf_nb,mega_max_n}``,
-``trtri_f32.mega_max_n``). Tables are JSON files in ``tables/`` keyed by
+``{trtri,lauum}_f32.mega_max_n``). Tables are JSON files in ``tables/`` keyed by
 the slug of ``torch.cuda.get_device_name()``; none is shipped until a value
 has been measured on its card, so DEFAULTS apply everywhere.
 """
@@ -25,12 +25,13 @@ DEFAULTS = {
     "matmul_f32": {"bm": 64, "bn": 64, "bk": 16},
     # the lower-triangle SYRK reuses the SGEMM tile: bn x bn, k-step bk
     "syrk_f32": {"bn": 64, "bk": 16},
-    # mega_max_n: largest block factored/inverted by ONE whole-block
-    # kernel (ops/kernels/mega.py); above it the blocked recursion runs
-    # with leaf_nb leaves. 1024 is the whole-block kernels' hard cap: the
-    # port has no counterpart of the TPU's HBM-streaming kernels yet.
-    "potrf_f32": {"leaf_nb": 512, "mega_max_n": 1024},
-    "trtri_f32": {"mega_max_n": 1024},
+    # mega_max_n: largest block factored/inverted/squared by ONE
+    # whole-matrix kernel (ops/kernels/mega.py); above it the blocked
+    # recursion runs with leaf_nb leaves. The values are the JAX DEFAULTS:
+    # the *_stream_f32 kernels reach 8192, as the TPU's *_hbm_f32 do.
+    "potrf_f32": {"leaf_nb": 512, "mega_max_n": 8192},
+    "trtri_f32": {"mega_max_n": 4096},
+    "lauum_f32": {"mega_max_n": 8192},
 }
 
 

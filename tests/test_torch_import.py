@@ -26,6 +26,7 @@ def test_import_loads_neither_jax_nor_triton():
         "import sys\n"
         "import cholesky_tpu_torch\n"
         "import cholesky_tpu_torch.ops.blocked, cholesky_tpu_torch.rng\n"
+        "import cholesky_tpu_torch.models\n"
         "import cholesky_tpu_torch.ops.kernels._build\n"
         "import cholesky_tpu_torch.utils.benchlib\n"
         "bad = [m for m in ('jax', 'triton', 'cholesky_tpu')\n"
@@ -51,7 +52,8 @@ def test_chip_smoke_fails_without_a_card():
 
 def test_public_api():
     assert sorted(ct.__all__) == sorted([
-        "potrf", "logdet", "logdet_from_factor", "Side", "Uplo", "Trans",
+        "potrf", "logdet", "logdet_from_factor", "trtri", "trtri2", "trti2",
+        "lauum", "lauu2", "potri", "trsm", "Side", "Uplo", "Trans",
         "Diag", "set_error_handler", "set_xerbla"])
 
 
@@ -102,14 +104,23 @@ def test_error_handler_hook():
 
 
 def test_tuning_defaults_and_mega_routing():
-    assert get_params("potrf_f32") == {"leaf_nb": 512, "mega_max_n": 1024}
-    assert get_params("trtri_f32") == {"mega_max_n": 1024}
+    assert get_params("potrf_f32") == {"leaf_nb": 512, "mega_max_n": 8192}
+    assert get_params("trtri_f32") == {"mega_max_n": 4096}
+    assert get_params("lauum_f32") == {"mega_max_n": 8192}
     assert set(DEFAULTS) == {"matmul_f32", "syrk_f32", "potrf_f32",
-                             "trtri_f32"}
+                             "trtri_f32", "lauum_f32"}
     assert get_params("no_such_op") == {}
     assert blocked._mega_ok(1024) and blocked._mega_ok(100)
     assert not blocked._mega_ok(1025) and not blocked._mega_ok(200)
     assert not blocked._mega_ok(0)
+    # each op streams to its tuned cap, in multiples of 128
+    assert blocked._mega_ok(2048) and blocked._mega_ok(8192)
+    assert not blocked._mega_ok(8320) and not blocked._mega_ok(1100)
+    assert blocked._mega_ok(4096, "trtri") and blocked._mega_ok(1152, "trtri")
+    assert not blocked._mega_ok(8192, "trtri")
+    assert not blocked._mega_ok(1100, "trtri")
+    assert blocked._mega_ok(8192, "lauum")
+    assert not blocked._mega_ok(8320, "lauum")
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

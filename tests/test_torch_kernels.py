@@ -1,4 +1,4 @@
-"""The four kernels of the port's f32 potrf path (cholesky_tpu_torch/ops/
+"""The five kernels of the port's f32 potrf path (cholesky_tpu_torch/ops/
 kernels/). On the CPU each wrapper runs its plain torch twin, which is held
 here against the Pallas kernel it replaces, run in interpret mode as the
 JAX package's own tests run it (tests/test_mega.py, test_pallas_kernels.py).
@@ -18,7 +18,8 @@ from cholesky_tpu.ops.pallas import gemm as pgemm
 from cholesky_tpu.ops.pallas import mega as pmega
 from cholesky_tpu.ops.pallas import syrk as psyrk
 from cholesky_tpu_torch.ops.kernels import (gemm_f32, potrf_block_f32,
-                                            syrk_lower_f32, trtri_block_f32)
+                                            potrf_stream_f32, syrk_lower_f32,
+                                            trtri_block_f32)
 from tests.util import assert_close
 
 F32 = np.float32
@@ -199,6 +200,62 @@ def test_potrf_block_rejects_what_the_kernel_does_not_take():
         potrf_block_f32(torch.eye(8)[::2, ::2])             # strided rows
     with pytest.raises(ValueError):
         trtri_block_f32(torch.eye(4, 5))                    # not square
+
+
+# ---------------------------------------------------------------------------
+# potrf_stream_f32 — replaces ops/pallas/mega.py:potrf_hbm_f32
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [256, 384])
+def test_potrf_stream_twin_vs_pallas(n):
+    A = spd_np(n)
+    At = torch.from_numpy(A.copy())
+    At[np.triu_indices(n, 1)] = np.nan              # the strict upper is unread
+    info = potrf_stream_f32(At)
+    L, info_j = pmega.potrf_hbm_f32(jnp.asarray(A))
+    assert int(info) == int(info_j) == 0
+    assert info.dtype == torch.int32 and info.ndim == 0
+    got = At.numpy()
+    assert np.all(np.triu(got, 1) == 0.0)
+    assert_close(got, np.asarray(L), F32, 8 * n, f"potrf_stream n={n}")
+
+
+@pytest.mark.parametrize("k,value", [(200, -1.0), (7, np.nan)])
+def test_potrf_stream_failed_pivot(k, value):
+    # info from both; the port's factor stays finite but for an input NaN
+    # pivot, and the leading block before the pivot agrees
+    A = spd_np(256, cond=10.0)
+    A[k, k] = value
+    At = torch.from_numpy(A.copy())
+    info = potrf_stream_f32(At)
+    L, info_j = pmega.potrf_hbm_f32(jnp.asarray(A))
+    assert int(info) == int(info_j) == k + 1
+    bad = {tuple(ix) for ix in np.argwhere(~np.isfinite(At.numpy()))}
+    assert bad <= {(k, k)}
+    assert_close(At.numpy()[:k, :k], np.asarray(L)[:k, :k], F32, 8 * 256,
+                 "potrf_stream leading block")
+
+
+def test_potrf_stream_on_a_view():
+    A = spd_np(256)
+    buf = torch.zeros(256, 384)
+    buf[:, 64:320] = torch.from_numpy(A)
+    assert int(potrf_stream_f32(buf[:, 64:320])) == 0
+    L, _ = pmega.potrf_hbm_f32(jnp.asarray(A))
+    assert_close(buf[:, 64:320].numpy(), np.asarray(L), F32, 8 * 256,
+                 "potrf_stream view")
+    assert torch.all(buf[:, :64] == 0) and torch.all(buf[:, 320:] == 0)
+
+
+def test_potrf_stream_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        potrf_stream_f32(torch.eye(200))                    # not 128k
+    with pytest.raises(ValueError):
+        potrf_stream_f32(torch.eye(8320))                   # over 8192
+    with pytest.raises(ValueError):
+        potrf_stream_f32(torch.eye(256).double())           # f64
+    with pytest.raises(ValueError):
+        potrf_stream_f32(torch.rand(256, 256).T)            # column-major
 
 
 # ---------------------------------------------------------------------------
