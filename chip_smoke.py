@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's eight CUDA kernels from ``cholesky_tpu_torch/ops/
+Builds the port's ten CUDA kernels from ``cholesky_tpu_torch/ops/
 kernels/csrc``, holds each against its plain torch twin at the shapes its
 path gives it, then drives the paths below through the public API. Before
 each path every launch counter is set to 0, and after it the counters must
@@ -15,14 +15,22 @@ show that the path went through each of its kernels:
 - phase 5, the GP model: exact GP regression on n = 8192 points with d = 8
   features, three ``gp_train_step``s and one ``gp_predict`` (potrf, trsm,
   potri = trtri then lauum), held against an f64 ``torch.linalg`` oracle;
-  then ``potri`` at n = 4096 and ``lauum`` with 512 leaves at 2048.
+  then ``potri`` at n = 4096 and ``lauum`` with 512 leaves at 2048;
+- phase 6, the d tier: ``dpotrf``, ``dlogdet`` and ``dpotri`` at n = 8192
+  on an f64 cond-100 matrix under ``backend="auto"`` (the Ozaki int8 slice
+  products, ``peel_f32pair`` and ``mm_groups_f32pair``, over the f32 leaf
+  kernels), held in f64 against cuSOLVER's ``torch.linalg``, then a
+  non-positive-definite input, the f64 rescue of a leaf, times beside
+  cuSOLVER and a ``torch.profiler`` table of one ``dpotrf``.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
 
 The last two lines of standard output are one JSON object per kernel
-({"kernels": [...]}, each with the path its launch count comes from) and
-the result {"ok": true, "device": {...}}.
+({"kernels": [...]}, each with the path its launch count comes from, its
+bound at the H100's published peaks and the time of one PyTorch library
+call computing the same function where there is one) and the result
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ import torch
 
 import cholesky_tpu_torch as ct
 from cholesky_tpu_torch.models import gp
-from cholesky_tpu_torch.ops import kernels
+from cholesky_tpu_torch.ops import kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import _build
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32, gemm_plain
 from cholesky_tpu_torch.ops.kernels.leaf import lauu2_f32, lauu2_plain
@@ -51,12 +59,20 @@ from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
                                                  trtri_block_plain,
                                                  trtri_stream_f32,
                                                  trtri_stream_plain)
+from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
+                                                  mm_groups_plain,
+                                                  peel_f32pair, peel_plain)
 from cholesky_tpu_torch.ops.kernels.syrk import (syrk_lower_f32,
                                                  syrk_lower_plain)
 from cholesky_tpu_torch.rng import latmc
 from cholesky_tpu_torch.utils.benchlib import bench_op
 
 EPS32 = float(torch.finfo(torch.float32).eps)
+#: the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W):
+#: FP32 outside the tensor cores (TF32 is not f32-accurate), int8 on the
+#: tensor cores, and HBM3
+PEAK_OPS = {"f32": 67e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def flops_potrf(n: int) -> float:
@@ -67,6 +83,22 @@ def flops_potrf(n: int) -> float:
 def bound(fpe: float, scale: float) -> float:
     """The repo's analytic tolerance: fpe x 2 x eps x max(1, scale)."""
     return fpe * 2.0 * EPS32 * max(1.0, scale)
+
+
+def roofline(ops: float, kind: str, nbytes: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of its operations over the peak rate of their type and the bytes it
+    must move (each input read once, each output written once) over the
+    memory rate; bound_by says which."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def tri_bytes(n: int, size: int = 4) -> int:
+    """Bytes of one triangle of an n×n matrix, diagonal included."""
+    return n * (n + 1) // 2 * size
 
 
 def require(cond: bool, what: str) -> None:
@@ -140,12 +172,14 @@ def check_gemm(gen, rec, on):
     require(err4 <= b4, f"gemm_f32 4096³ -T·W1 into a view: err {err4} > {b4}")
     ms = bench_op(lambda m: gemm_f32(W2, m), M, reps=5) * 1e3
     plain_ms = bench_op(lambda m: gemm_plain(W2, m), M, reps=5) * 1e3
+    lib_ms = bench_op(lambda m: torch.matmul(W2, m), M, reps=5) * 1e3
     print(f"gemm_f32 4096³ on views of an 8192 buffer: W2·M max err "
           f"{err3:.3e} (bound {b3:.3e}); -T·W1 into the view M: {err4:.3e} "
-          f"(bound {b4:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"on {on}")
+          f"(bound {b4:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.matmul {lib_ms:.4f} ms on {on}")
     rec["gemm_f32"] = dict(max_abs_err=max(err3, err4), ms=ms,
-                           plain_ms=plain_ms)
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           **roofline(2 * 4096 ** 3, "f32", 3 * 4096 ** 2 * 4))
 
 
 def check_syrk(gen, rec, on):
@@ -163,10 +197,17 @@ def check_syrk(gen, rec, on):
             "syrk_lower_f32 changed the strict upper of C")
     ms = bench_op(lambda c: syrk_lower_f32(-1e-3, A, 1.0, c), C) * 1e3
     plain_ms = bench_op(lambda c: syrk_lower_plain(-1e-3, A, 1.0, c), C) * 1e3
+    # the library call computes the whole square, twice the work
+    lib_ms = bench_op(lambda c: torch.addmm(c, A, A.T, beta=1.0, alpha=-1e-3),
+                      C) * 1e3
     print(f"syrk_lower_f32 n=2048 k=2048: max err {err:.3e} (bound "
           f"{b:.3e}), strict upper unchanged bit for bit; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {on}")
-    rec["syrk_lower_f32"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.addmm (whole "
+          f"square) {lib_ms:.4f} ms on {on}")
+    rec["syrk_lower_f32"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **roofline(2048 * 2049 * 2048, "f32",
+                   2048 * 2048 * 4 + 2 * tri_bytes(2048)))
 
 
 def check_potrf_block(gen, rec, on):
@@ -195,8 +236,11 @@ def check_potrf_block(gen, rec, on):
         print(f"potrf_block_f32 n={n}: max err {err:.3e} (bound {b:.3e}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {on}")
         if n == 1024:
-            rec["potrf_block_f32"] = dict(max_abs_err=err, ms=ms,
-                                          plain_ms=plain_ms)
+            lib_ms = bench_op(lambda a: torch.linalg.cholesky_ex(a), A0) * 1e3
+            print(f"  torch.linalg.cholesky_ex n={n}: {lib_ms:.4f} ms")
+            rec["potrf_block_f32"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
     # non-PD pivot: info 5, everything finite, the leading block right
     A = spd(gen, 256, 10.0)
     A[4, 4] = -1.0
@@ -244,8 +288,12 @@ def check_potrf_stream(gen, rec, on):
               f"NaN strict upper unread; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms (incl. a copy) on {on}")
         if n == 8192:
-            rec["potrf_stream_f32"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms)
+            lib_ms = bench_op(lambda a: torch.linalg.cholesky_ex(a), A,
+                              reps=5) * 1e3
+            print(f"  torch.linalg.cholesky_ex n={n}: {lib_ms:.4f} ms")
+            rec["potrf_stream_f32"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
     # failed pivots: info, nothing non-finite but an input NaN pivot, the
     # leading block right
     for n, k, v in ((4096, 3000, -1.0), (1152, 7, float("nan"))):
@@ -278,8 +326,14 @@ def check_trtri_block(gen, rec, on):
         print(f"trtri_block_f32 n={n}: max err {err:.3e} (bound {b:.3e}); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {on}")
         if n == 512:
-            rec["trtri_block_f32"] = dict(max_abs_err=err, ms=ms,
-                                          plain_ms=plain_ms)
+            eye = torch.eye(n, device="cuda")
+            lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
+                x, eye, upper=False), L) * 1e3
+            print(f"  torch.linalg.solve_triangular(L, I) n={n}: "
+                  f"{lib_ms:.4f} ms")
+            rec["trtri_block_f32"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
     # zero diagonal: info 10, treated as 1, output finite
     L = torch.tril(torch.rand(256, 256, device="cuda", generator=gen)) / 256
     L.diagonal().fill_(1.0)
@@ -310,8 +364,14 @@ def check_trtri_stream(gen, rec, on):
               f"kernel {ms:.4f} ms, plain (solve_triangular) "
               f"{plain_ms:.4f} ms on {on}")
         if n == 4096:
-            rec["trtri_stream_f32"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms)
+            eye = torch.eye(n, device="cuda")
+            lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
+                x, eye, upper=False), torch.tril(F), reps=5) * 1e3
+            print(f"  torch.linalg.solve_triangular(L, I) n={n}: "
+                  f"{lib_ms:.4f} ms")
+            rec["trtri_stream_f32"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
             Z = F.clone()
             Z[9, 9] = 0.0
             W, info = trtri_stream_f32(Z)
@@ -340,8 +400,13 @@ def check_lauum_stream(gen, rec, on):
               f"NaN strict upper unread; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms on {on}")
         if n == 8192:
-            rec["lauum_stream_f32"] = dict(max_abs_err=err, ms=ms,
-                                           plain_ms=plain_ms)
+            # the library call computes the whole square, six times the work
+            lib_ms = bench_op(lambda x: torch.matmul(x.T, x), torch.tril(L),
+                              reps=5) * 1e3
+            print(f"  torch.matmul(Lᵀ, L) n={n}: {lib_ms:.4f} ms")
+            rec["lauum_stream_f32"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
 
 
 def check_lauu2(gen, rec, on):
@@ -363,8 +428,98 @@ def check_lauu2(gen, rec, on):
               f"upper passed through bit for bit; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms on {on}")
         if n == 512:
-            rec["lauu2_f32"] = dict(max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms)
+            lib_ms = bench_op(lambda x: torch.matmul(x.T, x), torch.tril(A)) \
+                * 1e3
+            print(f"  torch.matmul(Lᵀ, L) n={n}: {lib_ms:.4f} ms")
+            # the strict upper passes through: the whole block in and out
+            rec["lauu2_f32"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **roofline(n ** 3 / 3, "f32", 2 * n * n * 4))
+
+
+D_SLICES = 6       # the d tier's slices per operand (_OzakiTiles)
+
+
+def check_peel(gen, rec, on):
+    """The peel of the d path: the hoisted peel of a whole 8192 triangle,
+    and a 128-wide column panel of the working buffer (a strided view),
+    bit for bit against the twin."""
+    buf = torch.randn(8192, 8192, dtype=torch.float64, device="cuda",
+                      generator=gen)
+    L = torch.tril(buf)
+    err = 0.0
+    for what, X in (("8192² triangle", L), ("8192×128 column view",
+                                             buf[:, 256:384])):
+        rh, rl, _ = ozaki.scaled_pair(X)
+        got = peel_f32pair(rh, rl, slices=D_SLICES)
+        want = peel_plain(rh, rl, D_SLICES)
+        require(torch.equal(got, want),
+                f"peel_f32pair {what}: not bit for bit the twin's "
+                f"(max diff {max_err(got, want)})")
+        err = max(err, max_err(got, want))
+        print(f"peel_f32pair {what}, S={D_SLICES}: bit for bit the twin's")
+    rh, rl, _ = ozaki.scaled_pair(L)
+    ms = bench_op(lambda x: peel_f32pair(x, rl, slices=D_SLICES), rh) * 1e3
+    plain_ms = bench_op(lambda x: peel_plain(x, rl, D_SLICES), rh,
+                        reps=3) * 1e3
+    print(f"peel_f32pair 8192², S={D_SLICES}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms on {on}")
+    # 8 bytes in and S out per element; no library call peels
+    rec["peel_f32pair"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        **roofline(10 * D_SLICES * 8192 ** 2, "f32",
+                   (8 + D_SLICES) * 8192 ** 2))
+
+
+def check_mm_groups(gen, rec, on):
+    """The grouped slice products of the d path against the twin, within
+    1e-12·max|ref| (the JAX package's bound of its fused kernel against
+    the plain products): an 8192×128 row panel times a 128-wide leaf (the
+    panel solve's leaf product), dpotrf's top trailing update at 8192 (a
+    4096² panel times itself, one peel for both sides) and a sub-block
+    view of one hoisted peel of the factor."""
+    buf = torch.randn(8192, 8192, dtype=torch.float64, device="cuda",
+                      generator=gen)
+    T = torch.tril(torch.randn(128, 128, dtype=torch.float64, device="cuda",
+                               generator=gen))
+    Ps, _ = ozaki.split_rows(buf[:, 256:384], D_SLICES)
+    Ts, _ = ozaki.split_rows(T, D_SLICES)             # the peel of (Tᵀ)ᵀ
+    Xs, _ = ozaki.split_rows(buf[4096:, :4096], D_SLICES)
+    Ls, _ = ozaki.split_rows(torch.tril(buf[:4096, :4096]), D_SLICES)
+    Ws, _ = ozaki.split_rows(buf[:4096, 4096:6144], D_SLICES)
+    cases = {"8192×128·128": (Ps, Ts), "4096³ (syrk, one peel)": (Xs, Xs),
+             "4096×2048·2048 on a view of a hoisted peel":
+                 (Ws, Ls[:, 2048:4096, :2048])}
+    errs = {}
+    for what, (As, Bs) in cases.items():
+        hi, lo = mm_groups_f32pair(As, Bs)
+        rh, rl = mm_groups_plain(As, Bs)
+        ref = rh.double() + rl.double()
+        err = max_err(hi.double() + lo.double(), ref)
+        b = 1e-12 * float(ref.abs().max())
+        require(err <= b, f"mm_groups_f32pair {what}: err {err} > {b}")
+        errs[what] = err
+        print(f"mm_groups_f32pair {what}, S={D_SLICES}: max err {err:.3e} "
+              f"(bound {b:.3e})")
+    ms_p = bench_op(lambda a: mm_groups_f32pair(a, Ts), Ps) * 1e3
+    P64, T64 = buf[:, 256:384], T
+    lib_p = bench_op(lambda a: torch.matmul(a, T64.T), P64) * 1e3
+    print(f"mm_groups_f32pair 8192×128·128: kernel {ms_p:.4f} ms, f64 "
+          f"torch.matmul {lib_p:.4f} ms on {on}")
+    ms = bench_op(lambda a: mm_groups_f32pair(a, a), Xs, reps=5) * 1e3
+    plain_ms = bench_op(lambda a: mm_groups_plain(a, a), Xs, reps=3) * 1e3
+    X64 = buf[4096:, :4096]
+    lib_ms = bench_op(lambda a: torch.matmul(a, a.T), X64, reps=5) * 1e3
+    print(f"mm_groups_f32pair 4096³: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+          f" ms, f64 torch.matmul {lib_ms:.4f} ms on {on}")
+    # S(S+1)/2 int8 products; one peel (S bytes per element) read, an f32
+    # pair written
+    n = 4096
+    rec["mm_groups_f32pair"] = dict(
+        max_abs_err=errs["4096³ (syrk, one peel)"], ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms,
+        **roofline(2 * n ** 3 * D_SLICES * (D_SLICES + 1) // 2, "int8",
+                   D_SLICES * n * n + 8 * n * n))
 
 
 # ---------------------------------------------------------------------------
@@ -651,6 +806,144 @@ def gp_path(name_power, dev="cuda"):
     return {"GP": gp_l, "potri": potri_l, "lauum block_size=512": lauum_l}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the d tier, dpotrf + dlogdet + dpotri at n = 8192 (BASELINE.json
+# configs[1] and [3]), f64 under backend="auto"
+# ---------------------------------------------------------------------------
+
+D_N, D_COND = 8192, 100.0
+
+
+def profile_table(fn, top=16):
+    """One call of fn under torch.profiler: (wall ms, device busy ms, idle
+    share, operations on the device, [(name, count, ms)] by device time).
+    Busy is the union of the device intervals, so overlapping kernels
+    count once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + (b - a) / 1e3)
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    rows = sorted(((k, c, t) for k, (c, t) in by_name.items()),
+                  key=lambda r: -r[2])
+    return wall, busy, max(0.0, 1.0 - busy / wall), len(spans), rows[:top]
+
+
+def d_path(gen, name_power):
+    n = D_N
+    A = latmc(gen, n, D_COND, torch.float64)
+
+    def drive():
+        F, info = ct.dpotrf("L", A)
+        ld, info_ld = ct.dlogdet("L", A)
+        inv, info_inv = ct.dpotri("L", F)
+        return F, info, ld, info_ld, inv, info_inv
+
+    t0 = time.perf_counter()
+    (F, info, ld, info_ld, inv, info_inv), launches = run_path("d", drive)
+    first_s = time.perf_counter() - t0
+    require(int(info) == int(info_ld) == int(info_inv) == 0,
+            f"d path info: dpotrf {int(info)}, dlogdet {int(info_ld)}, "
+            f"dpotri {int(info_inv)}")
+    require(all(bool(torch.isfinite(x).all()) for x in (F, ld, inv)),
+            "d path: non-finite output")
+
+    # the gates, in f64 on the card against cuSOLVER's f64 torch.linalg
+    L = torch.tril(F)
+    scale = float(A.abs().max())
+    be = float((L @ L.T - A).abs().max()) / scale
+    b_be = n * 2.0 ** -40
+    require(be <= b_be, f"dpotrf n={n}: max|LLᵀ-A|/max|A| {be} > {b_be}")
+    ref_ld = float(torch.linalg.slogdet(A)[1])
+    rel_ld = abs(float(ld) - ref_ld) / abs(ref_ld)
+    require(rel_ld <= 1e-9, f"dlogdet n={n}: rel err {rel_ld} > 1e-9")
+    L64 = torch.linalg.cholesky(A)
+    inv64 = torch.cholesky_inverse(L64)
+    low = torch.ones(n, n, dtype=torch.bool, device="cuda").tril_()
+    rel_inv = float(torch.where(low, inv - inv64, 0.0).abs().max()) / float(
+        inv64.abs().max())
+    b_inv = D_COND * n * 2.0 ** -40
+    require(rel_inv <= b_inv, f"dpotri n={n}: rel err {rel_inv} > {b_inv}")
+    print(f"dpotrf n={n} cond {D_COND:g} (auto -> ozaki): info 0, "
+          f"max|LLᵀ-A|/max|A| {be:.3e} (bound n·2^-40 {b_be:.3e}); dlogdet "
+          f"{float(ld):.10f} vs f64 slogdet {ref_ld:.10f}, rel err "
+          f"{rel_ld:.3e} (bound 1e-9); dpotri max err / max|A⁻¹| "
+          f"{rel_inv:.3e} vs f64 cholesky_inverse (bound cond·n·2^-40 "
+          f"{b_inv:.3e}); first run of the three {first_s:.3f} s")
+    del inv, inv64, low
+
+    # a non-positive-definite input: the first failing pivot, leading
+    # block finite and right (the second pass, with the f64 rescue)
+    B = A.clone()
+    B[3000, 3000] = -1.0
+    t0 = time.perf_counter()
+    Fb, info_b = ct.dpotrf("L", B)
+    torch.cuda.synchronize()
+    t_nonpd = time.perf_counter() - t0
+    lead = torch.tril(Fb[:3000, :3000])
+    require(int(info_b) == 3001 and bool(torch.isfinite(lead).all()),
+            f"non-PD n={n}: info {int(info_b)} != 3001 or leading block "
+            "not finite")
+    be_lead = float((lead @ lead.T - B[:3000, :3000]).abs().max()) / scale
+    require(be_lead <= b_be, f"non-PD leading block: {be_lead} > {b_be}")
+    print(f"dpotrf non-PD n={n} A[3000,3000]=-1: info 3001, leading 3000 "
+          f"block finite, max|LLᵀ-A|/max|A| {be_lead:.3e}; {t_nonpd:.3f} s "
+          "(two passes, the second with the f64 rescue)")
+    del B, Fb, lead
+    # PD in f64, singular in f32: the rescue re-factors the leaf in f64
+    a = 0.5
+    R = torch.tensor([[1.0, a], [a, a * a + 1e-12]], dtype=torch.float64,
+                     device="cuda")
+    Fr, info_r = ct.dpotrf("L", R)
+    Lr = torch.tril(Fr)
+    er = float((Lr @ Lr.T - R).abs().max())
+    require(int(info_r) == 0 and er < 1e-15,
+            f"f64 rescue: info {int(info_r)}, residual {er}")
+    print(f"dpotrf 2×2 [[1, .5], [.5, .25 + 1e-12]]: info 0 (the f32 leaf "
+          f"fails, the f64 rescue factors it), max|LLᵀ-A| {er:.3e}")
+
+    # times beside cuSOLVER's f64 routines (never the port)
+    t_potrf = wall_ms(lambda: ct.dpotrf("L", A))
+    t_logdet = wall_ms(lambda: ct.dlogdet("L", A))
+    t_potri = wall_ms(lambda: ct.dpotri("L", F))
+    t_chol = bench_op(lambda a: torch.linalg.cholesky_ex(a), A, reps=5) * 1e3
+    t_cinv = bench_op(lambda x: torch.cholesky_inverse(x), L64, reps=5) * 1e3
+    fl = flops_potrf(n)
+    print(f"dpotrf n={n}: port {t_potrf:.3f} ms ({fl / t_potrf / 1e6:.1f} "
+          f"GF/s), f64 torch.linalg.cholesky_ex {t_chol:.3f} ms "
+          f"({fl / t_chol / 1e6:.1f} GF/s); dlogdet {t_logdet:.3f} ms; "
+          f"dpotri {t_potri:.3f} ms ({2 * n ** 3 / 3 / t_potri / 1e6:.1f} "
+          f"GF/s), f64 torch.cholesky_inverse {t_cinv:.3f} ms "
+          f"({2 * n ** 3 / 3 / t_cinv / 1e6:.1f} GF/s) on {name_power}")
+
+    # where one dpotrf's time goes
+    wall, busy, idle, count, rows = profile_table(lambda: ct.dpotrf("L", A))
+    print(f"dpotrf n={n} under torch.profiler: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {idle:.4f}, {count} operations "
+          "on the device; by device time:")
+    for name, count, ms in rows:
+        print(f"  {ms:10.3f} ms  {count:6d}  {name[:160]}")
+    return {"d": launches}
+
+
 #: each path's kernels: the launch counters must show every one of them
 PATHS = {
     "potrf": ("potrf_stream_f32",),
@@ -660,6 +953,8 @@ PATHS = {
            "trtri_stream_f32", "lauum_stream_f32"),
     "potri": ("trtri_stream_f32", "lauum_stream_f32"),
     "lauum block_size=512": ("gemm_f32", "syrk_lower_f32", "lauu2_f32"),
+    "d": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
+          "trtri_block_f32"),
 }
 
 #: each kernel: its source, the TPU kernel it replaces, and the path whose
@@ -685,6 +980,10 @@ SOURCES = {
     "lauu2_f32": ("cholesky_tpu_torch/ops/kernels/csrc/lauum.cu",
                   "cholesky_tpu/ops/pallas/leaf.py:297",
                   "lauum block_size=512"),
+    "peel_f32pair": ("cholesky_tpu_torch/ops/kernels/csrc/ozaki_peel.cu",
+                     "cholesky_tpu/ops/pallas/ozaki_split.py:57", "d"),
+    "mm_groups_f32pair": ("cholesky_tpu_torch/ops/kernels/csrc/ozaki_mm.cu",
+                          "cholesky_tpu/ops/pallas/ozaki_mm.py:105", "d"),
 }
 
 
@@ -723,12 +1022,17 @@ def main() -> int:
     check_trtri_stream(gen, rec, name_power)
     check_lauum_stream(gen, rec, name_power)
     check_lauu2(gen, rec, name_power)
+    check_peel(gen, rec, name_power)
+    check_mm_groups(gen, rec, name_power)
 
     # 4. the potrf path
     runs = main_path(gen, name_power)
 
     # 5. the GP model, potri, lauum on leaves
     runs.update(gp_path(name_power))
+
+    # 6. the d tier
+    runs.update(d_path(gen, name_power))
     require("jax" not in sys.modules, "jax was imported")
 
     # each kernel's launches from the run of the path it serves

@@ -33,16 +33,19 @@ class GPParams(NamedTuple):
     log_noise: torch.Tensor    # log noise stddev
 
     @staticmethod
-    def init(dtype=torch.float32, device=None):
+    def init(dtype=torch.float32, device="cuda"):
+        """The initial parameters, on the card unless the caller names
+        another device."""
         def scalar(v):
             return torch.tensor(v, dtype=dtype, device=device)
         return GPParams(scalar(0.0), scalar(0.0), scalar(-1.0))
 
 
-def params_from_jax(p, device=None) -> GPParams:
+def params_from_jax(p, device="cuda") -> GPParams:
     """The port's parameters from the JAX package's ``GPParams`` (or any
     triple of numpy-convertible scalars), dtype kept: the state carried
-    across the two packages."""
+    across the two packages, on the card unless the caller names another
+    device."""
     return GPParams(*(torch.from_numpy(np.array(v)).to(device) for v in p))
 
 

@@ -20,7 +20,12 @@ Tile backends:
             sweeps at the leaves: f32 and f64, any device (the CPU path).
   'cuda'    the hand-written CUDA kernels (ops/kernels/): f32 on a CUDA
             device.
-  'auto'    'cuda' for a float32 CUDA tensor, 'torch' for a CPU tensor.
+  'ozaki'   the d tier: f64 products as exact int8 slice products
+            (ops/ozaki.py), leaves by the f32 kernels plus one refinement
+            step; the kernels on a CUDA device, their twins on the CPU.
+  'auto'    'cuda' for a float32 CUDA tensor, 'ozaki' for a float64 CUDA
+            tensor (as the JAX package on its accelerator), 'torch' for a
+            CPU tensor.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Optional
 import torch
 
 from cholesky_tpu_torch import config  # noqa: F401  (TF32 off)
-from cholesky_tpu_torch.ops import blas_ref, lapack_ref
+from cholesky_tpu_torch.ops import blas_ref, lapack_ref, ozaki
 from cholesky_tpu_torch.ops import kernels as _k
 from cholesky_tpu_torch.ops.kernels import gemm as _gemm
 from cholesky_tpu_torch.ops.kernels import leaf as _leaf
@@ -41,7 +46,7 @@ from cholesky_tpu_torch.types import (Diag, Side, Trans, Uplo, norm_diag,
                                       norm_side, norm_trans, norm_uplo)
 from cholesky_tpu_torch.utils.errors import check
 
-BACKENDS = ("auto", "ref", "torch", "cuda")
+BACKENDS = ("auto", "ref", "torch", "cuda", "ozaki")
 
 def _mega_ok(n: int, op: str = "potrf") -> bool:
     """Can one whole-matrix kernel take this block? Up to the smaller of
@@ -54,6 +59,25 @@ def _mega_ok(n: int, op: str = "potrf") -> bool:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+# Force the d tier's hoisted-peel recursions on (True) or off (False)
+# whatever the size, for tests and A/B runs; None: _ozaki_hoist decides per
+# driver call.
+_OZAKI_HOIST_OVERRIDE: Optional[bool] = None
+
+
+def _ozaki_hoist(n: Optional[int], op: str = "potrf") -> bool:
+    """Should this driver call use the hoisted-peel recursions
+    (_OzakiTiles.trsm_*/trtri_lower and the single-peel syrk_ln)? From
+    n >= ``ozaki_f64.hoist_min_n`` (per op: ``hoist_min_n_<op>``), as in
+    the JAX package, whose threshold came from an A/B on a TPU."""
+    if _OZAKI_HOIST_OVERRIDE is not None:
+        return bool(_OZAKI_HOIST_OVERRIDE)
+    if n is None:
+        return True
+    p = get_params("ozaki_f64")
+    return n >= int(p.get(f"hoist_min_n_{op}", p.get("hoist_min_n", 0)))
 
 
 # ---------------------------------------------------------------------------
@@ -138,24 +162,229 @@ class _KernelTiles:
         return _k.lauu2_f32(L)
 
 
-def _tiles_for(A, backend: str):
-    """The tile backend for operand A, or raise for what the port does
-    not run yet."""
+class _OzakiTiles:
+    """f64 tiles whose products are exact int8 slice products (ops/
+    ozaki.py): the d tier, the analog of the JAX package's ``_OzakiTiles``
+    (``blocked.py:215-494``).
+
+    The leaves are factored or inverted by the f32 kernels and promoted by
+    ONE correction step of Ozaki products, which squares the f32 error
+    (about 2^-24 to 2^-48):
+      potf2:  L = Lh + Lh·Φ(Lh⁻¹ R Lh⁻ᵀ),  R = A − Lh·Lhᵀ,
+              Φ = strict lower + ½ diagonal
+      trti2:  one Newton step W1 = W0·(2I − L·W0)
+    slices = 6 gives products near 2^-42. A pivot fails at f32 precision;
+    with ``rescue`` set, a leaf whose f32 factor fails is factored again
+    by the f64 oracle, so that info is an f64 verdict (``_potrf_work``
+    sets it only for a second pass, after a first one reported info > 0).
+    """
+    default_nb = 128
+    slices = 6
+
+    def __init__(self, hoist: bool = True):
+        # the hoisted-peel recursions below and the single-peel syrk_ln,
+        # chosen per driver call (_ozaki_hoist)
+        self.hoist = hoist
+        self.rescue = False
+
+    def _mm(self, A, B):
+        return ozaki.matmul_f64(A, B, slices=self.slices)
+
+    def _split(self, X):
+        return ozaki.split_rows(X, self.slices)
+
+    def mm(self, A, B, C=None, *, alpha=1.0, beta=0.0, out=None):
+        D = alpha * self._mm(A, B)
+        if C is not None and beta != 0.0:
+            D = D + beta * C
+        if out is None:
+            return D
+        out.copy_(D)
+        return out
+
+    def syrk_ln(self, alpha, A, beta, C):
+        """C := alpha·A·Aᵀ + beta·C in place, the whole square (only the
+        lower triangle is read later). Hoisted: ONE peel of A serves both
+        sides of the product."""
+        if not self.hoist:
+            self.mm(A, A.T, C, alpha=alpha, beta=beta, out=C)
+            return
+        As, asc = self._split(A)
+        D = ozaki.matmul_presplit(As, asc, As, asc)
+        if alpha != 1.0:
+            D = alpha * D
+        if beta != 0.0:
+            D = D + (beta * C if beta != 1.0 else C)
+        C.copy_(D)
+
+    def potf2(self, A):
+        """Factor the lower triangle of the f64 block A in place (strict
+        upper zeroed); returns info."""
+        L32 = A.to(torch.float32, memory_format=torch.contiguous_format)
+        info = _KernelTiles().potf2(L32)
+        # past a failed pivot the f32 factor leaves raw values (<= 0) on
+        # the diagonal: set them to 1 before the solves divide by them
+        # (the leading info-1 block is exact either way)
+        d32 = L32.diagonal()
+        d32.copy_(torch.where(d32 > 0, d32, 1.0))
+        Lh = L32.double()
+        # R is the full symmetric residual; only A's lower triangle is valid
+        Afull = torch.tril(A) + torch.tril(A, -1).T
+        R32 = (Afull - self._mm(Lh, Lh.T)).float()
+        # G = Lh⁻¹·R·Lh⁻ᵀ in f32: R is already about 2^-24·|A|
+        G32 = torch.linalg.solve_triangular(L32, R32, upper=False)
+        G32 = torch.linalg.solve_triangular(L32, G32.T, upper=False).T
+        Phi = torch.tril(G32, -1) + 0.5 * torch.diag(torch.diagonal(G32))
+        refined = torch.tril(Lh + (L32 @ Phi).double())
+        if self.rescue and int(info) > 0:
+            F64, info = lapack_ref.potf2("L", A)
+            refined = torch.tril(F64)
+        A.copy_(refined)
+        return info
+
+    def trti2(self, L, unit=False):
+        """(W, info): the inverse of the lower-triangular f64 block L by
+        the f32 kernel and one Newton step."""
+        n = L.shape[0]
+        eye = torch.eye(n, dtype=L.dtype, device=L.device)
+        W32, info = _KernelTiles().trti2(
+            L.to(torch.float32, memory_format=torch.contiguous_format),
+            unit=unit)
+        W0 = W32.double()
+        if unit:
+            W0 = torch.tril(W0, -1) + eye
+        Lm = torch.tril(L, -1) + (eye if unit else torch.diag(
+            torch.diagonal(L)))
+        D = 2.0 * eye - self._mm(Lm, W0)
+        W1 = torch.tril(self._mm(W0, D))
+        if unit:
+            # LAPACK: a unit diagonal passes through untouched
+            W1 = torch.tril(W1, -1) + torch.diag(torch.diagonal(L))
+        return W1, info
+
+    def lauu2(self, L):
+        T = torch.tril(L)
+        return torch.tril(self._mm(T.T, T)) + torch.triu(L, 1)
+
+    # The hoisted recursions: the factor-side operand of every
+    # off-diagonal update is a sub-block of ONE peel of the whole
+    # triangle, with the row scales of its full rows (a sub-block of a
+    # peel is an exact peel; only the dropped-pair bound loosens from the
+    # block's max to the row's). In place on B (or L), as the generic
+    # recursions.
+
+    def trsm_rlt(self, L, B, nb):
+        """X·Lᵀ = B in place (the potrf panel solve)."""
+        Lt = torch.tril(L)
+        Ls, lsc = self._split(Lt)
+
+        def rec(i, n, B):
+            if n <= nb:
+                T, _ = self.trti2(Lt[i:i + n, i:i + n])
+                B.copy_(self._mm(B, T.T))
+                return
+            n1 = _split(n, nb)
+            rec(i, n1, B[:, :n1])
+            Xs, xsc = self._split(B[:, :n1])
+            B[:, n1:] -= ozaki.matmul_presplit(
+                Xs, xsc, Ls[:, i + n1:i + n, i:i + n1], lsc[i + n1:i + n])
+            rec(i + n1, n - n1, B[:, n1:])
+
+        rec(0, L.shape[0], B)
+
+    def trsm_lln(self, L, B, nb, unit):
+        """L·X = B in place, forward."""
+        Lt = torch.tril(L)
+        Ls, lsc = self._split(Lt)
+
+        def rec(i, n, B):
+            if n <= nb:
+                T, _ = self.trti2(Lt[i:i + n, i:i + n], unit=unit)
+                if unit:
+                    T = _force_unit_diag(T)
+                B.copy_(self._mm(T, B))
+                return
+            n1 = _split(n, nb)
+            rec(i, n1, B[:n1])
+            Xs, xsc = self._split(B[:n1].T)
+            B[n1:] -= ozaki.matmul_presplit(
+                Ls[:, i + n1:i + n, i:i + n1], lsc[i + n1:i + n], Xs, xsc)
+            rec(i + n1, n - n1, B[n1:])
+
+        rec(0, L.shape[0], B)
+
+    def trsm_llt(self, L, B, nb, unit):
+        """Lᵀ·X = B in place, backward; the hoisted peel is that of Lᵀ."""
+        Lt = torch.tril(L)
+        LTs, ltsc = self._split(Lt.T)
+
+        def rec(i, n, B):
+            if n <= nb:
+                T, _ = self.trti2(Lt[i:i + n, i:i + n], unit=unit)
+                if unit:
+                    T = _force_unit_diag(T)
+                B.copy_(self._mm(T.T, B))
+                return
+            n1 = _split(n, nb)
+            rec(i + n1, n - n1, B[n1:])
+            Xs, xsc = self._split(B[n1:].T)
+            B[:n1] -= ozaki.matmul_presplit(
+                LTs[:, i:i + n1, i + n1:i + n], ltsc[i:i + n1], Xs, xsc)
+            rec(i, n1, B[:n1])
+
+        rec(0, L.shape[0], B)
+
+    def trtri_lower(self, L, nb, unit):
+        """Invert the lower-triangular view L in place; returns info. The
+        update M' = −W2·M·W1 reads M = L[2,1] through one peel of Lᵀ,
+        taken before anything is overwritten."""
+        Lt = torch.tril(L)
+        LTs, ltsc = self._split(Lt.T)
+
+        def rec(i, n):
+            if n <= nb:
+                W, info = self.trti2(Lt[i:i + n, i:i + n], unit=unit)
+                L[i:i + n, i:i + n] = W
+                return info
+            n1 = _split(n, nb)
+            i1 = rec(i, n1)
+            i2 = rec(i + n1, n - n1)
+            W1 = L[i:i + n1, i:i + n1]
+            W2 = L[i + n1:i + n, i + n1:i + n]
+            W1e = _force_unit_diag(W1) if unit else W1
+            W2e = _force_unit_diag(W2) if unit else W2
+            Ws, wsc = self._split(W2e)
+            P = ozaki.matmul_presplit(
+                Ws, wsc, LTs[:, i:i + n1, i + n1:i + n], ltsc[i:i + n1])
+            self.mm(P, W1e, alpha=-1.0, out=L[i + n1:i + n, i:i + n1])
+            return torch.where(i1 > 0, i1, torch.where(i2 > 0, i2 + n1, 0))
+
+        return rec(0, L.shape[0])
+
+
+def _tiles_for(A, backend: str, n: Optional[int] = None,
+               op: str = "potrf"):
+    """The tile backend for operand A of a driver call on an n×n matrix,
+    or raise for what the port does not run yet."""
     check(backend in BACKENDS, "blocked", 0,
           f"unknown backend {backend!r}; expected one of {BACKENDS}")
     dtype = A.dtype
     if dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(
-            f"{dtype} is not ported yet: the d tier and the c/z tier are "
-            "ROADMAP Queue 1 items 9-10")
+            f"{dtype} is not ported yet: the c/z tier is ROADMAP Queue 1 "
+            "item 10")
     on_cuda = A.device.type == "cuda"
+    if backend == "ozaki" or (backend == "auto" and on_cuda
+                              and dtype == torch.float64):
+        check(dtype == torch.float64, "blocked", 0,
+              f"ozaki backend supports float64 only, got {dtype}")
+        return _OzakiTiles(hoist=_ozaki_hoist(n, op))
     if backend == "cuda" or (backend == "auto" and on_cuda):
         check(on_cuda, "blocked", 0,
               f"backend='cuda' needs a CUDA tensor, got one on {A.device}")
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"{dtype} on the card is not ported yet: the d tier and "
-                "the c/z tier are ROADMAP Queue 1 items 9-10")
+        check(dtype == torch.float32, "blocked", 0,
+              f"cuda backend supports float32 only, got {dtype}; float64 "
+              "on the card is backend='ozaki' (or 'auto')")
         return _KernelTiles()
     return _TorchTiles()
 
@@ -171,6 +400,8 @@ def _split(n: int, nb: int) -> int:
 def _trsm_rlt(L, B, t, nb):
     """Solve X·Lᵀ = B in place (B := X): the potrf panel solve, by the
     inverse of each leaf of L."""
+    if getattr(t, "hoist", False):          # the d tier's hoisted peel
+        return t.trsm_rlt(L, B, nb)
     n = L.shape[0]
     if n <= nb:
         T, _ = t.trti2(L)
@@ -191,6 +422,8 @@ def _force_unit_diag(T):
 
 def _trsm_lln(L, B, t, nb, unit):
     """Solve L·X = B in place (B := X), left, lower, no transpose."""
+    if getattr(t, "hoist", False):
+        return t.trsm_lln(L, B, nb, unit)
     n = L.shape[0]
     if n <= nb:
         T, _ = t.trti2(L, unit=unit)
@@ -207,6 +440,8 @@ def _trsm_lln(L, B, t, nb, unit):
 
 def _trsm_llt(L, B, t, nb, unit):
     """Solve Lᵀ·X = B in place (B := X), left, lower, transposed."""
+    if getattr(t, "hoist", False):
+        return t.trsm_llt(L, B, nb, unit)
     n = L.shape[0]
     if n <= nb:
         T, _ = t.trti2(L, unit=unit)
@@ -243,6 +478,8 @@ def _trtri_lower(L, t, nb, unit, allow_mega=False):
     """Invert the lower-triangular view L in place; returns info. The
     strict upper of L must be zero: the off-diagonal products read the
     inverted diagonal blocks whole."""
+    if getattr(t, "hoist", False):
+        return t.trtri_lower(L, nb, unit)
     n = L.shape[0]
     # with the default block size, diagonal sub-blocks re-enter the
     # whole-matrix kernels as soon as they fit (see _potrf_lower)
@@ -334,9 +571,16 @@ def _merge_triangle(result, original, uplo):
 
 def _potrf_work(uplo, A, backend, block_size):
     """Factor a working copy of A; returns (F, info) with F an n×n view
-    whose lower triangle holds the factor of the lower-form matrix."""
+    whose lower triangle holds the factor of the lower-form matrix.
+
+    On the d tier a pivot fails at f32 precision. Where the JAX package
+    re-factors each failing leaf in f64 inside the run (a lax.cond), this
+    reads info once per call: for a positive-definite input that is the
+    one wait for the device. Only when it is > 0 does it factor again from
+    A, now with the f64 rescue on every failing leaf, which gives the JAX
+    package's verdict."""
     n = lapack_ref._square(A, "potrf")
-    t = _tiles_for(A, backend)
+    t = _tiles_for(A, backend, n)
     if n == 0:
         return A.clone(), torch.zeros((), dtype=torch.int32,
                                       device=A.device)
@@ -344,6 +588,10 @@ def _potrf_work(uplo, A, backend, block_size):
     allow_mega = block_size is None
     Wp = _working_copy(_to_lower(A, uplo), t, nb, "potrf", allow_mega)
     info = _potrf_lower(Wp, t, nb, allow_mega)
+    if isinstance(t, _OzakiTiles) and int(info) > 0:
+        t.rescue = True
+        Wp = _working_copy(_to_lower(A, uplo), t, nb, "potrf", allow_mega)
+        info = _potrf_lower(Wp, t, nb, allow_mega)
     return Wp[:n, :n], info
 
 
@@ -391,7 +639,7 @@ def trtri(uplo, diag, A, backend: str = "auto",
     n = lapack_ref._square(A, "trtri")
     if backend == "ref":
         return lapack_ref.trtri(uplo, diag, A)
-    t = _tiles_for(A, backend)
+    t = _tiles_for(A, backend, n, "trtri")
     if n == 0:
         return A.clone(), torch.zeros((), dtype=torch.int32,
                                       device=A.device)
@@ -420,7 +668,7 @@ def lauum(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     n = lapack_ref._square(A, "lauum")
     if backend == "ref":
         return lapack_ref.lauum(uplo, A)
-    t = _tiles_for(A, backend)
+    t = _tiles_for(A, backend, n, "lauum")
     if n == 0:
         return A.clone()
     nb = block_size or t.default_nb
@@ -471,7 +719,7 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
     n = lapack_ref._square(A, "trsm")
     check(B.ndim == 2 and B.shape[0] == n, "trsm", 7,
           f"B shape {tuple(B.shape)} does not match A ({n}x{n})")
-    t = _tiles_for(A, backend)
+    t = _tiles_for(A, backend, n, "trsm")
     check(B.dtype == A.dtype and B.device == A.device, "trsm", 7,
           "A and B must share dtype and device")
     nb = block_size or t.default_nb

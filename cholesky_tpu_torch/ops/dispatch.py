@@ -4,9 +4,11 @@ The counterpart of ``cholesky_tpu/ops/dispatch.py`` for potrf, logdet,
 logdet_from_factor, trtri, trtri2, trti2, lauum, lauu2, potri and trsm.
 Backends: 'ref' (the oracle tier, ops/lapack_ref.py and ops/blas_ref.py),
 'torch' (the blocked recursions over torch matmuls, the JAX package's
-'xla'), 'cuda' (the blocked recursions over the hand-written CUDA kernels,
-its 'pallas') and 'auto' ('cuda' for a float32 CUDA tensor, 'torch' on the
-CPU).
+'xla'), 'cuda' (the blocked recursions over the hand-written f32 CUDA
+kernels, its 'pallas'), 'ozaki' (the f64 d tier: exact int8 slice products
+through two more kernels, as the JAX package's 'ozaki') and 'auto'
+('cuda' for a float32 CUDA tensor, 'ozaki' for a float64 CUDA tensor,
+'torch' on the CPU).
 """
 
 from __future__ import annotations

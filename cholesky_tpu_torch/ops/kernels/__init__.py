@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of the f32 potrf, trsm, trtri, lauum and
-potri paths, each beside its plain torch twin. Nothing is compiled at
+potri paths and of the d tier's Ozaki products, each beside its plain torch
+twin. Nothing is compiled at
 import: the first launch builds ``csrc/`` (see ``_build.py``)."""
 
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32
@@ -9,6 +10,8 @@ from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
                                                  potrf_stream_f32,
                                                  trtri_block_f32,
                                                  trtri_stream_f32)
+from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
+                                                  peel_f32pair)
 from cholesky_tpu_torch.ops.kernels.syrk import syrk_lower_f32
 
 #: kernel name -> its wrapper, which counts its launches in ``.launches``
@@ -21,6 +24,8 @@ KERNELS = {
     "trtri_stream_f32": trtri_stream_f32,
     "lauum_stream_f32": lauum_stream_f32,
     "lauu2_f32": lauu2_f32,
+    "peel_f32pair": peel_f32pair,
+    "mm_groups_f32pair": mm_groups_f32pair,
 }
 
 

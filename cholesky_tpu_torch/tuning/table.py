@@ -2,7 +2,7 @@
 
 The counterpart of ``cholesky_tpu/tuning/table.py``, with the same key set
 (``matmul_f32``, ``syrk_f32``, ``potrf_f32.{leaf_nb,mega_max_n}``,
-``{trtri,lauum}_f32.mega_max_n``). Tables are JSON files in ``tables/`` keyed by
+``{trtri,lauum}_f32.mega_max_n``, ``ozaki_f64.hoist_min_n``). Tables are JSON files in ``tables/`` keyed by
 the slug of ``torch.cuda.get_device_name()``; none is shipped until a value
 has been measured on its card, so DEFAULTS apply everywhere.
 """
@@ -32,6 +32,11 @@ DEFAULTS = {
     "potrf_f32": {"leaf_nb": 512, "mega_max_n": 8192},
     "trtri_f32": {"mega_max_n": 4096},
     "lauum_f32": {"mega_max_n": 8192},
+    # smallest n at which the d tier's recursions share one int8 peel of
+    # the factor (ops/blocked.py _ozaki_hoist). The JAX DEFAULTS value,
+    # which was measured on a TPU: kept for parity only until an A/B on
+    # the card sets it.
+    "ozaki_f64": {"hoist_min_n": 7168},
 }
 
 

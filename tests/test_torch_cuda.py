@@ -18,12 +18,16 @@ import torch
 
 import cholesky_tpu_torch as ct
 from cholesky_tpu_torch.models import gp
-from cholesky_tpu_torch.ops import kernels
+from cholesky_tpu_torch.ops import blocked, kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import gemm, leaf, mega, syrk
+from cholesky_tpu_torch.ops.kernels import ozaki as ozk
 
 # the blocked recursion's kernels, which potrf runs with a block size
 POTRF_PATH = ("gemm_f32", "syrk_lower_f32", "potrf_block_f32",
               "trtri_block_f32")
+# the d tier's kernels, which dpotrf runs on the card
+D_PATH = ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
+          "trtri_block_f32")
 
 EPS32 = float(np.finfo(np.float32).eps)
 
@@ -279,10 +283,176 @@ def test_gp_step_on_the_card_vs_cpu(cuda):
     g = torch.Generator().manual_seed(0)
     X = torch.rand(2048, 8, generator=g) * 2 - 1
     y = torch.sin(X.sum(1)) + 0.1 * torch.randn(2048, generator=g)
-    p = gp.GPParams.init()
+    p = gp.GPParams.init()              # on the card unless told otherwise
+    assert all(v.device.type == "cuda" for v in p)
     nll, grads, info = gp.gp_nll_and_grads(p, X.to(cuda), y.to(cuda))
-    nll_c, grads_c, info_c = gp.gp_nll_and_grads(p, X, y)
+    nll_c, grads_c, info_c = gp.gp_nll_and_grads(
+        gp.GPParams.init(device="cpu"), X, y)
     assert int(info) == int(info_c) == 0
     assert_close(nll, nll_c, 50 * 2048, "nll")
     for a, b in zip(grads, grads_c):
         assert_close(a, b, 3000 * 2048, "gradient")
+
+
+# ---------------------------------------------------------------------------
+# the d tier: the two Ozaki kernels and the f64 drivers through them
+# ---------------------------------------------------------------------------
+
+def pair(shape, seed):
+    """An exact f32 pair of values in [-1/2, 1/2], as split_rows makes."""
+    x = np.random.default_rng(seed).uniform(-0.5, 0.5, shape)
+    rh = x.astype(np.float32)
+    return (torch.from_numpy(rh),
+            torch.from_numpy((x - rh.astype(np.float64)).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,view", [(1, 1, "rows"), (37, 129, "rows"),
+                                      (64, 260, "rows"),
+                                      (200, 300, "transposed"),
+                                      (130, 250, "sub-block")])
+@pytest.mark.parametrize("slices", [4, 6])
+def test_peel_vs_twin(cuda, m, k, view, slices):
+    # ragged widths, the 16-byte loads (64 x 260), and strided inputs
+    rh, rl = (t.to(cuda) for t in pair((m + 3, k + 5), 10))
+    if view == "transposed":                 # as matmul_f64 peels B.T
+        rh, rl = (t[:m, :k].T.contiguous().T for t in (rh, rl))
+    elif view == "sub-block":                # an offset view of a wider one
+        rh, rl = rh[3:, 5:], rl[3:, 5:]
+    else:
+        rh, rl = rh[:m, :k].contiguous(), rl[:m, :k].contiguous()
+    got = ozk.peel_f32pair(rh, rl, slices=slices)
+    want = ozk.peel_plain(rh, rl, slices)
+    assert got.shape == want.shape == (slices, rh.shape[0], rh.shape[1])
+    assert torch.equal(got, want)            # bit for bit
+    assert got.stride(1) % ozk.ALIGN == 0 and got.stride(2) == 1
+
+
+def peel_pair(A, B, slices=6):
+    As, _ = ozaki.split_rows(A, slices)
+    Bs, _ = ozaki.split_rows(B.T, slices)
+    return As, Bs
+
+
+def assert_groups_close(As, Bs, atol=None):
+    hi, lo = kernels.mm_groups_f32pair(As, Bs)
+    rh, rl = ozk.mm_groups_plain(As, Bs)
+    got, ref = hi.double() + lo.double(), rh.double() + rl.double()
+    err = float((got - ref).abs().max())
+    bound = 1e-12 * float(ref.abs().max()) if atol is None else atol
+    assert err <= bound, f"max abs diff {err:.3e} > {bound:.3e}"
+    # a renormalized pair: |lo| <= ulp(hi) / 2
+    assert bool((lo.abs() <= torch.nextafter(hi.abs(), torch.tensor(
+        float("inf"), device=hi.device)) - hi.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(192, 160, 640), (1, 1, 1), (77, 130, 1000),
+                                   (64, 64, 33), (16, 24, 40000)])
+def test_mm_groups_vs_twin(cuda, m, n, k):
+    # k over many 32-wide steps, a ragged k end, ragged m and n, and one k
+    # past the kernel's exact int32 chunk
+    g = torch.Generator().manual_seed(m + n + k)
+    A = torch.randn(m, k, generator=g, dtype=torch.float64) * torch.exp(
+        2.0 * torch.randn(m, k, generator=g, dtype=torch.float64))
+    B = torch.randn(k, n, generator=g, dtype=torch.float64)
+    assert_groups_close(*peel_pair(A.to(cuda), B.to(cuda)))
+
+
+@pytest.mark.cuda
+def test_mm_groups_cancellation(cuda):
+    # T = L·L⁻¹ ≈ I, the Newton step's product (tests/test_ozaki.py:305-322)
+    n = 640
+    r = np.random.default_rng(9)
+    G = r.standard_normal((n, n))
+    L = np.linalg.cholesky(G @ G.T + n * np.eye(n))
+    W = np.linalg.inv(L)
+    L, W = torch.from_numpy(L).to(cuda), torch.from_numpy(W).to(cuda)
+    assert_groups_close(*peel_pair(L, W), atol=n * 2.0 ** -40)
+    T = ozaki.matmul_f64(L, W, slices=6)
+    assert float((T - L @ W).abs().max()) < n * 2.0 ** -40
+
+
+@pytest.mark.cuda
+def test_mm_groups_on_views_of_one_peel(cuda):
+    # the hoisted recursions' operands: sub-blocks of one peel of a
+    # triangle, at k offsets that are multiples of the block size
+    n, i, n1 = 640, 128, 256
+    L = torch.tril(torch.randn(n, n, dtype=torch.float64,
+                               generator=torch.Generator().manual_seed(3)))
+    Ls, lsc = ozaki.split_rows(L.to(cuda), 6)
+    X = torch.randn(300, n1, dtype=torch.float64, device=cuda)
+    Xs, xsc = ozaki.split_rows(X, 6)
+    sub = Ls[:, i + n1:n, i:i + n1]
+    assert not sub.is_contiguous()
+    assert_groups_close(Xs, sub)
+    assert_groups_close(sub, Xs)
+    C = ozaki.matmul_presplit(Xs, xsc, sub, lsc[i + n1:n])
+    ref = X @ L[i + n1:n, i:i + n1].to(cuda).T
+    # the product itself: S = 6 drops the pairs below about k·2^-42 of the
+    # row scales, which a sub-block takes from its full rows (the bound of
+    # the JAX package's hoisted products, test_ozaki.py)
+    assert float((C - ref).abs().max()) < 1e-9 * float(ref.abs().max())
+    # a k offset off the 16-byte grid is refused, not worked around
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.mm_groups_f32pair(Ls[:, :64, 3:67], Ls[:, 64:128, 3:67])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hoist", [None, True])
+def test_dpotrf_on_the_card(cuda, hoist, monkeypatch):
+    # f64 on the card goes to the d tier under auto, through both Ozaki
+    # kernels and the f32 leaf kernels
+    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", hoist)
+    n = 1024
+    A = torch.from_numpy(spd(n).double().numpy())
+    A = 0.5 * (A + A.T)
+    kernels.reset_launch_counts()
+    F, info = ct.dpotrf("L", A.to(cuda))
+    assert int(info) == 0
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in D_PATH), counts
+    L = torch.tril(F).cpu()
+    ref = torch.linalg.cholesky(A)
+    assert float((L - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
+    assert float((L @ L.T - A).abs().max()) <= n * 2.0 ** -40 * float(
+        A.abs().max())
+
+
+@pytest.mark.cuda
+def test_dlogdet_dpotri_dtrsm_on_the_card(cuda):
+    n = 768
+    A = spd(n, cond=30.0).double()
+    A = 0.5 * (A + A.T)
+    val, info = ct.dlogdet("L", A.to(cuda))
+    ref = torch.linalg.slogdet(A)[1]
+    assert int(info) == 0
+    assert abs(float(val) - float(ref)) <= 1e-9 * abs(float(ref))
+    L = torch.linalg.cholesky(A)
+    inv, info = ct.dpotri("L", L.to(cuda))
+    want = torch.cholesky_inverse(L)
+    assert int(info) == 0
+    err = float((torch.tril(inv.cpu()) - torch.tril(want)).abs().max())
+    assert err <= 30.0 * n * 2.0 ** -40 * float(want.abs().max())
+    B = torch.randn(n, 96, dtype=torch.float64)
+    for trans in ("N", "T"):
+        X = ct.dtrsm("L", "L", trans, "N", 1.0, L.to(cuda), B.to(cuda))
+        M = L if trans == "N" else L.T
+        assert float((M @ X.cpu() - B).abs().max()) <= 1e-9 * float(
+            B.abs().max())
+
+
+@pytest.mark.cuda
+def test_dpotrf_failures_on_the_card(cuda):
+    # PD in f64, singular in f32: the second pass's f64 rescue gives info 0
+    a = 0.5
+    A = torch.tensor([[1.0, a], [a, a * a + 1e-12]], dtype=torch.float64)
+    F, info = ct.dpotrf("L", A.to(cuda))
+    assert int(info) == 0 and bool(torch.isfinite(F).all())
+    # non-PD: the first failing pivot, the leading block finite
+    A = spd(1024).double()
+    A = 0.5 * (A + A.T)
+    A[700, 700] = -1.0
+    F, info = ct.dpotrf("L", A.to(cuda))
+    assert int(info) == 701
+    assert bool(torch.isfinite(F[:700, :700]).all())

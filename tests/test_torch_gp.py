@@ -52,8 +52,8 @@ def jax_steps(k):
 
 
 def test_params_from_jax():
-    p = gp.params_from_jax(jgp.GPParams.init())
-    q = gp.GPParams.init()
+    p = gp.params_from_jax(jgp.GPParams.init(), device="cpu")
+    q = gp.GPParams.init(device="cpu")
     for a, b in zip(p, q):
         assert a.dtype == torch.float32 and a.ndim == 0
         assert torch.equal(a, b)
@@ -64,7 +64,7 @@ def test_gp_nll_vs_jax():
     ref, info_j = jgp.gp_nll(jgp.GPParams.init(), jnp.asarray(X),
                              jnp.asarray(y))
     Xt, yt, _ = torch_data()
-    got, info = gp.gp_nll(gp.GPParams.init(), Xt, yt)
+    got, info = gp.gp_nll(gp.GPParams.init(device="cpu"), Xt, yt)
     assert int(info) == int(info_j) == 0
     assert_close(np.asarray(float(got)), np.asarray(float(ref)), F32, 50 * N,
                  "gp_nll")
@@ -76,7 +76,8 @@ def test_gp_nll_and_grads_vs_jax():
     ref, g_ref, info_j = jgp.gp_nll_and_grads(p0, jnp.asarray(X),
                                               jnp.asarray(y))
     Xt, yt, _ = torch_data()
-    got, g, info = gp.gp_nll_and_grads(gp.params_from_jax(p0), Xt, yt)
+    got, g, info = gp.gp_nll_and_grads(gp.params_from_jax(p0, device="cpu"),
+                                     Xt, yt)
     assert int(info) == int(info_j) == 0
     assert_close(np.asarray(float(got)), np.asarray(float(ref)), F32, 50 * N,
                  "gp_nll_and_grads nll")
@@ -87,7 +88,7 @@ def test_gp_nll_and_grads_vs_jax():
 
 def test_gp_three_train_steps_vs_jax():
     Xt, yt, _ = torch_data()
-    p = gp.GPParams.init()
+    p = gp.GPParams.init(device="cpu")
     for step, (p_j, nll_j, info_j) in enumerate(jax_steps(3)):
         p, nll, info = gp.gp_train_step(p, Xt, yt)
         assert int(info) == info_j == 0
@@ -104,7 +105,8 @@ def test_gp_predict_vs_jax():
     mean_j, var_j, info_j = jgp.gp_predict(p_j, jnp.asarray(X),
                                            jnp.asarray(y), jnp.asarray(Xs))
     Xt, yt, Xst = torch_data()
-    mean, var, info = gp.gp_predict(gp.params_from_jax(p_j), Xt, yt, Xst)
+    mean, var, info = gp.gp_predict(gp.params_from_jax(p_j, device="cpu"), Xt,
+                                  yt, Xst)
     assert int(info) == int(info_j) == 0
     assert mean.shape == var.shape == (17,)
     assert_close(mean.numpy(), np.asarray(mean_j), F32, 60 * N, "mean")
@@ -115,7 +117,7 @@ def test_gp_predict_vs_jax():
 def test_gp_backends_agree_in_f64(backend):
     # the oracle tier and the blocked torch tile give one model in f64
     Xt, yt, _ = (t.double() for t in torch_data())
-    p = gp.GPParams.init(torch.float64)
+    p = gp.GPParams.init(torch.float64, device="cpu")
     nll, g, info = gp.gp_nll_and_grads(p, Xt, yt, backend=backend)
     nll_a, g_a, _ = gp.gp_nll_and_grads(p, Xt, yt)
     assert int(info) == 0

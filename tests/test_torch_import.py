@@ -28,6 +28,7 @@ def test_import_loads_neither_jax_nor_triton():
         "import cholesky_tpu_torch.ops.blocked, cholesky_tpu_torch.rng\n"
         "import cholesky_tpu_torch.models\n"
         "import cholesky_tpu_torch.ops.kernels._build\n"
+        "import cholesky_tpu_torch.ops.ozaki, cholesky_tpu_torch.ops.typed\n"
         "import cholesky_tpu_torch.utils.benchlib\n"
         "bad = [m for m in ('jax', 'triton', 'cholesky_tpu')\n"
         "       if m in sys.modules]\n"
@@ -51,10 +52,13 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_public_api():
-    assert sorted(ct.__all__) == sorted([
-        "potrf", "logdet", "logdet_from_factor", "trtri", "trtri2", "trti2",
-        "lauum", "lauu2", "potri", "trsm", "Side", "Uplo", "Trans",
-        "Diag", "set_error_handler", "set_xerbla"])
+    routines = ["potrf", "logdet", "trtri", "trtri2", "trti2", "lauum",
+                "lauu2", "potri", "trsm"]
+    typed = [letter + r for letter in "sd" for r in routines]
+    assert sorted(ct.__all__) == sorted(
+        routines + typed + ["logdet_from_factor", "Side", "Uplo", "Trans",
+                            "Diag", "set_error_handler", "set_xerbla"])
+    assert all(callable(getattr(ct, name)) for name in typed)
 
 
 def test_tf32_is_off():
@@ -107,8 +111,9 @@ def test_tuning_defaults_and_mega_routing():
     assert get_params("potrf_f32") == {"leaf_nb": 512, "mega_max_n": 8192}
     assert get_params("trtri_f32") == {"mega_max_n": 4096}
     assert get_params("lauum_f32") == {"mega_max_n": 8192}
+    assert get_params("ozaki_f64") == {"hoist_min_n": 7168}
     assert set(DEFAULTS) == {"matmul_f32", "syrk_f32", "potrf_f32",
-                             "trtri_f32", "lauum_f32"}
+                             "trtri_f32", "lauum_f32", "ozaki_f64"}
     assert get_params("no_such_op") == {}
     assert blocked._mega_ok(1024) and blocked._mega_ok(100)
     assert not blocked._mega_ok(1025) and not blocked._mega_ok(200)
