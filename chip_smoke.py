@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's ten CUDA kernels from ``cholesky_tpu_torch/ops/
+Builds the port's thirteen CUDA kernels from ``cholesky_tpu_torch/ops/
 kernels/csrc``, holds each against its plain torch twin at the shapes its
 path gives it, then drives the paths below through the public API. Before
 each path every launch counter is set to 0, and after it the counters must
@@ -21,7 +21,15 @@ show that the path went through each of its kernels:
   products, ``peel_f32pair`` and ``mm_groups_f32pair``, over the f32 leaf
   kernels), held in f64 against cuSOLVER's ``torch.linalg``, then a
   non-positive-definite input, the f64 rescue of a leaf, times beside
-  cuSOLVER and a ``torch.profiler`` table of one ``dpotrf``.
+  cuSOLVER and a ``torch.profiler`` table of one ``dpotrf``;
+- phase 7, the BLAS path, each call on its own counters: ``strmm`` at
+  n = m = 8192 in six forms (one ``trmm_lln_f32`` launch each, no
+  ``gemm_f32``), ``sgemm`` 8192³ and ``ssyrk`` n = k = 8192, ``dtrmm`` at
+  8192 under ``auto`` (the Ozaki kernels only), ``spotf2`` at n = 16384
+  (one ``potf2_f32`` launch, above the whole-matrix kernels' 8192 cap) and
+  ``strtri(block_size=8192)`` at 8192, unit and not (one ``trti2_f32``
+  launch each, above ``trtri_f32.mega_max_n``), each held in f64 and timed
+  beside one PyTorch call.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
@@ -48,7 +56,9 @@ from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import _build
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32, gemm_plain
-from cholesky_tpu_torch.ops.kernels.leaf import lauu2_f32, lauu2_plain
+from cholesky_tpu_torch.ops.kernels.leaf import (lauu2_f32, lauu2_plain,
+                                                 potf2_f32, potf2_plain,
+                                                 trti2_f32, trti2_plain)
 from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
                                                  lauum_stream_plain,
                                                  potrf_block_f32,
@@ -64,6 +74,7 @@ from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
                                                   peel_f32pair, peel_plain)
 from cholesky_tpu_torch.ops.kernels.syrk import (syrk_lower_f32,
                                                  syrk_lower_plain)
+from cholesky_tpu_torch.ops.kernels.trmm import trmm_lln_f32, trmm_lln_plain
 from cholesky_tpu_torch.rng import latmc
 from cholesky_tpu_torch.utils.benchlib import bench_op
 
@@ -120,6 +131,68 @@ def card() -> str:
 
 def spd(gen, n: int, cond: float = 100.0):
     return latmc(gen, n, cond, torch.float32)
+
+
+def dense_spd(gen, n: int, cond: float = 100.0):
+    """A dense SPD f32 matrix: G·Gᵀ/n + s·I, G Gaussian, whose eigenvalues
+    fill [s, 4 + s] (Marchenko-Pastur), s set for a 2-norm condition
+    number of about ``cond``. Every entry of its factor and of the
+    factor's inverse is live (latmc's matrices are diagonal plus a rank-2
+    part), so a wrong trailing update or fold moves entries of the size of
+    the strict lower's RMS, far above rounding."""
+    G = torch.randn(n, n, device="cuda", generator=gen)
+    A = torch.matmul(G, G.T).div_(n)
+    del G
+    A.diagonal().add_(4.0 / (cond - 1.0))
+    return 0.5 * (A + A.T)
+
+
+#: the leaf kernels' accuracy gate: the error against an f64 reference at
+#: most this many times that of an f32 twin or library result on the same
+#: input (and at least one ulp of max|ref|). Sound f32 results differ by a
+#: few ulps; the script also requires the limit to lie below 1 % of the
+#: RMS of the reference's strict lower, so that a wrong update or fold,
+#: which moves entries by about that RMS, cannot pass.
+F32_GATE = 8.0
+
+
+def strict_rms(R) -> float:
+    """RMS of the strict lower triangle of the square R."""
+    n = R.shape[0]
+    return float(torch.tril(R.double(), -1).square().sum().div(
+        n * (n - 1) / 2).sqrt())
+
+
+def gated(what, got, ref, f32_err, rms=None):
+    """got against the f64 ``ref`` within F32_GATE times ``f32_err``, an
+    f32 result's error against the same ref; the limit itself must sit
+    below 1 % of ``rms`` (default: the RMS of ref's strict lower). Returns
+    (err, limit, rms)."""
+    err = max_err(got, ref)
+    lim = F32_GATE * max(f32_err, EPS32 * float(ref.abs().max()))
+    rms = strict_rms(ref) if rms is None else rms
+    require(err <= lim, f"{what}: err {err:.3e} > {lim:.3e} ({F32_GATE:g}x "
+            f"the f32 yardstick's {f32_err:.3e})")
+    require(lim <= 1e-2 * rms, f"{what}: limit {lim:.3e} is not below 1 % "
+            f"of the strict lower's RMS {rms:.3e}: the check is too weak")
+    return err, lim, rms
+
+
+def ms_inplace(fn, A, reps: int) -> float:
+    """Median ms of the in-place ``fn`` on copies of A made before the
+    clock starts (after one warm-up call), so no copy is timed."""
+    copies = [A.clone() for _ in range(reps + 1)]
+    fn(copies.pop())
+    times = []
+    for X in copies:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(X)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +510,186 @@ def check_lauu2(gen, rec, on):
                 **roofline(n ** 3 / 3, "f32", 2 * n * n * 4))
 
 
+def check_potf2(gen, rec, on):
+    """The leaf Cholesky against an f64 factor of a dense SPD input, gated
+    on its twin's error (a Python loop over 128-wide panels) at n = 100,
+    256, 2048 and the path's 16384, then timed at 16384."""
+    for n in (100, 256, 2048, 16384):
+        A = dense_spd(gen, n)
+        F = A.clone()
+        F[torch.ones_like(F, dtype=torch.bool).triu(1)] = float("nan")
+        info = potf2_f32(F)
+        want = A.clone()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        i_ref = potf2_plain(want)
+        t1.record()
+        t1.synchronize()
+        require(int(info) == 0 and int(i_ref) == 0,
+                f"potf2_f32 n={n}: info {int(info)}/{int(i_ref)}")
+        require(bool(torch.isfinite(F).all())
+                and bool((torch.triu(F, 1) == 0).all()),
+                f"potf2_f32 n={n}: read the NaN strict upper or left it")
+        L64 = torch.linalg.cholesky(A.double())
+        err, lim, rms = gated(f"potf2_f32 n={n}", F, L64, max_err(want, L64))
+        print(f"potf2_f32 n={n} (dense, cond 100): max err vs f64 "
+              f"{err:.3e}, the twin's {max_err(want, L64):.3e} (limit "
+              f"{lim:.3e}, 1/{rms / lim:.0f} of the strict lower's RMS "
+              f"{rms:.3e}), NaN strict upper unread")
+        del F, want, L64
+    plain_ms = t0.elapsed_time(t1)
+    ms = ms_inplace(potf2_f32, A, reps=3)
+    lib_ms = bench_op(lambda a: torch.linalg.cholesky_ex(a), A, reps=3) * 1e3
+    print(f"potf2_f32 n={n}: kernel {ms:.4f} ms (copies made before the "
+          f"clock), plain {plain_ms:.4f} ms (one run), "
+          f"torch.linalg.cholesky_ex {lib_ms:.4f} ms on {on}")
+    rec["potf2_f32"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms,
+                            **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
+    del A
+    # failed pivots: info, frozen and finite but an input NaN pivot, the
+    # leading block against its f64 factor, gated on the twin's
+    for n, k, v in ((2048, 1000, -1.0), (256, 7, float("nan"))):
+        A = dense_spd(gen, n, 10.0)
+        A[k, k] = v
+        L64 = torch.linalg.cholesky(A[:k, :k].double())
+        want = A.clone()
+        i_ref = potf2_plain(want)
+        info = potf2_f32(A)
+        bad = (~torch.isfinite(A)).nonzero().tolist()
+        require(int(info) == k + 1 == int(i_ref)
+                and all(ix == [k, k] for ix in bad),
+                f"potf2_f32 A[{k},{k}]={v}: info {int(info)}, non-finite at "
+                f"{bad[:5]}")
+        gated(f"potf2_f32 A[{k},{k}]={v}: leading block", A[:k, :k], L64,
+              max_err(want[:k, :k], L64))
+    print("potf2_f32 non-PD A[1000,1000]=-1 at n=2048: info 1001, finite; "
+          "NaN pivot A[7,7] at n=256: info 8, nothing but (7,7) non-finite; "
+          "each leading block within the gate")
+
+
+def unit_form(L):
+    """L with each column scaled to a unit diagonal, L's own diagonal
+    stored on it (for a unit-diagonal inverse to pass through)."""
+    d = torch.diagonal(L)
+    return L / d[None, :] + torch.diag(d - 1.0)
+
+
+def inverse64(L, unit=False):
+    """The f64 inverse of tril(L) (unit diagonal with ``unit``, L's own
+    diagonal then put back, as trti2 passes it through)."""
+    n = L.shape[0]
+    W = torch.linalg.solve_triangular(
+        torch.tril(L).double(),
+        torch.eye(n, dtype=torch.float64, device=L.device), upper=False,
+        unitriangular=unit)
+    if unit:
+        W.diagonal().copy_(torch.diagonal(L))
+    return W
+
+
+def check_trti2(gen, rec, on):
+    """The leaf inverse against an f64 inverse of a dense factor, gated on
+    the twin's error (a triangular solve against I), non-unit and unit."""
+    for n in (1024, 8192):
+        F, info = ct.potrf("L", dense_spd(gen, n))
+        require(int(info) == 0, f"trti2 input factor n={n}")
+        L = torch.tril(F)
+        for unit in (False, True):
+            Lu = unit_form(L) if unit else L
+            X = Lu.clone()
+            X[torch.ones_like(X, dtype=torch.bool).triu(1)] = float("nan")
+            W, info = trti2_f32(X, unit=unit)
+            want, i_ref = trti2_plain(Lu, unit)
+            require(int(info) == 0 == int(i_ref),
+                    f"trti2_f32 n={n} unit={unit}: info {int(info)}")
+            require(bool((torch.triu(W, 1) == 0).all()),
+                    f"trti2_f32 n={n}: strict upper not zero")
+            if unit:
+                require(torch.equal(torch.diagonal(W), torch.diagonal(Lu)),
+                        "trti2_f32 unit: the diagonal was not passed through")
+            W64 = inverse64(Lu, unit)
+            err, lim, rms = gated(f"trti2_f32 n={n} unit={unit}", W, W64,
+                                  max_err(want, W64))
+            print(f"trti2_f32 n={n} unit={unit} (dense factor): max err vs "
+                  f"f64 {err:.3e}, the twin's {max_err(want, W64):.3e} "
+                  f"(limit {lim:.3e}, 1/{rms / lim:.0f} of the strict "
+                  f"lower's RMS {rms:.3e}), NaN strict upper unread")
+            if n == 8192 and not unit:
+                err8 = err
+            del W, want, W64
+        if n == 1024:
+            Z = L.clone()
+            Z[9, 9] = 0.0
+            W, info = trti2_f32(Z)
+            require(int(info) == 10 and bool(torch.isfinite(W).all()),
+                    f"trti2_f32 zero diagonal: info {int(info)}")
+            print("trti2_f32 zero diagonal L[9,9]=0 at n=1024: info 10, "
+                  "finite")
+    ms = bench_op(lambda x: trti2_f32(x), L, reps=5) * 1e3
+    plain_ms = bench_op(lambda x: trti2_plain(x), L, reps=5) * 1e3
+    eye = torch.eye(n, device="cuda")
+    lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
+        x, eye, upper=False), L, reps=5) * 1e3
+    print(f"trti2_f32 n={n}: kernel {ms:.4f} ms, plain (solve_triangular) "
+          f"{plain_ms:.4f} ms, torch.linalg.solve_triangular(L, I) "
+          f"{lib_ms:.4f} ms on {on}")
+    rec["trti2_f32"] = dict(max_abs_err=err8, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms,
+                            **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
+
+
+def rms_of(R) -> float:
+    return float(R.double().square().mean().sqrt())
+
+
+def check_trmm(gen, rec, on):
+    """The live-block trmm against an f64 product, gated on its twin's
+    error (f32 tril(L)·B), at a ragged shape and the path's 8192², then
+    the upper unit form (the reversed views) at 8192²."""
+    for n, m in ((200, 130), (8192, 8192)):
+        # the whole square is given: only the lower triangle may be read
+        L = torch.randn(n, n, device="cuda", generator=gen)
+        B = torch.randn(n, m, device="cuda", generator=gen)
+        want = trmm_lln_plain(L, B, 1.5)
+        ref = 1.5 * (torch.tril(L).double() @ B.double())
+        L[torch.ones_like(L, dtype=torch.bool).triu(1)] = float("nan")
+        got = trmm_lln_f32(L, B, alpha=1.5)
+        err, lim, rms = gated(f"trmm_lln_f32 {n}x{m}", got, ref,
+                              max_err(want, ref), rms=rms_of(ref))
+        print(f"trmm_lln_f32 L {n}², B {n}x{m}: max err vs f64 {err:.3e}, "
+              f"the twin's {max_err(want, ref):.3e} (limit {lim:.3e}), NaN "
+              f"strict upper unread")
+        del want, ref, got
+    # T = triu(U) with a unit diagonal: pointers to the last rows and
+    # negated strides; the strict lower and the diagonal hold NaN
+    U = torch.randn(n, n, device="cuda", generator=gen)
+    want = trmm_lln_plain(U, B, 1.5, upper=True, unit=True)
+    T64 = torch.triu(U.double())
+    T64.diagonal().fill_(1.0)
+    ref = 1.5 * (T64 @ B.double())
+    del T64
+    U[torch.ones_like(U, dtype=torch.bool).tril()] = float("nan")
+    got = trmm_lln_f32(U, B, alpha=1.5, upper=True, unit=True)
+    e_up, lim, rms = gated(f"trmm_lln_f32 upper unit {n}x{m}", got, ref,
+                           max_err(want, ref), rms=rms_of(ref))
+    print(f"trmm_lln_f32 upper=True unit=True {n}x{m}: max err vs f64 "
+          f"{e_up:.3e}, the twin's {max_err(want, ref):.3e} (limit "
+          f"{lim:.3e}), NaN strict lower and diagonal unread")
+    del U, want, ref, got
+    L = torch.tril(L)
+    ms = bench_op(lambda x: trmm_lln_f32(L, x), B, reps=5) * 1e3
+    plain_ms = bench_op(lambda x: trmm_lln_plain(L, x), B, reps=5) * 1e3
+    lib_ms = bench_op(lambda x: torch.matmul(L, x), B, reps=5) * 1e3
+    print(f"trmm_lln_f32 n=m={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, torch.matmul(tril(L), B) {lib_ms:.4f} ms on {on}")
+    rec["trmm_lln_f32"] = dict(
+        max_abs_err=max(err, e_up), ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms,
+        **roofline(n * (n + 1) * m, "f32", tri_bytes(n) + 2 * n * m * 4))
+
+
 D_SLICES = 6       # the d tier's slices per operand (_OzakiTiles)
 
 
@@ -532,10 +785,10 @@ def backward_error(F, A, uplo="L"):
     return float((L @ L.T - A.double()).abs().max())
 
 
-def run_path(name, fn):
+def run_path(name, fn, exact=None):
     """Drive one path with every launch counter at 0; returns what fn
     returns and the path's launch counts, which must be > 0 for each
-    kernel PATHS gives it."""
+    kernel PATHS gives it, and equal to ``exact`` where it says."""
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     out = fn()
@@ -544,6 +797,8 @@ def run_path(name, fn):
     print(f"{name} launches: {launches}")
     require(all(launches[k] > 0 for k in PATHS[name]),
             f"{name}: a kernel of the path was not launched: {launches}")
+    require(all(launches[k] == v for k, v in (exact or {}).items()),
+            f"{name}: launches {launches}, expected {exact}")
     return out, launches
 
 
@@ -944,6 +1199,189 @@ def d_path(gen, name_power):
     return {"d": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the BLAS path (strmm, sgemm, ssyrk, dtrmm) and the leaf routes
+# (spotf2 at 16384, strtri with block_size=8192), each call on its own
+# launch counters
+# ---------------------------------------------------------------------------
+
+B_N = 8192
+ONLY = dict.fromkeys(kernels.KERNELS, 0)
+
+
+def only(**counts):
+    """Exact launch counts: these, and 0 for every other kernel."""
+    return {**ONLY, **counts}
+
+
+def strmm_operand(uplo, trans, diag, A, dtype):
+    """op(T) in ``dtype``, T the uplo triangle of A (unit diagonal with
+    diag U), materialized: the f64 reference's operand and the f32
+    library call's."""
+    T = A.to(dtype)
+    T = torch.tril(T) if uplo == "L" else torch.triu(T)
+    if diag == "U":
+        T.diagonal().fill_(1.0)
+    return T if trans == "N" else T.T
+
+
+def llt64(F):
+    L = torch.tril(F).double()
+    return L @ L.T
+
+
+def blas_path(gen, name_power):
+    """Each call against an f64 reference, gated (``gated``) on the error
+    of the f32 library call that computes the same function."""
+    n = m = B_N
+    runs = {}
+    A = torch.randn(n, n, device="cuda", generator=gen)
+    B = torch.randn(n, m, device="cuda", generator=gen)
+    live = n * (n + 1) * m
+    for side, uplo, trans, diag in (("L", "L", "N", "N"),
+                                    ("L", "U", "N", "N"),
+                                    ("L", "L", "T", "N"),
+                                    ("L", "U", "T", "N"),
+                                    ("R", "L", "N", "N"),
+                                    ("L", "L", "N", "U")):
+        form = side + uplo + trans + diag
+        C, launches = run_path("strmm", lambda: ct.strmm(
+            side, uplo, trans, diag, 1.0, A, B), only(trmm_lln_f32=1))
+        runs.setdefault("strmm", launches)
+        T64 = strmm_operand(uplo, trans, diag, A, torch.float64)
+        ref = T64 @ B.double() if side == "L" else B.double() @ T64
+        del T64
+        T32 = strmm_operand(uplo, trans, diag, A, torch.float32)
+        lib = T32 @ B if side == "L" else B @ T32
+        e_lib = max_err(lib, ref)
+        del T32, lib
+        err, lim, rms = gated(f"strmm {form}", C, ref, e_lib, rms=rms_of(ref))
+        del ref, C
+        t = bench_op(lambda x: ct.strmm(side, uplo, trans, diag, 1.0, A, x),
+                     B, reps=3)
+        print(f"strmm {form} n=m={n}: max err vs f64 {err:.3e}, f32 "
+              f"torch.matmul's {e_lib:.3e} (limit {lim:.3e}, 1/"
+              f"{rms / lim:.0f} of the RMS {rms:.3e}); {t * 1e3:.3f} ms, "
+              f"{live / t / 1e9:.1f} GF/s (live flops n(n+1)m)")
+    Lt = torch.tril(A)
+    t_lib = bench_op(lambda x: torch.matmul(Lt, x), B, reps=3)
+    print(f"f32 torch.matmul(tril(A), B) n=m={n}: {t_lib * 1e3:.3f} ms, "
+          f"{live / t_lib / 1e9:.1f} GF/s on the same live flops, on "
+          f"{name_power}")
+
+    # sgemm and ssyrk through the public API
+    C = torch.randn(n, n, device="cuda", generator=gen)
+    G, runs["sgemm"] = run_path("sgemm", lambda: ct.sgemm(
+        "N", "T", 1.0, A, B, 0.5, C), only(gemm_f32=1))
+    ref = A.double() @ B.double().T + 0.5 * C.double()
+    e_lib = max_err(torch.addmm(C, A, B.T, beta=0.5), ref)
+    err, lim, rms = gated(f"sgemm {n}³", G, ref, e_lib, rms=rms_of(ref))
+    del G, ref
+    t = bench_op(lambda x: ct.sgemm("N", "T", 1.0, x, B, 0.5, C), A, reps=3)
+    t_lib = bench_op(lambda x: torch.addmm(C, x, B.T, beta=0.5), A, reps=3)
+    print(f"sgemm {n}³ N,T: max err vs f64 {err:.3e}, torch.addmm's "
+          f"{e_lib:.3e} (limit {lim:.3e}); {t * 1e3:.3f} ms "
+          f"({2 * n ** 3 / t / 1e9:.1f} GF/s), torch.addmm {t_lib * 1e3:.3f} "
+          f"ms ({2 * n ** 3 / t_lib / 1e9:.1f} GF/s)")
+    S, runs["ssyrk"] = run_path("ssyrk", lambda: ct.ssyrk(
+        "L", "N", -1.0, A, 1.0, C), only(syrk_lower_f32=1))
+    require(torch.equal(torch.triu(S, 1), torch.triu(C, 1)),
+            "ssyrk: the strict upper changed")
+    ref = torch.tril(C.double() - A.double() @ A.double().T)
+    e_lib = max_err(torch.tril(torch.addmm(C, A, A.T, alpha=-1.0)), ref)
+    err, lim, rms = gated(f"ssyrk {n}", torch.tril(S), ref, e_lib)
+    del S, ref
+    t = bench_op(lambda x: ct.ssyrk("L", "N", -1.0, x, 1.0, C), A, reps=3)
+    print(f"ssyrk n=k={n} L,N: max err vs f64 {err:.3e}, torch.addmm's "
+          f"{e_lib:.3e} (limit {lim:.3e}), strict upper kept; "
+          f"{t * 1e3:.3f} ms ({n * (n + 1) * n / t / 1e9:.1f} GF/s on the "
+          "triangle)")
+    del C
+
+    # dtrmm under auto: the Ozaki kernels, never the f32 trmm
+    A64, B64 = A.double(), B.double()
+    D, runs["dtrmm"] = run_path("dtrmm", lambda: ct.dtrmm(
+        "L", "L", "N", "N", 1.0, A64, B64),
+        {k: 0 for k in ONLY if k not in PATHS["dtrmm"]})
+    ref = torch.tril(A64) @ B64
+    rel = float((D - ref).abs().max()) / float(ref.abs().max())
+    require(rel <= n * 2.0 ** -40, f"dtrmm {n}: rel err {rel}")
+    del D, ref
+    t = wall_ms(lambda: ct.dtrmm("L", "L", "N", "N", 1.0, A64, B64))
+    L64 = torch.tril(A64)
+    t_lib = bench_op(lambda x: torch.matmul(L64, x), B64, reps=3) * 1e3
+    print(f"dtrmm L,L,N,N n=m={n} (auto -> ozaki): max err / max|ref| "
+          f"{rel:.3e} (bound n·2^-40 {n * 2.0 ** -40:.3e}); {t:.3f} ms wall, "
+          f"f64 torch.matmul(tril(A), B) {t_lib:.3f} ms on {name_power}")
+    del A64, B64, L64, A, B, Lt
+
+    # spotf2 above the whole-matrix kernels: one potf2_f32 launch, on a
+    # dense SPD input, its backward error gated on cuSOLVER's f32 factor's
+    n2 = 2 * B_N
+    A = dense_spd(gen, n2)
+    (F, info), runs["spotf2"] = run_path("spotf2", lambda: ct.spotf2("L", A),
+                                         only(potf2_f32=1))
+    require(int(info) == 0, f"spotf2 n={n2}: info {int(info)}")
+    A64 = A.double()
+    be_lib = max_err(llt64(torch.linalg.cholesky_ex(A)[0]), A64)
+    be, lim, rms = gated(f"spotf2 n={n2}: max|LLᵀ-A|", llt64(F), A64, be_lib)
+    del F, A64
+    t = bench_op(lambda a: ct.spotf2("L", a), A, reps=3)
+    t_lib = bench_op(lambda a: torch.linalg.cholesky_ex(a), A, reps=3)
+    print(f"spotf2 n={n2} dense cond 100: info 0, max|LLᵀ-A| {be:.3e}, "
+          f"cuSOLVER f32's {be_lib:.3e} (limit {lim:.3e}, 1/{rms / lim:.0f} "
+          f"of A's strict lower RMS {rms:.3e}); {t * 1e3:.3f} ms "
+          f"({flops_potrf(n2) / t / 1e9:.1f} GF/s), f32 "
+          f"torch.linalg.cholesky_ex {t_lib * 1e3:.3f} ms "
+          f"({flops_potrf(n2) / t_lib / 1e9:.1f} GF/s) on {name_power}")
+    A[1000, 1000] = -1.0
+    F, info = ct.spotf2("L", A)
+    require(int(info) == 1001 and bool(torch.isfinite(torch.tril(F)).all()),
+            f"spotf2 non-PD: info {int(info)}, or not finite")
+    lead = A[:1000, :1000]
+    be_lib = max_err(llt64(torch.linalg.cholesky_ex(lead)[0]), lead)
+    be, _, _ = gated("spotf2 non-PD leading block: max|LLᵀ-A|",
+                     llt64(F[:1000, :1000]), lead.double(), be_lib)
+    print(f"spotf2 non-PD n={n2} A[1000,1000]=-1: info 1001, finite, "
+          f"leading block max|LLᵀ-A| {be:.3e}, cuSOLVER f32's {be_lib:.3e}")
+    del A, F, lead
+
+    # strtri with block_size=8192: one trti2_f32 launch, unit and not, on
+    # a dense factor, gated on f32 solve_triangular's error
+    F, info = ct.potrf("L", dense_spd(gen, B_N))
+    L = torch.tril(F)
+    del F
+    eye32 = torch.eye(B_N, device="cuda")
+    for diag in ("N", "U"):
+        X = L if diag == "N" else unit_form(L)
+        (W, info), launches = run_path(
+            "strtri block_size=8192",
+            lambda: ct.strtri("L", diag, X, block_size=B_N),
+            only(trti2_f32=1))
+        runs.setdefault("strtri block_size=8192", launches)
+        require(int(info) == 0, f"strtri {diag}: info {int(info)}")
+        ref = inverse64(X, diag == "U")
+        lib = torch.linalg.solve_triangular(X, eye32, upper=False,
+                                            unitriangular=diag == "U")
+        if diag == "U":
+            lib.diagonal().copy_(torch.diagonal(X))
+        e_lib = max_err(lib, ref)
+        del lib
+        err, lim, rms = gated(f"strtri {diag} block_size={B_N}",
+                              torch.tril(W), ref, e_lib)
+        del W, ref
+        t = bench_op(lambda x: ct.strtri("L", diag, x, block_size=B_N), X,
+                     reps=3)
+        t_lib = bench_op(lambda x: torch.linalg.solve_triangular(
+            x, eye32, upper=False, unitriangular=diag == "U"), X, reps=3)
+        print(f"strtri L,{diag} n={B_N} block_size={B_N}: max err vs f64 "
+              f"{err:.3e}, f32 solve_triangular's {e_lib:.3e} (limit "
+              f"{lim:.3e}, 1/{rms / lim:.0f} of the strict lower's RMS "
+              f"{rms:.3e}); {t * 1e3:.3f} ms, f32 solve_triangular(L, I) "
+              f"{t_lib * 1e3:.3f} ms on {name_power}")
+    return runs
+
+
 #: each path's kernels: the launch counters must show every one of them
 PATHS = {
     "potrf": ("potrf_stream_f32",),
@@ -955,6 +1393,12 @@ PATHS = {
     "lauum block_size=512": ("gemm_f32", "syrk_lower_f32", "lauu2_f32"),
     "d": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
           "trtri_block_f32"),
+    "strmm": ("trmm_lln_f32",),
+    "sgemm": ("gemm_f32",),
+    "ssyrk": ("syrk_lower_f32",),
+    "dtrmm": ("peel_f32pair", "mm_groups_f32pair"),
+    "spotf2": ("potf2_f32",),
+    "strtri block_size=8192": ("trti2_f32",),
 }
 
 #: each kernel: its source, the TPU kernel it replaces, and the path whose
@@ -984,6 +1428,13 @@ SOURCES = {
                      "cholesky_tpu/ops/pallas/ozaki_split.py:57", "d"),
     "mm_groups_f32pair": ("cholesky_tpu_torch/ops/kernels/csrc/ozaki_mm.cu",
                           "cholesky_tpu/ops/pallas/ozaki_mm.py:105", "d"),
+    "potf2_f32": ("cholesky_tpu_torch/ops/kernels/csrc/leaf.cu",
+                  "cholesky_tpu/ops/pallas/leaf.py:146", "spotf2"),
+    "trti2_f32": ("cholesky_tpu_torch/ops/kernels/csrc/leaf.cu",
+                  "cholesky_tpu/ops/pallas/leaf.py:263",
+                  "strtri block_size=8192"),
+    "trmm_lln_f32": ("cholesky_tpu_torch/ops/kernels/csrc/trmm.cu",
+                     "cholesky_tpu/ops/pallas/trmm.py:66", "strmm"),
 }
 
 
@@ -1024,6 +1475,9 @@ def main() -> int:
     check_lauu2(gen, rec, name_power)
     check_peel(gen, rec, name_power)
     check_mm_groups(gen, rec, name_power)
+    check_potf2(gen, rec, name_power)
+    check_trti2(gen, rec, name_power)
+    check_trmm(gen, rec, name_power)
 
     # 4. the potrf path
     runs = main_path(gen, name_power)
@@ -1033,7 +1487,12 @@ def main() -> int:
 
     # 6. the d tier
     runs.update(d_path(gen, name_power))
+
+    # 7. the BLAS path and the leaf routes
+    runs.update(blas_path(gen, name_power))
     require("jax" not in sys.modules, "jax was imported")
+    require(set(SOURCES) == set(kernels.KERNELS),
+            "a kernel is missing from the kernels line")
 
     # each kernel's launches from the run of the path it serves
     rows = [dict(name=k, route="cuda", source=src, replaces=tpu, path=path,

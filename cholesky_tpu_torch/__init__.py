@@ -1,27 +1,30 @@
 """cholesky_tpu_torch: the PyTorch and CUDA port of cholesky_tpu.
 
-The ported slice is f32 and f64 ``potrf``, ``logdet``,
-``trtri``/``trtri2``/``trti2``, ``lauum``/``lauu2``, ``potri`` and
-``trsm``, with LAPACK ``info`` semantics, their typed s/d variants
-(``spotrf``, ``dpotrf``, ...), and the Gaussian-process model built on them
+The ported slice is f32 and f64 ``potrf``/``potf2``, ``logdet``,
+``trtri``/``trtri2``/``trti2``, ``lauum``/``lauu2``, ``potri`` and the
+Level-3 BLAS ``gemm``, ``syrk``, ``herk``, ``trmm``/``trmm2`` and ``trsm``,
+with LAPACK ``info`` semantics, their typed s/d variants (``spotrf``,
+``dgemm``, ...), and the Gaussian-process model built on them
 (``cholesky_tpu_torch.models``). On an NVIDIA Hopper card a float32 tensor
-runs through eight hand-written CUDA kernels and a float64 tensor through
+runs through eleven hand-written CUDA kernels and a float64 tensor through
 the d tier (exact int8 slice products, two more kernels, and the f32 leaf
 kernels) (ops/kernels/); a CPU tensor runs through plain torch.
 ``cholesky_tpu`` stays the reference the port is tested against.
 """
 
-from cholesky_tpu_torch.ops.api import (lauu2, lauum, logdet,
-                                        logdet_from_factor, potrf, potri,
-                                        trsm, trti2, trtri, trtri2)
+from cholesky_tpu_torch.ops.api import (gemm, herk, lauu2, lauum, logdet,
+                                        logdet_from_factor, potf2, potrf,
+                                        potri, syrk, trmm, trmm2, trsm,
+                                        trti2, trtri, trtri2)
 from cholesky_tpu_torch.ops.typed import *  # noqa: F401,F403
 from cholesky_tpu_torch.ops.typed import __all__ as _typed_all
 from cholesky_tpu_torch.types import Diag, Side, Trans, Uplo
 from cholesky_tpu_torch.utils.errors import set_error_handler, set_xerbla
 
 __all__ = [
-    "potrf", "logdet", "logdet_from_factor",
-    "trtri", "trtri2", "trti2", "lauum", "lauu2", "potri", "trsm",
+    "potrf", "potf2", "logdet", "logdet_from_factor",
+    "trtri", "trtri2", "trti2", "lauum", "lauu2", "potri",
+    "gemm", "syrk", "herk", "trmm", "trmm2", "trsm",
     "Side", "Uplo", "Trans", "Diag",
     "set_error_handler", "set_xerbla",
     *_typed_all,

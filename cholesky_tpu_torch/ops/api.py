@@ -7,10 +7,16 @@ from __future__ import annotations
 from cholesky_tpu_torch.ops import dispatch as _dispatch
 
 # BLAS L3
+gemm = _dispatch.gemm
+syrk = _dispatch.syrk
+herk = _dispatch.herk
+trmm = _dispatch.trmm
+trmm2 = _dispatch.trmm2
 trsm = _dispatch.trsm
 
 # LAPACK
 potrf = _dispatch.potrf
+potf2 = _dispatch.potf2
 trtri = _dispatch.trtri
 trtri2 = _dispatch.trtri2
 trti2 = _dispatch.trti2

@@ -1,9 +1,12 @@
 """Reference (oracle) Level-3 BLAS tier in plain torch, real dtypes.
 
-The counterpart of ``cholesky_tpu/ops/blas_ref.py`` (op, _tri,
-_set_triangle and trsm so far): every routine returns a new tensor and
-leaves its operands as they were. It is the port's ``backend="ref"`` for
-trsm, and the oracle the blocked trsm is tested against.
+The counterpart of ``cholesky_tpu/ops/blas_ref.py``: gemm/gemm2,
+syrk/herk, trmm/trmm2 and trsm. Every routine returns a new tensor and
+leaves its operands as they were (``gemm2``/``trmm2``, the reference's
+out-of-place variants, are therefore the same routines). syrk and herk
+write only the requested triangle and keep C's other one. It is the
+port's ``backend="ref"``, and the oracle the blocked routines are tested
+against.
 """
 
 from __future__ import annotations
@@ -40,6 +43,56 @@ def _set_triangle(C, T, uplo):
     if norm_uplo(uplo) == Uplo.LOWER:
         return torch.tril(T) + torch.triu(C, 1)
     return torch.triu(T) + torch.tril(C, -1)
+
+
+def gemm(transa, transb, alpha, A, B, beta, C):
+    """C := alpha·op(A)·op(B) + beta·C (reference blas/sgemm.c:34)."""
+    oA, oB = op(A, transa), op(B, transb)
+    m, k = oA.shape
+    kb, n = oB.shape
+    check(k == kb, "gemm", 5, f"inner dims {k} != {kb}")
+    check(C.shape == (m, n), "gemm", 7,
+          f"C shape {tuple(C.shape)} != {(m, n)}")
+    return (alpha * (oA @ oB) + beta * C).to(C.dtype)
+
+
+def gemm2(transa, transb, alpha, A, B, beta, C):
+    """Out-of-place GEMM (reference cuXgemm2): :func:`gemm`."""
+    return gemm(transa, transb, alpha, A, B, beta, C)
+
+
+def syrk(uplo, trans, alpha, A, beta, C):
+    """C := alpha·op(A)·op(A)ᵀ + beta·C in the uplo triangle of C, its
+    other strict triangle kept (reference blas/ssyrk.c:34)."""
+    oA = op(A, trans)
+    n = oA.shape[0]
+    check(C.shape == (n, n), "syrk", 6,
+          f"C shape {tuple(C.shape)} != {(n, n)}")
+    return _set_triangle(C, alpha * (oA @ oA.T) + beta * C, uplo).to(C.dtype)
+
+
+def herk(uplo, trans, alpha, A, beta, C):
+    """C := alpha·op(A)·op(A)ᴴ + beta·C, alpha and beta real (reference
+    blas/cherk.c); for the real dtypes ported so far it is :func:`syrk`."""
+    return syrk(uplo, trans, alpha, A, beta, C)
+
+
+def trmm(side, uplo, transa, diag, alpha, A, B):
+    """B := alpha·op(A)·B (left) or alpha·B·op(A) (right), A triangular;
+    only its uplo triangle is referenced (reference blas/strmm.c)."""
+    T = op(_tri(A, uplo, diag), transa)
+    if norm_side(side) == Side.LEFT:
+        check(A.shape[0] == B.shape[0], "trmm", 6, "dim mismatch")
+        out = T @ B
+    else:
+        check(A.shape[0] == B.shape[1], "trmm", 6, "dim mismatch")
+        out = B @ T
+    return (alpha * out).to(B.dtype)
+
+
+def trmm2(side, uplo, transa, diag, alpha, A, B):
+    """Out-of-place TRMM (reference cuXtrmm2): :func:`trmm`."""
+    return trmm(side, uplo, transa, diag, alpha, A, B)
 
 
 def trsm(side, uplo, transa, diag, alpha, A, B):

@@ -1,10 +1,12 @@
-"""Blocked single-device f32/f64 potrf, logdet, trtri, lauum, potri, trsm.
+"""Blocked single-device f32/f64 potrf, potf2, logdet, trtri, lauum, potri
+and the Level-3 BLAS (gemm, syrk, herk, trmm, trsm).
 
 The counterpart of ``cholesky_tpu/ops/blocked.py`` for these routines: the
 same halving recursions (``_potrf_lower``, ``_trtri_lower``,
-``_lauum_lower``, ``_trsm_lln``/``_trsm_llt``), the same solves by the
-inverse of each leaf, identity padding to a block-size multiple, and upper
-(and right-side) cases canonicalized to lower-left by transposition.
+``_lauum_lower``, ``_trsm_lln``/``_trsm_llt``, ``_trmm_lln_tiles``), the
+same solves by the inverse of each leaf, identity padding to a block-size
+multiple, and upper (and right-side) cases canonicalized to lower-left by
+transposition (and, for trmm, by reversal).
 
 Where PyTorch differs from JAX, the port works in place: each routine
 copies the caller's matrix ONCE into a row-major working buffer
@@ -30,6 +32,7 @@ Tile backends:
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -49,12 +52,16 @@ from cholesky_tpu_torch.utils.errors import check
 BACKENDS = ("auto", "ref", "torch", "cuda", "ozaki")
 
 def _mega_ok(n: int, op: str = "potrf") -> bool:
-    """Can one whole-matrix kernel take this block? Up to the smaller of
-    the *_stream_f32 kernels' cap and the tuned ``{op}_f32.mega_max_n``,
-    and, as in the JAX package, n <= NB or a multiple of NB (the
-    *_block_f32 kernels take n <= 1024, the stream kernels the rest)."""
-    cap = min(_mega.STREAM_MAX_N, int(get_params(f"{op}_f32")["mega_max_n"]))
-    return 0 < n <= cap and (n <= _mega.NB or n % _mega.NB == 0)
+    """Can one whole-matrix kernel take this block? As in the JAX package
+    (``blocked.py:56-71``): up to MAX_N (1024) a *_block_f32 kernel takes
+    any n <= NB or multiple of NB, whatever the tuned cap; above it, a
+    multiple of NB up to the smaller of the *_stream_f32 kernels' cap and
+    the tuned ``{op}_f32.mega_max_n``."""
+    if n <= _mega.MAX_N:
+        return 0 < n and (n <= _mega.NB or n % _mega.NB == 0)
+    cap = min(_mega.STREAM_MAX_N, int(get_params(f"{op}_f32").get(
+        "mega_max_n", _mega.STREAM_MAX_N)))
+    return n <= cap and n % _mega.NB == 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -90,16 +97,6 @@ def _ozaki_hoist(n: Optional[int], op: str = "potrf") -> bool:
 #                                          upper above, a new tensor
 # ---------------------------------------------------------------------------
 
-def _unit_inverse(kern, L):
-    """The unit-diagonal inverse through a non-unit kernel (the JAX
-    package's trick, ``blocked.py:201-209``): invert tril(L, -1) + I, then
-    put L's own diagonal back, which LAPACK passes through untouched."""
-    n = L.shape[0]
-    W, info = kern(torch.tril(L, -1) + torch.eye(n, dtype=L.dtype,
-                                                 device=L.device))
-    return torch.tril(W, -1) + torch.diag(torch.diagonal(L)), info
-
-
 class _TorchTiles:
     """Tiles over plain torch (the kernels' twins): f32 and f64, any
     device. The analog of the JAX package's ``_XlaTiles``."""
@@ -112,7 +109,7 @@ class _TorchTiles:
     @staticmethod
     def trti2(L, unit=False):
         if unit:
-            return _unit_inverse(_mega.trtri_block_plain, L)
+            return _leaf.unit_inverse(_mega.trtri_block_plain, L)
         return _mega.trtri_block_plain(L)
 
 
@@ -127,29 +124,26 @@ class _KernelTiles:
         return get_params("potrf_f32")["leaf_nb"]
 
     @staticmethod
-    def _require_mega(n, op):
-        if not _mega_ok(n, op):
-            raise NotImplementedError(
-                f"{op} of an f32 block of n={n} on the card needs the leaf "
-                "kernels potf2_f32/trti2_f32 (ROADMAP Queue 2 item 7), "
-                "not ported yet; use a block_size <= 128 or a multiple of "
-                "128")
-
-    def potf2(self, A):
-        """One whole-matrix kernel: potrf_block_f32 up to 1024, then
-        potrf_stream_f32 (JAX ``_PallasTiles.potf2``)."""
+    def potf2(A):
+        """One whole-matrix kernel where _mega_ok takes the block
+        (potrf_block_f32 up to 1024, then potrf_stream_f32), the leaf
+        kernel potf2_f32 elsewhere (JAX ``_PallasTiles.potf2``)."""
         n = A.shape[0]
-        self._require_mega(n, "potrf")
+        if not _mega_ok(n):
+            return _k.potf2_f32(A)
         kern = _k.potrf_block_f32 if n <= _mega.MAX_N else _k.potrf_stream_f32
         return kern(A)
 
-    def trti2(self, L, unit=False):
-        """One whole-matrix kernel: trtri_block_f32 up to 1024, then
-        trtri_stream_f32 (JAX ``_PallasTiles.trti2``)."""
+    @staticmethod
+    def trti2(L, unit=False):
+        """One whole-matrix kernel where _mega_ok takes the block
+        (trtri_block_f32 up to 1024, then trtri_stream_f32), the leaf
+        kernel trti2_f32 elsewhere (JAX ``_PallasTiles.trti2``)."""
         n = L.shape[0]
-        self._require_mega(n, "trtri")
+        if not _mega_ok(n, "trtri"):
+            return _k.trti2_f32(L, unit=unit)
         kern = _k.trtri_block_f32 if n <= _mega.MAX_N else _k.trtri_stream_f32
-        return _unit_inverse(kern, L) if unit else kern(L)
+        return _leaf.unit_inverse(kern, L) if unit else kern(L)
 
     @staticmethod
     def lauu2(L):
@@ -361,6 +355,40 @@ class _OzakiTiles:
 
         return rec(0, L.shape[0])
 
+    def trmm_lln(self, L, B, nb):
+        """L·B, L exactly lower triangular, by the live-block recursion
+        with ONE peel of L and one of Bᵀ shared by every block product (JAX
+        ``blocked.py:466-494``). A ragged tail up to 1.5·nb is absorbed
+        into one leaf. Returns a new tensor."""
+        Ls, lsc = self._split(L)
+        Bs, bsc = self._split(B.T)
+        out = torch.empty((L.shape[0], B.shape[1]), dtype=L.dtype,
+                          device=L.device)
+
+        def rec(i, n):
+            C = out[i:i + n]
+            if n <= nb + nb // 2:
+                C.copy_(ozaki.matmul_presplit(
+                    Ls[:, i:i + n, i:i + n], lsc[i:i + n],
+                    Bs[:, :, i:i + n], bsc))
+                return
+            n1 = _split(n, nb)
+            rec(i, n1)
+            rec(i + n1, n - n1)
+            C[n1:] += ozaki.matmul_presplit(
+                Ls[:, i + n1:i + n, i:i + n1], lsc[i + n1:i + n],
+                Bs[:, :, i:i + n1], bsc)
+
+        rec(0, L.shape[0])
+        return out
+
+
+def _require_real(A):
+    if A.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"{A.dtype} is not ported yet: the c/z tier is ROADMAP Queue 1 "
+            "item 10")
+
 
 def _tiles_for(A, backend: str, n: Optional[int] = None,
                op: str = "potrf"):
@@ -368,11 +396,8 @@ def _tiles_for(A, backend: str, n: Optional[int] = None,
     or raise for what the port does not run yet."""
     check(backend in BACKENDS, "blocked", 0,
           f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    _require_real(A)
     dtype = A.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"{dtype} is not ported yet: the c/z tier is ROADMAP Queue 1 "
-            "item 10")
     on_cuda = A.device.type == "cuda"
     if backend == "ozaki" or (backend == "auto" and on_cuda
                               and dtype == torch.float64):
@@ -616,6 +641,26 @@ def logdet(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     return lapack_ref.logdet_from_factor(F), info
 
 
+def potf2(uplo, A, backend: str = "auto"):
+    """Unblocked Cholesky of one diagonal block (JAX ``blocked.py:773-790``).
+    An f32 block on the card of n <= 128 or a multiple of 128 goes to one
+    kernel: the whole-matrix kernel where it fits, potf2_f32 above it
+    (``_KernelTiles.potf2``); anything else to the oracle sweep. Returns
+    (A_factored, info); A itself is not modified, the opposite strict
+    triangle is the caller's."""
+    u = norm_uplo(uplo)
+    n = lapack_ref._square(A, "potf2")
+    if backend == "ref":
+        return lapack_ref.potf2(u, A)
+    t = _tiles_for(A, backend, n)
+    if isinstance(t, _KernelTiles) and 0 < n and (
+            n <= _mega.NB or n % _mega.NB == 0):
+        W = _to_lower(A, u).clone(memory_format=torch.contiguous_format)
+        info = t.potf2(W)
+        return _merge_triangle(_from_lower(W, u), A, u), info
+    return lapack_ref.potf2(u, A)
+
+
 def trti2(uplo, diag, A, backend: str = "auto"):
     """Unblocked triangular inverse of one block: the oracle sweep, as in
     the JAX package for real dtypes. Returns (A_inv, info)."""
@@ -633,7 +678,7 @@ def trtri(uplo, diag, A, backend: str = "auto",
     """Blocked triangular inverse (reference cuStrtri, strtri.c:369-472).
     Returns (A_inv, info); A itself is not modified. A zero diagonal sets
     info and is read as 1. With diag='U' the diagonal passes through
-    (every leaf puts it back, ``_unit_inverse``)."""
+    (every leaf puts it back, ``kernels.leaf.unit_inverse``)."""
     uplo = norm_uplo(uplo)
     unit = norm_diag(diag) == Diag.UNIT
     n = lapack_ref._square(A, "trtri")
@@ -688,11 +733,175 @@ def potri(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
 
 
 # ---------------------------------------------------------------------------
-# BLAS
+# BLAS (JAX blocked.py:897-1161): real dtypes; backend='ref' takes the
+# oracle (blas_ref), and so does a CPU operand with a scalar that is not a
+# Python number
 # ---------------------------------------------------------------------------
 
-def _flip(transa):
-    return Trans.NO_TRANS if transa != Trans.NO_TRANS else Trans.TRANS
+def _static_scalar(x) -> bool:
+    return isinstance(x, (int, float)) and not isinstance(x, bool)
+
+
+def _fast_tiles_or_none(A, backend: str, n: Optional[int] = None,
+                        op: str = "potrf", scalars=()):
+    """The tile backend of a BLAS wrapper (``_tiles_for``), or None for the
+    oracle: under backend='ref', and for a CPU operand given a scalar that
+    is not a Python number (JAX sends a traced one there). On the card such
+    a scalar (a 0-d tensor) is read with float() and the kernel runs. A
+    complex operand raises."""
+    _require_real(A)
+    if backend == "ref" or (A.device.type != "cuda"
+                            and not all(map(_static_scalar, scalars))):
+        return None
+    return _tiles_for(A, backend, n, op)
+
+
+def _flip_trans(transa):
+    """N <-> T; T and C coincide for real dtypes."""
+    return (Trans.TRANS if norm_trans(transa) == Trans.NO_TRANS
+            else Trans.NO_TRANS)
+
+
+def gemm(transa, transb, alpha, A, B, beta, C, backend: str = "auto"):
+    """C := alpha·op(A)·op(B) + beta·C (reference cuSgemm). Returns a new
+    tensor; C is read only when beta != 0. On the card f32 runs
+    ``gemm_f32`` and f64 the Ozaki products."""
+    transa, transb = norm_trans(transa), norm_trans(transb)
+    t = _fast_tiles_or_none(A, backend, scalars=(alpha, beta))
+    if t is None:
+        return blas_ref.gemm(transa, transb, alpha, A, B, beta, C)
+    alpha, beta = float(alpha), float(beta)
+    oA, oB = blas_ref.op(A, transa), blas_ref.op(B, transb)
+    check(oA.shape[1] == oB.shape[0], "gemm", 5, "inner dims")
+    check(C.shape == (oA.shape[0], oB.shape[1]), "gemm", 7, "C shape")
+    return t.mm(oA, oB, C if beta != 0.0 else None, alpha=alpha, beta=beta)
+
+
+def gemm2(transa, transb, alpha, A, B, beta, C, backend: str = "auto"):
+    """Out-of-place GEMM (reference cuSgemm2): :func:`gemm`."""
+    return gemm(transa, transb, alpha, A, B, beta, C, backend=backend)
+
+
+def syrk(uplo, trans, alpha, A, beta, C, backend: str = "auto"):
+    """C := alpha·op(A)·op(A)ᵀ + beta·C in the uplo triangle, C's other
+    strict triangle kept (reference cuSsyrk). Returns a new tensor. On the
+    card f32 runs ``syrk_lower_f32`` (upper through the transposed view of
+    the result), f64 the Ozaki ``syrk_ln`` on the whole square."""
+    uplo, trans = norm_uplo(uplo), norm_trans(trans)
+    t = _fast_tiles_or_none(A, backend, C.shape[0], "syrk",
+                            scalars=(alpha, beta))
+    if t is None:
+        return blas_ref.syrk(uplo, trans, alpha, A, beta, C)
+    alpha, beta = float(alpha), float(beta)
+    X = A if trans == Trans.NO_TRANS else A.T
+    n = X.shape[0]
+    check(C.shape == (n, n), "syrk", 6, f"C shape {tuple(C.shape)} != "
+          f"{(n, n)}")
+    W = C.clone()
+    if isinstance(t, _OzakiTiles):
+        t.syrk_ln(alpha, X, beta, W)
+        return _merge_triangle(W, C, uplo)
+    # the lower triangle of W, or of Wᵀ (W's upper); the other stays C's
+    t.syrk_ln(alpha, X, beta, W if uplo == Uplo.LOWER else W.T)
+    return W
+
+
+def herk(uplo, trans, alpha, A, beta, C, backend: str = "auto"):
+    """C := alpha·op(A)·op(A)ᴴ + beta·C, alpha and beta real (reference
+    cuCherk). For real operands: f32 is :func:`syrk`, f64 the oracle, as in
+    the JAX package (``blocked.py:994-1004``)."""
+    _require_real(A)
+    if A.dtype == torch.float32:
+        tr = Trans.NO_TRANS if norm_trans(trans) == Trans.NO_TRANS \
+            else Trans.TRANS
+        return syrk(uplo, tr, alpha, A, beta, C, backend=backend)
+    return blas_ref.herk(uplo, trans, alpha, A, beta, C)
+
+
+def trmm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto"):
+    """B := alpha·op(A)·B (left) or alpha·B·op(A) (right), A triangular,
+    only its uplo triangle referenced (reference cuStrmm). Returns a new
+    tensor. All 16 side/uplo/trans/diag combinations reduce to one
+    lower-left product: on the card f32 is ONE ``trmm_lln_f32`` launch
+    (``_trmm_left_f32``), f64 the Ozaki live-block recursion."""
+    side, uplo = norm_side(side), norm_uplo(uplo)
+    transa, diag = norm_trans(transa), norm_diag(diag)
+    t = _fast_tiles_or_none(A, backend, op="trmm", scalars=(alpha,))
+    if t is None:
+        return blas_ref.trmm(side, uplo, transa, diag, alpha, A, B)
+    alpha = float(alpha)
+    n = lapack_ref._square(A, "trmm")
+    check(B.ndim == 2 and B.shape[0 if side == Side.LEFT else 1] == n,
+          "trmm", 6, "dim mismatch")
+    if isinstance(t, _KernelTiles):
+        left = functools.partial(_trmm_left_f32, A, diag)
+    else:
+        left = functools.partial(_trmm_left_tiles, t,
+                                 blas_ref._tri(A, uplo, diag))
+    if side == Side.RIGHT:              # B·op(T) = (op(T)ᵀ·Bᵀ)ᵀ
+        return left(uplo, _flip_trans(transa), B.T, alpha).T
+    return left(uplo, transa, B, alpha)
+
+
+def trmm2(side, uplo, transa, diag, alpha, A, B, backend: str = "auto"):
+    """Out-of-place TRMM (reference cuStrmm2): :func:`trmm`."""
+    return trmm(side, uplo, transa, diag, alpha, A, B, backend=backend)
+
+
+# leaf width of the live-block trmm recursion over the torch and Ozaki
+# tiles: large enough to amortize the Ozaki peel per call, small enough
+# that the dead half of each leaf (about nb/2n of the work) stays minor
+TRMM_TILES_NB = 512
+
+
+def _trmm_lln_tiles(L, B, t, nb, out=None):
+    """L·B, L exactly lower triangular, by the live-block recursion over
+    the tile backend t (the dead upper blocks are never multiplied), into
+    ``out`` (allocated when None). A backend with a ``trmm_lln`` method
+    (Ozaki: one peel for the whole triangle) takes the whole product."""
+    if hasattr(t, "trmm_lln"):
+        return t.trmm_lln(L, B, nb)
+    if out is None:
+        out = torch.empty((L.shape[0], B.shape[1]), dtype=B.dtype,
+                          device=B.device)
+    n = L.shape[0]
+    if n <= nb + nb // 2:           # ragged-tail absorption, as trmm_lln
+        return t.mm(L, B, out=out)
+    n1 = _split(n, nb)
+    _trmm_lln_tiles(L[:n1, :n1], B[:n1], t, nb, out[:n1])
+    _trmm_lln_tiles(L[n1:, n1:], B[n1:], t, nb, out[n1:])
+    C2 = out[n1:]
+    t.mm(L[n1:, :n1], B[:n1], C2, alpha=1.0, beta=1.0, out=C2)
+    return out
+
+
+def _left_lower(uplo, transa):
+    """Is op(M) lower triangular, M the uplo triangle?"""
+    return (uplo == Uplo.LOWER) == (norm_trans(transa) == Trans.NO_TRANS)
+
+
+def _trmm_left_tiles(t, M, uplo, transa, B, alpha):
+    """op(M)·B over the tiles t, M exactly triangular. An upper op(M)
+    reduces to a lower one by the double reversal U·B = flipud(rev(U) ·
+    flipud(B)), rev(U) = U reversed in both axes, which is lower."""
+    E = M if norm_trans(transa) == Trans.NO_TRANS else M.T
+    if _left_lower(uplo, transa):
+        out = _trmm_lln_tiles(E, B, t, TRMM_TILES_NB)
+    else:
+        out = _trmm_lln_tiles(E.flip((0, 1)), B.flip(0), t,
+                              TRMM_TILES_NB).flip(0)
+    return out if alpha == 1.0 else alpha * out
+
+
+def _trmm_left_f32(A, diag, uplo, transa, B, alpha):
+    """op(T)·B, T the uplo triangle of the f32 A (its diagonal read as 1
+    under diag U), by ONE trmm_lln_f32 launch on A's own storage: the
+    kernel reads only the triangle, and an upper op(T) through the double
+    reversal of :func:`_trmm_left_tiles` on reversed views."""
+    E = A if transa == Trans.NO_TRANS else A.T
+    return _k.trmm_lln_f32(E, B, alpha=alpha,
+                           upper=not _left_lower(uplo, transa),
+                           unit=diag == Diag.UNIT)
 
 
 def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
@@ -707,15 +916,15 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
     diag = norm_diag(diag)
     if backend == "ref":
         return blas_ref.trsm(side, uplo, transa, diag, alpha, A, B)
-    check(isinstance(alpha, (int, float)) and not isinstance(alpha, bool),
-          "trsm", 5, f"alpha must be a Python number, got {type(alpha)}")
+    check(_static_scalar(alpha), "trsm", 5,
+          f"alpha must be a Python number, got {type(alpha)}")
     # canonicalize: side=R -> transposed left solve; upper -> lower on Aᵀ
     if side == Side.RIGHT:
-        return trsm(Side.LEFT, uplo, _flip(transa), diag, alpha, A, B.T,
-                    backend=backend, block_size=block_size).T
+        return trsm(Side.LEFT, uplo, _flip_trans(transa), diag, alpha, A,
+                    B.T, backend=backend, block_size=block_size).T
     if uplo == Uplo.UPPER:
-        return trsm(Side.LEFT, Uplo.LOWER, _flip(transa), diag, alpha, A.T,
-                    B, backend=backend, block_size=block_size)
+        return trsm(Side.LEFT, Uplo.LOWER, _flip_trans(transa), diag, alpha,
+                    A.T, B, backend=backend, block_size=block_size)
     n = lapack_ref._square(A, "trsm")
     check(B.ndim == 2 and B.shape[0] == n, "trsm", 7,
           f"B shape {tuple(B.shape)} does not match A ({n}x{n})")

@@ -1,7 +1,9 @@
 """Backend dispatch for the ported routines.
 
-The counterpart of ``cholesky_tpu/ops/dispatch.py`` for potrf, logdet,
-logdet_from_factor, trtri, trtri2, trti2, lauum, lauu2, potri and trsm.
+The counterpart of ``cholesky_tpu/ops/dispatch.py`` for gemm, syrk, herk,
+trmm, trmm2, trsm, potrf, potf2, logdet, logdet_from_factor, trtri, trtri2,
+trti2, lauum, lauu2 and potri (``gemm2`` stays in ops/blocked.py and
+ops/blas_ref.py, as in the JAX package).
 Backends: 'ref' (the oracle tier, ops/lapack_ref.py and ops/blas_ref.py),
 'torch' (the blocked recursions over torch matmuls, the JAX package's
 'xla'), 'cuda' (the blocked recursions over the hand-written f32 CUDA
@@ -28,9 +30,15 @@ def _wrap(name):
     return fn
 
 
+gemm = _wrap("gemm")
+syrk = _wrap("syrk")
+herk = _wrap("herk")
+trmm = _wrap("trmm")
+trmm2 = _wrap("trmm2")
 trsm = _wrap("trsm")
 
 potrf = _wrap("potrf")
+potf2 = _wrap("potf2")
 trtri = _wrap("trtri")
 trtri2 = _wrap("trtri2")
 trti2 = _wrap("trti2")

@@ -1,10 +1,10 @@
-"""The hand-written CUDA kernels of the f32 potrf, trsm, trtri, lauum and
-potri paths and of the d tier's Ozaki products, each beside its plain torch
-twin. Nothing is compiled at
-import: the first launch builds ``csrc/`` (see ``_build.py``)."""
+"""The hand-written CUDA kernels of the f32 potrf, trsm, trtri, lauum,
+potri, potf2 and trmm paths and of the d tier's Ozaki products, each beside
+its plain torch twin. Nothing is compiled at import: the first launch
+builds ``csrc/`` (see ``_build.py``)."""
 
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32
-from cholesky_tpu_torch.ops.kernels.leaf import lauu2_f32
+from cholesky_tpu_torch.ops.kernels.leaf import lauu2_f32, potf2_f32, trti2_f32
 from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
                                                  potrf_block_f32,
                                                  potrf_stream_f32,
@@ -13,6 +13,7 @@ from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
 from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
                                                   peel_f32pair)
 from cholesky_tpu_torch.ops.kernels.syrk import syrk_lower_f32
+from cholesky_tpu_torch.ops.kernels.trmm import trmm_lln_f32
 
 #: kernel name -> its wrapper, which counts its launches in ``.launches``
 KERNELS = {
@@ -24,6 +25,9 @@ KERNELS = {
     "trtri_stream_f32": trtri_stream_f32,
     "lauum_stream_f32": lauum_stream_f32,
     "lauu2_f32": lauu2_f32,
+    "potf2_f32": potf2_f32,
+    "trti2_f32": trti2_f32,
+    "trmm_lln_f32": trmm_lln_f32,
     "peel_f32pair": peel_f32pair,
     "mm_groups_f32pair": mm_groups_f32pair,
 }

@@ -131,6 +131,10 @@ def library() -> ctypes.CDLL:
             "ct_trtri_stream_f32": [P, LL, P, LL, P, I, P, I, P],
             "ct_lauum_stream_f32": [P, LL, P, LL, I, I, P],
             "ct_lauu2_f32": [P, LL, P, LL, I, I, P],
+            "ct_potf2_f32": [P, LL, P, I, P, I, P],
+            "ct_trti2_f32": [P, LL, P, LL, I, I, P, I, P],
+            "ct_trmm_lln_f32": [P, LL, LL, P, LL, LL, P, LL, I, I, F, I, I,
+                                P],
             "ct_peel_f32pair": [P, LL, LL, P, LL, LL, P, LL, LL, I, I, I, I,
                                 I, I, P],
             "ct_mm_groups_f32pair": [P, LL, LL, P, LL, LL, P, P, LL, I, I, I,

@@ -31,12 +31,8 @@
 //          while the other blocks take the rest of U(j) from an atomic
 //          counter; blocks on block 0's SM stay out of U, so F keeps its
 //          SM to itself.
-// F factors the 128 x 128 tile in shared memory in 32-wide steps (warp 0
-// the 32 x 32 block in registers and shuffles, one thread per row below
-// it, the rest of the tile by a 16 x 16 thread grid with register
-// blocking), then inverts it in 32-row blocks (one product against the rows already inverted, then a forward
-// substitution down the block, one thread per column), so that no thread
-// runs a chain longer than 32, and writes the inverse for S. F takes
+// F factors the 128 x 128 tile in shared memory and inverts it
+// (chol_tile.cuh), and writes the inverse for S. F takes
 // about 70 us per tile on the H100; at n = 4096 the kernel without F
 // after the first tile still takes 3.1 of its 4.8 ms, so the update's
 // SGEMM tile (sgemm_tile.cuh) is what bounds it. Every read of data
@@ -45,191 +41,21 @@
 // on it.
 #include <cooperative_groups.h>
 
-#include "sgemm_tile.cuh"
+#include "chol_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NB = 128;        // panel width and diagonal tile
-constexpr int LDT = NB + 1;    // shared row stride of the tile
-constexpr int DB = 32;         // step of the tile's own factor and inverse
+constexpr int NB = ct::tile::NB;   // panel width and diagonal tile
 constexpr int BT = 64;         // GEMM tile edge
 constexpr int BK = 16;         // k-step of the GEMM tiles
 constexpr int NT = (BT / ct::TM) * (BT / ct::TN);   // 256 threads
+static_assert(NT == ct::tile::NT, "factor_tile runs on the whole block");
 constexpr int MAX_N = 8192;
-constexpr int SMEM = NB * LDT * static_cast<int>(sizeof(float));
+constexpr int SMEM = ct::tile::SMEM;
 
-// F: factor the diagonal tile A[c0:c0+NB, c0:c0+NB] (lower part only),
-// store the factor back (lower part only) and, unless a pivot failed, its
-// inverse into Winv (NB x NB, row-major, zero strict upper). Writes info:
-// the absolute 1-based failed pivot, or 0. One thread block, blocked by
-// DB-wide steps so that no thread runs a chain longer than one DB block.
-__device__ void factor_tile(float* A, long long lda, int c0, float* Winv,
-                            int* info, float* T, float* dinv, int* s_fail) {
-  const int tid = threadIdx.x;
-  float* const At = A + (long long)c0 * lda + c0;
-  __syncthreads();                 // this block's own updates of the tile
-#pragma unroll 8
-  for (int idx = tid; idx < NB * NB; idx += NT) {
-    const int i = idx / NB, k = idx % NB;
-    T[i * LDT + k] = (k <= i) ? __ldcg(At + (long long)i * lda + k) : 0.f;
-  }
-  __syncthreads();
-
-  // ---- the factor, right-looking over DB-wide steps
-  int fail = 0;
-  const int tr = tid / 16, tc = tid % 16;
-  for (int c = 0; c < NB; c += DB) {
-    // (a) warp 0 factors the DB x DB diagonal block, lane l holding row
-    // c + l in registers; column k reaches the other lanes by shuffles
-    if (tid < 32) {
-      const int l = tid;
-      float row[DB];
-#pragma unroll
-      for (int j = 0; j < DB; ++j) row[j] = T[(c + l) * LDT + c + j];
-      int f = 0;
-#pragma unroll
-      for (int k = 0; k < DB; ++k) {
-        const float d2 = __shfl_sync(0xffffffffu, row[k], k);
-        if (!(d2 > 0.f)) {         // NaN-safe; the same for every lane
-          f = c0 + c + k + 1;
-          break;
-        }
-        const float d = sqrtf(d2), rd = __frcp_rn(d);
-        if (l == k) {
-          row[k] = d;
-          dinv[c + k] = rd;        // W's diagonal, and the solves' scale
-        } else if (l > k) {
-          row[k] *= rd;
-        }
-        const float lk = row[k];
-#pragma unroll
-        for (int j = k + 1; j < DB; ++j) {
-          const float ljk = __shfl_sync(0xffffffffu, row[k], j);
-          if (l >= j) row[j] = fmaf(-lk, ljk, row[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < DB; ++j)
-        if (j <= l) T[(c + l) * LDT + c + j] = row[j];
-      if (l == 0) *s_fail = f;
-    }
-    __syncthreads();
-    fail = *s_fail;
-    if (fail) break;               // the same for every thread
-    // (b) each row below the block solves x·Dᵀ = a, x in registers
-    for (int r = c + DB + tid; r < NB; r += NT) {
-      float* const xr = T + r * LDT + c;
-      float x[DB];
-#pragma unroll
-      for (int k = 0; k < DB; ++k) {
-        float s = xr[k];
-#pragma unroll
-        for (int m = 0; m < k; ++m)
-          s = fmaf(-x[m], T[(c + k) * LDT + c + m], s);
-        x[k] = s * dinv[c + k];
-      }
-#pragma unroll
-      for (int k = 0; k < DB; ++k) xr[k] = x[k];
-    }
-    __syncthreads();
-    // (c) the rest of the tile's lower triangle -= X·Xᵀ (k = DB); thread
-    // (tr, tc) owns rows m0 + tr + 16a and columns m0 + tc + 16b
-    const int m0 = c + DB;
-    if (m0 < NB) {
-      constexpr int G = (NB - DB) / 16;
-      float acc[G][G] = {};
-#pragma unroll 4
-      for (int m = 0; m < DB; ++m) {
-        float ra[G], cb[G];
-#pragma unroll
-        for (int a = 0; a < G; ++a) {
-          const int i = m0 + tr + 16 * a;
-          ra[a] = (i < NB) ? T[i * LDT + c + m] : 0.f;
-        }
-#pragma unroll
-        for (int b = 0; b < G; ++b) {
-          const int j = m0 + tc + 16 * b;
-          cb[b] = (j < NB) ? T[j * LDT + c + m] : 0.f;
-        }
-#pragma unroll
-        for (int a = 0; a < G; ++a)
-#pragma unroll
-          for (int b = 0; b < G; ++b)
-            acc[a][b] = fmaf(ra[a], cb[b], acc[a][b]);
-      }
-#pragma unroll
-      for (int a = 0; a < G; ++a)
-#pragma unroll
-        for (int b = 0; b < G; ++b) {
-          const int i = m0 + tr + 16 * a, j = m0 + tc + 16 * b;
-          if (i < NB && j <= i) T[i * LDT + j] -= acc[a][b];
-        }
-    }
-    __syncthreads();
-  }
-
-  if (!fail) {
-    // ---- W = T⁻¹ by DB-row blocks I: W[I, :] = D_I⁻¹·(E_I − T[I, <I]·W).
-    // W[i][j] (i > j) is kept at T[j][i], the unused strict upper of the
-    // tile; W[j][j] = 1 / T[j][j] is dinv[j], written by (a).
-    for (int r0 = 0; r0 < NB; r0 += DB) {
-      // (i) R[i][j] = −Σ_{j <= k < r0} T[i][k]·W[k][j], i in the block,
-      // j < r0, into T[j][i]
-      for (int idx = tid; idx < DB * r0; idx += NT) {
-        const int i = r0 + idx % DB, j = idx / DB;
-        const float* const ti = T + i * LDT;
-        const float* const wj = T + j * LDT;   // W[k][j] at T[j][k], k > j
-        float s[4] = {-ti[j] * dinv[j], 0.f, 0.f, 0.f};
-        int k = j + 1;
-        for (; k + 3 < r0; k += 4) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u) s[u] = fmaf(-ti[k + u], wj[k + u], s[u]);
-        }
-        for (; k < r0; ++k) s[0] = fmaf(-ti[k], wj[k], s[0]);
-        T[j * LDT + i] = (s[0] + s[1]) + (s[2] + s[3]);
-      }
-      __syncthreads();
-      // (ii) forward substitution down the block, thread j for column j,
-      // the column in registers (zero above row j)
-      const int j = tid;
-      if (j < r0 + DB) {
-        float x[DB];
-#pragma unroll
-        for (int q = 0; q < DB; ++q) {
-          const int i = r0 + q;
-          float s = (j < r0) ? T[j * LDT + i] : (i == j ? 1.f : 0.f);
-#pragma unroll
-          for (int m = 0; m < q; ++m)
-            s = fmaf(-T[i * LDT + r0 + m], x[m], s);
-          x[q] = s * dinv[i];
-        }
-#pragma unroll
-        for (int q = 0; q < DB; ++q)
-          if (r0 + q > j) T[j * LDT + r0 + q] = x[q];
-      }
-      __syncthreads();
-    }
-    for (int idx = 4 * tid; idx < NB * NB; idx += 4 * NT) {
-      const int i = idx / NB;
-      float w[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int c = idx % NB + u;
-        w[u] = (c < i) ? T[c * LDT + i] : (c == i ? dinv[c] : 0.f);
-      }
-      *reinterpret_cast<float4*>(Winv + idx) = make_float4(w[0], w[1], w[2],
-                                                           w[3]);
-    }
-  }
-  for (int idx = tid; idx < NB * NB; idx += NT) {
-    const int i = idx / NB, k = idx % NB;
-    if (k <= i) At[(long long)i * lda + k] = T[i * LDT + k];
-  }
-  if (tid == 0) *info = fail;
-  __syncthreads();                 // T is reused as the GEMM slabs
-}
+using ct::tile::factor_tile;
 
 // A[r0 + r, c0 + c] -= acc over the thread's micro-tile, lower triangle
 // only (c <= r); A is read through L2.
@@ -290,7 +116,7 @@ potrf_stream_f32_kernel(float* A, long long lda, float* P, float* Winv, int n,
   // ---- phase 0: the strict upper zeroed, the counters, F(0)
   if (blockIdx.x == 0) {
     if (tid == 0) ctl[0] = sm_id();
-    factor_tile(A, lda, 0, Winv, info, T, dinv, &s_fail);
+    factor_tile(A, lda, 0, NB, true, Winv, info, T, dinv, &s_fail);
   }
   if (blockIdx.x == gridDim.x - 1)
     for (int j = tid; j < nd; j += NT) ctl[1 + j] = 0;
@@ -336,7 +162,7 @@ potrf_stream_f32_kernel(float* A, long long lda, float* P, float* Winv, int n,
       update_tile(A, lda, P, b, m, 0, 0, Xs, Ys);
       update_tile(A, lda, P, b, m, 1, 0, Xs, Ys);
       update_tile(A, lda, P, b, m, 1, 1, Xs, Ys);
-      factor_tile(A, lda, b, Winv, info, T, dinv, &s_fail);
+      factor_tile(A, lda, b, NB, true, Winv, info, T, dinv, &s_fail);
     }
     if (updates) {
       const int ntri = mt * (mt + 1) / 2;

@@ -1,5 +1,5 @@
-// Shared-memory SGEMM tile used by gemm.cu, syrk.cu, trtri_stream.cu,
-// potrf_stream.cu and lauum.cu.
+// Shared-memory SGEMM tile used by gemm.cu, syrk.cu, leaf.cu,
+// trtri_stream.cu, potrf_stream.cu and lauum.cu.
 //
 // One thread block computes a BM x BN tile of X·Yᵀ, where X (rows x K) and
 // Y (cols x K) are strided operands: element (r, k) lives at

@@ -1,9 +1,16 @@
-"""lauu2_f32: the lower triangle of LᵀL on one leaf block (csrc/lauum.cu).
+"""The leaf kernels, each beside its plain torch twin:
 
-Replaces ``cholesky_tpu/ops/pallas/leaf.py:lauu2_f32``, the leaf of the
-lauum recursion. The strict upper of the result is the input's, bit for
-bit, as in LAPACK's xlauu2. A CPU tensor takes the plain twin
-:func:`lauu2_plain`; a CUDA tensor launches the kernel or raises.
+- potf2_f32 and trti2_f32 (csrc/leaf.cu) replace
+  ``cholesky_tpu/ops/pallas/leaf.py:potf2_f32`` and ``trti2_f32``: the
+  Cholesky and the lower inverse of a block of n <= NB or a multiple of NB,
+  with no upper cap. They take the blocks the whole-matrix kernels refuse
+  (ops/blocked.py ``_KernelTiles``) and the public potf2 above them;
+- lauu2_f32 (csrc/lauum.cu) replaces ``leaf.py:lauu2_f32``, the leaf of the
+  lauum recursion. The strict upper of the result is the input's, bit for
+  bit, as in LAPACK's xlauu2.
+
+A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -11,7 +18,86 @@ from __future__ import annotations
 import torch
 
 from cholesky_tpu_torch.ops.kernels import _build
-from cholesky_tpu_torch.ops.kernels.mega import MAX_N, _check_block
+from cholesky_tpu_torch.ops.kernels.mega import (MAX_N, NB, _check_block,
+                                                 potrf_stream_plain,
+                                                 trtri_stream_plain)
+from cholesky_tpu_torch.utils.errors import check
+
+
+def _check_leaf(A, name):
+    n = _check_block(A, name, max_n=2 ** 31 - 1)
+    check(n <= NB or n % NB == 0, name, 1,
+          f"n={n} must be <= {NB} or a multiple of {NB}")
+    return n
+
+
+def potf2_plain(A):
+    """The plain torch version, any real dtype and device: the kernel's
+    right-looking walk over NB-wide panels, in place, the strict upper
+    zeroed; returns info. Past a failed pivot nothing is solved or
+    updated (the walk of :func:`potrf_stream_plain`, which takes any n)."""
+    return potrf_stream_plain(A)
+
+
+def potf2_f32(A):
+    """Lower Cholesky of the f32 block A (n <= NB or a multiple of NB, no
+    cap; unit-stride rows), in place: only the lower triangle is read, the
+    strict upper is zeroed. Returns info, a 0-d int32 tensor on A's
+    device: the 1-based index of the first pivot with !(d > 0)
+    (NaN-safe), 0 on success. The factor freezes at a failed pivot and
+    every stored value stays finite, except an input NaN at its own
+    position. The launch takes NB² floats of scratch, freed on return."""
+    n = _check_leaf(A, "potf2_f32")
+    if A.device.type == "cpu":
+        return potf2_plain(A)
+    Winv = torch.empty((NB, NB), dtype=A.dtype, device=A.device)
+    info = torch.empty((), dtype=torch.int32, device=A.device)
+    err = _build.library().ct_potf2_f32(
+        A.data_ptr(), A.stride(0), Winv.data_ptr(), n, info.data_ptr(),
+        *_build.device_args(A))
+    _build.check_launch(err, "potf2_f32")
+    potf2_f32.launches += 1
+    return info
+
+
+def unit_inverse(kern, L):
+    """The unit-diagonal inverse through a non-unit inverse ``kern`` (the
+    JAX package's trick, ``blocked.py:201-209``): invert tril(L, -1) + I,
+    then put L's own diagonal back, which LAPACK passes through
+    untouched."""
+    n = L.shape[0]
+    W, info = kern(torch.tril(L, -1) + torch.eye(n, dtype=L.dtype,
+                                                 device=L.device))
+    return torch.tril(W, -1) + torch.diag(torch.diagonal(L)), info
+
+
+def trti2_plain(L, unit=False):
+    """The plain torch version, any real dtype and device: (W, info) as
+    :func:`trti2_f32` returns them, by a triangular solve against the
+    identity."""
+    return unit_inverse(trtri_stream_plain, L) if unit \
+        else trtri_stream_plain(L)
+
+
+def trti2_f32(L, unit=False):
+    """Inverse of the lower-triangular f32 block L (n <= NB or a multiple
+    of NB, no cap; unit-stride rows); only its lower triangle is read.
+    Returns (W, info): W a new contiguous tensor with a zero strict upper;
+    info (0-d int32) the 1-based index of the first zero diagonal, which
+    is read as 1 and does not stop the inversion. With ``unit`` the
+    diagonal is read as 1, info is 0 and W's diagonal is L's, passed
+    through as LAPACK's xtrti2 leaves it."""
+    n = _check_leaf(L, "trti2_f32")
+    if L.device.type == "cpu":
+        return trti2_plain(L, unit)
+    W = torch.empty((n, n), dtype=L.dtype, device=L.device)
+    info = torch.empty((), dtype=torch.int32, device=L.device)
+    err = _build.library().ct_trti2_f32(
+        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), n, int(unit),
+        info.data_ptr(), *_build.device_args(L))
+    _build.check_launch(err, "trti2_f32")
+    trti2_f32.launches += 1
+    return W, info
 
 
 def lauu2_plain(A):
@@ -39,4 +125,6 @@ def lauu2_f32(A):
     return B
 
 
+potf2_f32.launches = 0
+trti2_f32.launches = 0
 lauu2_f32.launches = 0

@@ -4,7 +4,8 @@ The counterpart of ``cholesky_tpu/ops/typed.py``: the reference exposes
 every routine in explicitly typed variants (spotrf, dpotrf, ...; reference
 include/blas.h and include/lapack.h). Each wrapper checks the dtype of its
 matrix argument, as the JAX package's do, and calls the generic routine.
-The c/z letters, gemm, syrk, trmm and potf2 come with their slices.
+As there, herk has no s/d wrapper and gemm2 none at all; the c/z letters
+come with their slice.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ LETTERS = ("s", "d")
 
 # each typed routine, and which positional argument carries its matrix
 _MATRIX_ARG = {
-    "trsm": 5, "potrf": 1, "trtri": 2, "trtri2": 2, "trti2": 2, "lauum": 1,
+    "gemm": 3, "syrk": 3, "trmm": 5, "trmm2": 5, "trsm": 5,
+    "potrf": 1, "potf2": 1, "trtri": 2, "trtri2": 2, "trti2": 2, "lauum": 1,
     "lauu2": 1, "potri": 1, "logdet": 1,
 }
 

@@ -97,7 +97,9 @@ def test_kernel_tiles_through_the_recursion_on_cpu():
 
 
 def test_kernel_tiles_refuse_blocks_the_kernels_do_not_take():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
+    # no whole-matrix kernel takes 200 and the leaf kernel potf2_f32 takes
+    # n <= 128 or a multiple of 128 only, as the Pallas leaf asserts
+    with pytest.raises(ValueError, match="multiple of 128"):
         tblocked._KernelTiles().potf2(torch.eye(200))
 
 

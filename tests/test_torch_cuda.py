@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, each against its plain torch twin,
-and the f32 potrf path through them. Every test is marked ``cuda`` and
+and the f32 potrf, BLAS and d paths through them. Every test is marked ``cuda`` and
 skips where torch sees no CUDA device.
 
 A machine with a card need not have JAX installed, so this file imports
@@ -19,8 +19,9 @@ import torch
 import cholesky_tpu_torch as ct
 from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import blocked, kernels, ozaki
-from cholesky_tpu_torch.ops.kernels import gemm, leaf, mega, syrk
+from cholesky_tpu_torch.ops.kernels import gemm, leaf, mega, syrk, trmm
 from cholesky_tpu_torch.ops.kernels import ozaki as ozk
+from cholesky_tpu_torch.rng import latmc
 
 # the blocked recursion's kernels, which potrf runs with a block size
 POTRF_PATH = ("gemm_f32", "syrk_lower_f32", "potrf_block_f32",
@@ -456,3 +457,176 @@ def test_dpotrf_failures_on_the_card(cuda):
     F, info = ct.dpotrf("L", A.to(cuda))
     assert int(info) == 701
     assert bool(torch.isfinite(F[:700, :700]).all())
+
+
+# ---------------------------------------------------------------------------
+# the leaf kernels, the trmm kernel and the BLAS entry points through them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 100, 128, 384, 2048])
+def test_potf2_vs_twin(cuda, n):
+    A = spd(n).to(cuda)
+    want = A.clone()
+    i_ref = leaf.potf2_plain(want)
+    A[torch.ones_like(A, dtype=torch.bool).triu(1)] = float("nan")
+    info = kernels.potf2_f32(A)
+    assert int(info) == int(i_ref) == 0
+    assert bool((torch.triu(A, 1) == 0).all())
+    assert_close(A, want, 8 * n, f"potf2 n={n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,value", [(2048, 1000, -1.0), (384, 7, "nan"),
+                                       (100, 40, -3.0), (384, 300, 0.0)])
+def test_potf2_failed_pivots(cuda, n, k, value):
+    # info, the factor frozen at the failure: finite but an input NaN, and
+    # the leading block right
+    A = spd(n, cond=10.0).to(cuda)
+    A[k, k] = float(value)
+    want = A.clone()
+    i_ref = leaf.potf2_plain(want)
+    info = kernels.potf2_f32(A)
+    assert int(info) == int(i_ref) == k + 1
+    bad = (~torch.isfinite(A)).nonzero().tolist()
+    assert all(ix == [k, k] for ix in bad), bad
+    assert_close(A[:k, :k], want[:k, :k], 8 * n, "potf2 leading block")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 100, 256, 1152])
+@pytest.mark.parametrize("unit", [False, True])
+def test_trti2_vs_twin(cuda, n, unit):
+    L = factor(n).contiguous().to(cuda)
+    if unit:        # a unit factor with a stored diagonal to pass through
+        L = L / torch.diagonal(L)[None, :] + torch.diag(
+            torch.diagonal(L) - 1.0)
+    Lw = L.clone()
+    Lw[torch.ones_like(Lw, dtype=torch.bool).triu(1)] = float("nan")
+    W, info = kernels.trti2_f32(Lw, unit=unit)
+    want, i_ref = leaf.trti2_plain(L, unit)
+    assert int(info) == int(i_ref) == 0
+    assert bool((torch.triu(W, 1) == 0).all())
+    assert_close(W, want, 60 * n, f"trti2 n={n} unit={unit}")
+    if unit:
+        assert torch.equal(torch.diagonal(W), torch.diagonal(L))
+
+
+@pytest.mark.cuda
+def test_trti2_zero_diagonal(cuda):
+    L = factor(384).contiguous().to(cuda)
+    L[9, 9] = 0.0
+    L[300, 300] = 0.0
+    W, info = kernels.trti2_f32(L)
+    want, i_ref = leaf.trti2_plain(L)
+    assert int(info) == int(i_ref) == 10        # the smallest, as strtri
+    assert bool(torch.isfinite(W).all())
+    assert_close(W, want, 60 * 384, "trti2 zero diagonals")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(8, 8), (200, 130), (1000, 77), (1024, 1024)])
+@pytest.mark.parametrize("upper,unit", [(False, False), (True, False),
+                                        (False, True), (True, True)])
+def test_trmm_lln_vs_twin(cuda, n, m, upper, unit):
+    # upper runs on reversed views (pointers to the last rows, negated
+    # strides); the other triangle, and with unit the diagonal, hold NaN
+    L, B = rand((n, n), 11).to(cuda), rand((n, m), 12).to(cuda)
+    want = trmm.trmm_lln_plain(L, B, 0.5, upper=upper, unit=unit)
+    ones = torch.ones_like(L, dtype=torch.bool)
+    read = ones.triu(int(unit)) if upper else ones.tril(-int(unit))
+    L[~read] = float("nan")
+    got = kernels.trmm_lln_f32(L, B, alpha=0.5, upper=upper, unit=unit)
+    assert got.shape == (n, m) and bool(torch.isfinite(got).all())
+    assert_close(got, want, 2 * n + 3, f"trmm_lln {n}x{m} {upper} {unit}")
+    # strided views: L transposed, B a slice of a wider buffer
+    Lt = rand((n, n), 13).T.contiguous().T.to(cuda)
+    Bw = rand((n, m + 9), 14).to(cuda)
+    got = kernels.trmm_lln_f32(Lt, Bw[:, 5:5 + m], upper=upper, unit=unit)
+    want = trmm.trmm_lln_plain(Lt, Bw[:, 5:5 + m], upper=upper, unit=unit)
+    assert_close(got, want, 2 * n + 3, f"trmm_lln views {n}x{m} {upper}")
+
+
+@pytest.mark.cuda
+def test_tensor_scalars_launch_the_kernels(cuda):
+    # a 0-d tensor alpha or beta on the card is read with float(): the
+    # kernel runs, never the oracle
+    A, B, C = (rand((256, 256), s).to(cuda) for s in (26, 27, 28))
+    a, b = (torch.tensor(v, device=cuda) for v in (0.5, -1.0))
+    kernels.reset_launch_counts()
+    got = (ct.sgemm("N", "T", a, A, B, b, C), ct.ssyrk("L", "N", a, A, b, C),
+           ct.strmm("L", "U", "N", "U", a, A, B))
+    counts = kernels.launch_counts()
+    assert (counts["gemm_f32"], counts["syrk_lower_f32"],
+            counts["trmm_lln_f32"]) == (1, 1, 1), counts
+    want = (ct.sgemm("N", "T", 0.5, A, B, -1.0, C),
+            ct.ssyrk("L", "N", 0.5, A, -1.0, C),
+            ct.strmm("L", "U", "N", "U", 0.5, A, B))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,uplo,trans,diag", [
+    ("L", "L", "N", "N"), ("L", "U", "N", "N"), ("L", "L", "T", "U"),
+    ("L", "U", "T", "N"), ("R", "L", "N", "N"), ("R", "U", "T", "U")])
+def test_strmm_on_the_card(cuda, side, uplo, trans, diag):
+    # one trmm_lln_f32 launch per call, no gemm_f32, any combination
+    n, m = 1000, 300
+    A = rand((n, n), 15) / 32.0 + torch.eye(n)
+    B = rand((n, m) if side == "L" else (m, n), 16)
+    kernels.reset_launch_counts()
+    C = ct.strmm(side, uplo, trans, diag, 1.5, A.to(cuda), B.to(cuda))
+    counts = kernels.launch_counts()
+    assert counts["trmm_lln_f32"] == 1 and counts["gemm_f32"] == 0, counts
+    ref = ct.trmm(side, uplo, trans, diag, 1.5, A.double(), B.double(),
+                  backend="ref")
+    assert_close(C, ref, 2 * n + 3, f"strmm {side}{uplo}{trans}{diag}")
+
+
+@pytest.mark.cuda
+def test_sgemm_ssyrk_dtrmm_on_the_card(cuda):
+    A, B, C = (rand((300, 300), s).to(cuda) for s in (17, 18, 19))
+    kernels.reset_launch_counts()
+    G = ct.sgemm("T", "N", 0.5, A, B, -1.0, C)
+    S = ct.ssyrk("U", "T", 1.0, A, 0.5, C)
+    counts = kernels.launch_counts()
+    assert counts["gemm_f32"] == 1 and counts["syrk_lower_f32"] == 1, counts
+    Ad, Bd, Cd = (X.double() for X in (A, B, C))
+    assert_close(G, 0.5 * Ad.T @ Bd - Cd, 2 * 300 + 3, "sgemm")
+    assert_close(torch.triu(S), torch.triu(Ad.T @ Ad + 0.5 * Cd),
+                 2 * 300 + 3, "ssyrk")
+    assert torch.equal(torch.tril(S, -1), torch.tril(C, -1))
+    # f64 on the card: the Ozaki kernels, never the f32 trmm
+    L = torch.tril(rand((700, 700), 20).double()).to(cuda)
+    X = rand((700, 90), 21).double().to(cuda)
+    kernels.reset_launch_counts()
+    D = ct.dtrmm("L", "L", "N", "N", 1.0, L, X)
+    counts = kernels.launch_counts()
+    assert counts["trmm_lln_f32"] == 0 and counts["peel_f32pair"] > 0 \
+        and counts["mm_groups_f32pair"] > 0, counts
+    ref = L @ X
+    assert float((D - ref).abs().max()) <= 700 * 2.0 ** -40 * float(
+        ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_leaf_routes_on_the_card(cuda):
+    # spotf2 above the whole-block kernels' cap, and strtri with a block
+    # size above trtri_stream_f32's, each ONE leaf launch (at 8320, past
+    # STREAM_MAX_N, so whatever the tuned caps)
+    n = 8320
+    A = latmc(torch.Generator(device=cuda).manual_seed(0), n, 30.0)
+    kernels.reset_launch_counts()
+    F, info = ct.spotf2("L", A)
+    assert int(info) == 0 and kernels.launch_counts()["potf2_f32"] == 1
+    Fd = torch.tril(F).double()
+    err = float((Fd @ Fd.T - A.double()).abs().max())
+    assert err <= n * 2 * EPS32 * float(A.abs().max()), err
+    L = torch.tril(F)
+    kernels.reset_launch_counts()
+    W, info = ct.strtri("L", "N", L, block_size=n)
+    assert int(info) == 0 and kernels.launch_counts()["trti2_f32"] == 1
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    ref = torch.linalg.solve_triangular(L.double(), eye, upper=False)
+    assert_close(torch.tril(W), ref, 60 * n, "strtri block_size=n")

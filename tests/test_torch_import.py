@@ -52,12 +52,14 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_public_api():
-    routines = ["potrf", "logdet", "trtri", "trtri2", "trti2", "lauum",
-                "lauu2", "potri", "trsm"]
+    routines = ["potrf", "potf2", "logdet", "trtri", "trtri2", "trti2",
+                "lauum", "lauu2", "potri", "gemm", "syrk", "trmm", "trmm2",
+                "trsm"]
     typed = [letter + r for letter in "sd" for r in routines]
     assert sorted(ct.__all__) == sorted(
-        routines + typed + ["logdet_from_factor", "Side", "Uplo", "Trans",
-                            "Diag", "set_error_handler", "set_xerbla"])
+        routines + typed + ["herk", "logdet_from_factor", "Side", "Uplo",
+                            "Trans", "Diag", "set_error_handler",
+                            "set_xerbla"])
     assert all(callable(getattr(ct, name)) for name in typed)
 
 
