@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's thirteen CUDA kernels from ``cholesky_tpu_torch/ops/
+Builds the port's fifteen CUDA kernels from ``cholesky_tpu_torch/ops/
 kernels/csrc``, holds each against its plain torch twin at the shapes its
-path gives it, then drives the paths below through the public API. Before
+path gives it (the device fills bit for bit at 8192², with their moments,
+range, interval endpoints and seed decorrelation), then drives the paths
+below through the public API. Before
 each path every launch counter is set to 0, and after it the counters must
 show that the path went through each of its kernels:
 
@@ -29,7 +31,16 @@ show that the path went through each of its kernels:
   (one ``potf2_f32`` launch, above the whole-matrix kernels' 8192 cap) and
   ``strtri(block_size=8192)`` at 8192, unit and not (one ``trti2_f32``
   launch each, above ``trtri_f32.mega_max_n``), each held in f64 and timed
-  beside one PyTorch call.
+  beside one PyTorch call;
+- phase 8, the c/z tier through the real embedding at n = 4096 complex
+  (8192 real) on cond-100 HPD inputs: ``zpotrf``, ``zlogdet`` and
+  ``zpotri`` on an (re, im) pair under ``auto`` (the Ozaki kernels and the
+  f32 leaves only), ``cpotrf`` (one ``potrf_stream_f32`` launch),
+  ``clogdet`` and ``cpotri`` on a c64 tensor, a non-HPD input's ``info``
+  against cuSOLVER's, ``ztrsm``/``ctrsm`` on right-hand sides made by the
+  device fills as (re, im) pairs, and ``cgemm``, ``cherk`` and ``ctrmm``
+  at 2048 (``gemm_f32`` only), each held in c128 on the card and timed
+  beside a c64/c128 ``torch.linalg`` or ``matmul`` call.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
@@ -72,10 +83,16 @@ from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
 from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
                                                   mm_groups_plain,
                                                   peel_f32pair, peel_plain)
+from cholesky_tpu_torch.ops.kernels.prng import (uniform_fill_f32,
+                                                 uniform_fill_f32_plain,
+                                                 uniform_fill_f64,
+                                                 uniform_fill_f64_plain)
 from cholesky_tpu_torch.ops.kernels.syrk import (syrk_lower_f32,
                                                  syrk_lower_plain)
 from cholesky_tpu_torch.ops.kernels.trmm import trmm_lln_f32, trmm_lln_plain
-from cholesky_tpu_torch.rng import latmc
+from cholesky_tpu_torch.rng import (Interval, latmc, latmc_pair,
+                                    uniform_device, uniform_device64)
+from cholesky_tpu_torch.rng import device as rng_device
 from cholesky_tpu_torch.utils.benchlib import bench_op
 
 EPS32 = float(torch.finfo(torch.float32).eps)
@@ -118,7 +135,11 @@ def require(cond: bool, what: str) -> None:
 
 
 def max_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+    if a.is_complex() or b.is_complex():
+        a, b = a.to(torch.complex128), b.to(torch.complex128)
+    else:
+        a, b = a.double(), b.double()
+    return float((a - b).abs().max())
 
 
 def card() -> str:
@@ -483,7 +504,7 @@ def check_lauum_stream(gen, rec, on):
 
 
 def check_lauu2(gen, rec, on):
-    for n in (128, 512):
+    for n in (128, 512, 2048):
         # a leaf of the working buffer: a view with a longer row
         buf = torch.randn(n, 2 * n, device="cuda", generator=gen)
         A = buf[:, n // 2:n // 2 + n]
@@ -500,7 +521,7 @@ def check_lauu2(gen, rec, on):
         print(f"lauu2_f32 n={n}: max err {err:.3e} (bound {b:.3e}), strict "
               f"upper passed through bit for bit; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms on {on}")
-        if n == 512:
+        if n == 2048:
             lib_ms = bench_op(lambda x: torch.matmul(x.T, x), torch.tril(A)) \
                 * 1e3
             print(f"  torch.matmul(Lᵀ, L) n={n}: {lib_ms:.4f} ms")
@@ -508,6 +529,18 @@ def check_lauu2(gen, rec, on):
             rec["lauu2_f32"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 **roofline(n ** 3 / 3, "f32", 2 * n * n * 4))
+    # lauum with 2048 leaves at 4096: two lauu2_f32 launches, above the
+    # 1024 the kernel took before
+    F, info = ct.potrf("L", spd(gen, 4096))
+    L = torch.tril(F)
+    B, _ = run_path("lauum block_size=2048",
+                    lambda: ct.lauum("L", L, block_size=2048),
+                    {"lauu2_f32": 2})
+    e4 = max_err(torch.tril(B), lauum_stream_plain(L))
+    b4 = bound(2 * 4096 + 3, float(B.abs().max()))
+    require(e4 <= b4, f"lauum block_size=2048 n=4096: err {e4} > {b4}")
+    print(f"lauum n=4096 block_size=2048 (two lauu2_f32 leaves): max err "
+          f"{e4:.3e} against the twin (bound {b4:.3e})")
 
 
 def check_potf2(gen, rec, on):
@@ -773,6 +806,87 @@ def check_mm_groups(gen, rec, on):
         library_ms=lib_ms,
         **roofline(2 * n ** 3 * D_SLICES * (D_SLICES + 1) // 2, "int8",
                    D_SLICES * n * n + 8 * n * n))
+
+
+FILL_N = 8192
+
+
+def check_prng(rec, on):
+    """The device fills at 8192², bit for bit against their twins (the
+    same Philox words in int64 torch arithmetic), then the contract of the
+    JAX package's fills: moments and range, the 2⁻⁵³ grid in f64, the four
+    interval endpoints, and two adjacent seeds sharing no row block.
+    Timed beside ``torch.rand`` on a CUDA generator, which never runs in
+    the port."""
+    n = FILL_N
+    lib_gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, fill, plain, salt, dtype, device_fill in (
+            ("uniform_fill_f32", uniform_fill_f32, uniform_fill_f32_plain, 0,
+             torch.float32, uniform_device),
+            ("uniform_fill_f64", uniform_fill_f64, uniform_fill_f64_plain,
+             rng_device.SALT_F64, torch.float64, uniform_device64)):
+        seeds = rng_device._mix_seeds(11, n // 256, salt).cuda()
+        got = fill(seeds, n, n)
+        want = plain(seeds, n, n)
+        require(got.dtype == dtype and torch.equal(got, want),
+                f"{name}: not bit for bit the twin's (max diff "
+                f"{max_err(got, want):.3e})")
+        del want
+        lo, hi = float(got.min()), float(got.max())
+        mean = float(got.double().mean())
+        var = float(got.double().var())
+        se = (1.0 / 12.0 / n ** 2) ** 0.5
+        require(0.0 <= lo and hi < 1.0, f"{name}: range [{lo}, {hi}]")
+        require(abs(mean - 0.5) < 6 * se and abs(var - 1 / 12) < 6 * (
+            1 / 180 / n ** 2) ** 0.5, f"{name}: mean {mean}, var {var}")
+        grid = ""
+        if dtype == torch.float64:
+            s53 = got * 2.0 ** 53
+            require(torch.equal(s53, torch.round(s53)),
+                    f"{name}: off the 2^-53 grid")
+            grid = ", on the 2^-53 grid"
+            del s53
+        del got
+        # the intervals, through the public fill
+        ends = []
+        for interval in Interval:
+            u = device_fill(3, (n, 1024), interval)
+            a, b = float(u.min()), float(u.max())
+            ok = {Interval.CLOSED: 0 <= a and b <= 1,
+                  Interval.OPEN: 0 < a and b < 1,
+                  Interval.HALF_OPEN_01: 0 <= a and b < 1,
+                  Interval.HALF_OPEN_10: 0 < a and b <= 1}[interval]
+            require(ok, f"{name} {interval.value}: min {a}, max {b}")
+            ends.append(f"{interval.value} [{a:.3e}, {1 - b:.3e} from 1]")
+        # adjacent seeds: no shared row block, no correlation
+        u1, u2 = device_fill(41, (n, 1024)), device_fill(42, (n, 1024))
+        shared = [(i, j) for i in range(n // 256) for j in range(n // 256)
+                  if torch.equal(u1[256 * i:256 * (i + 1)],
+                                 u2[256 * j:256 * (j + 1)])]
+        c = float(torch.corrcoef(torch.stack(
+            [u1.double().flatten(), u2.double().flatten()]))[0, 1])
+        require(not shared and abs(c) < 6 / (n * 1024) ** 0.5,
+                f"{name}: seeds 41 and 42 share row blocks {shared[:3]}, "
+                f"correlation {c}")
+        del u1, u2
+        ms = bench_op(lambda x: fill(x, n, n), seeds) * 1e3
+        plain_ms = bench_op(lambda x: plain(x, n, n), seeds, warmup=1,
+                            reps=3) * 1e3
+        lib_ms = bench_op(lambda _: torch.rand(
+            n, n, generator=lib_gen, device="cuda", dtype=dtype), seeds) * 1e3
+        print(f"{name} {n}²: bit for bit the twin's; min {lo:.3e}, max "
+              f"{hi:.9f}, mean {mean:.6f}, var {var:.6f} (1/12 = "
+              f"{1 / 12:.6f}){grid}; intervals {'; '.join(ends)}; seeds 41 "
+              f"and 42 share no row block, correlation {c:.2e}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.rand "
+              f"{lib_ms:.4f} ms on {on}")
+        # bound by the stores: Philox's integer operations, about 25 per
+        # f32 element, take less than the store time at the card's int32
+        # issue rate, and the table of peaks has no int32 entry
+        rec[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms,
+                         **roofline(0.0, "f32", n * n * (
+                             4 if dtype == torch.float32 else 8)))
 
 
 # ---------------------------------------------------------------------------
@@ -1214,6 +1328,11 @@ def only(**counts):
     return {**ONLY, **counts}
 
 
+def exact(name):
+    """0 launches for every kernel outside the path ``name``."""
+    return {k: 0 for k in ONLY if k not in PATHS[name]}
+
+
 def strmm_operand(uplo, trans, diag, A, dtype):
     """op(T) in ``dtype``, T the uplo triangle of A (unit diagonal with
     diag U), materialized: the f64 reference's operand and the f32
@@ -1301,8 +1420,7 @@ def blas_path(gen, name_power):
     # dtrmm under auto: the Ozaki kernels, never the f32 trmm
     A64, B64 = A.double(), B.double()
     D, runs["dtrmm"] = run_path("dtrmm", lambda: ct.dtrmm(
-        "L", "L", "N", "N", 1.0, A64, B64),
-        {k: 0 for k in ONLY if k not in PATHS["dtrmm"]})
+        "L", "L", "N", "N", 1.0, A64, B64), exact("dtrmm"))
     ref = torch.tril(A64) @ B64
     rel = float((D - ref).abs().max()) / float(ref.abs().max())
     require(rel <= n * 2.0 ** -40, f"dtrmm {n}: rel err {rel}")
@@ -1382,6 +1500,251 @@ def blas_path(gen, name_power):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the c/z tier through the real embedding, n = 4096 complex
+# (BASELINE.json configs[2], "zpotrf/zpotri N=4096 Hermitian")
+# ---------------------------------------------------------------------------
+
+CZ_N, CZ_COND, CZ_K, CZ_BLAS_N = 4096, 100.0, 512, 2048
+
+
+def as_c128(X):
+    return (torch.complex(*X) if isinstance(X, tuple) else X).to(
+        torch.complex128)
+
+
+def yard(what, err, yard_err, scale):
+    """err within F32_GATE times a c64 yardstick's error on the same
+    input (and at least one ulp of ``scale``); returns the limit."""
+    lim = F32_GATE * max(yard_err, EPS32 * scale)
+    require(err <= lim, f"{what}: err {err:.3e} > {lim:.3e} ({F32_GATE:g}x "
+            f"the c64 yardstick's {yard_err:.3e})")
+    return lim
+
+
+def crandn(gen, *shape):
+    return torch.randn(*shape, dtype=torch.complex64, device="cuda",
+                       generator=gen)
+
+
+def cz_path(gen, name_power):
+    n = CZ_N
+    t_phase = time.perf_counter()
+    runs = {}
+    low = torch.ones(n, n, dtype=torch.bool, device="cuda").tril_()
+
+    # z: an HPD pair of f64 planes, auto -> the embedding -> the d tier
+    Ap = latmc_pair(gen, n, CZ_COND, torch.float64)
+    A = as_c128(Ap)
+    scale = float(A.abs().max())
+
+    def z_drive():
+        F, info = ct.zpotrf("L", Ap)
+        ld, info_ld = ct.zlogdet("L", Ap)
+        inv, info_inv = ct.zpotri("L", F)
+        return F, info, ld, info_ld, inv, info_inv
+
+    (Fz, info, ld, info_ld, inv, info_inv), runs["z"] = run_path(
+        "z", z_drive, exact("z"))
+    require(int(info) == int(info_ld) == int(info_inv) == 0,
+            f"z path info: zpotrf {int(info)}, zlogdet {int(info_ld)}, "
+            f"zpotri {int(info_inv)}")
+    Lz = torch.tril(as_c128(Fz))
+    be = float((Lz @ Lz.mH - A).abs().max()) / scale
+    b_be = n * 2.0 ** -40
+    require(be <= b_be, f"zpotrf n={n}: max|LLᴴ-A|/max|A| {be} > {b_be}")
+    ref_ld = float(torch.linalg.slogdet(A)[1])
+    rel_ld = abs(float(ld) - ref_ld) / abs(ref_ld)
+    require(rel_ld <= 1e-9, f"zlogdet n={n}: rel err {rel_ld} > 1e-9")
+    L128 = torch.linalg.cholesky(A)
+    inv128 = torch.cholesky_inverse(L128)
+    rel_inv = float(torch.where(low, as_c128(inv) - inv128, 0).abs().max()) \
+        / float(inv128.abs().max())
+    b_inv = CZ_COND * n * 2.0 ** -40
+    require(rel_inv <= b_inv, f"zpotri n={n}: rel err {rel_inv} > {b_inv}")
+    print(f"zpotrf n={n} complex ({2 * n} real) cond {CZ_COND:g}, a pair "
+          f"under auto -> embed -> ozaki: info 0, max|LLᴴ-A|/max|A| {be:.3e} "
+          f"(bound n·2^-40 {b_be:.3e}); zlogdet {float(ld):.10f} vs c128 "
+          f"slogdet {ref_ld:.10f}, rel err {rel_ld:.3e} (bound 1e-9); zpotri "
+          f"max err / max|A⁻¹| {rel_inv:.3e} (bound cond·n·2^-40 "
+          f"{b_inv:.3e})")
+    del inv, Lz
+
+    # a non-HPD c128 tensor: info as cuSOLVER's
+    B = A.clone()
+    B[3000, 3000] = -1.0
+    _, info_b = ct.zpotrf("L", B)
+    info_ref = int(torch.linalg.cholesky_ex(B).info)
+    require(int(info_b) == info_ref == 3001,
+            f"zpotrf non-HPD: info {int(info_b)}, cholesky_ex {info_ref}")
+    print(f"zpotrf non-HPD c128 tensor A[3000,3000]=-1: info {int(info_b)}, "
+          f"torch.linalg.cholesky_ex info {info_ref}")
+    del B
+
+    # ztrsm on right-hand sides made by the f64 fill, as a pair
+    def z_solve():
+        Bp = (uniform_device64(21, (n, CZ_K)), uniform_device64(22, (n, CZ_K)))
+        return Bp, ct.ztrsm("L", "L", "N", "N", 1.0, Fz, Bp)
+
+    (Bz, Xz), runs["ztrsm"] = run_path("ztrsm", z_solve, exact("ztrsm"))
+    Xref = torch.linalg.solve_triangular(L128, as_c128(Bz), upper=False)
+    rel_x = float((as_c128(Xz) - Xref).abs().max()) / float(
+        Xref.abs().max())
+    require(rel_x <= b_inv, f"ztrsm: rel err {rel_x} > {b_inv}")
+    print(f"ztrsm L,L,N,N n={n} k={CZ_K}, right-hand sides from "
+          f"uniform_device64 as a pair: max err / max|X| {rel_x:.3e} (bound "
+          f"{b_inv:.3e})")
+    del Xz, Xref
+
+    # times beside cuSOLVER and cuBLAS in c128 (never the port)
+    t_zpotrf = wall_ms(lambda: ct.zpotrf("L", Ap))
+    t_zlogdet = wall_ms(lambda: ct.zlogdet("L", Ap))
+    t_zpotri = wall_ms(lambda: ct.zpotri("L", Fz))
+    t_ztrsm = wall_ms(lambda: ct.ztrsm("L", "L", "N", "N", 1.0, Fz, Bz))
+    t_chol = wall_ms(lambda: torch.linalg.cholesky_ex(A))
+    t_cinv = wall_ms(lambda: torch.cholesky_inverse(L128))
+    B128 = as_c128(Bz)
+    t_solve = wall_ms(lambda: torch.linalg.solve_triangular(
+        L128, B128, upper=False))
+    print(f"zpotrf n={n}: port {t_zpotrf:.3f} ms, c128 "
+          f"torch.linalg.cholesky_ex {t_chol:.3f} ms; zlogdet "
+          f"{t_zlogdet:.3f} ms; zpotri {t_zpotri:.3f} ms, c128 "
+          f"torch.cholesky_inverse {t_cinv:.3f} ms; ztrsm k={CZ_K} "
+          f"{t_ztrsm:.3f} ms, c128 solve_triangular {t_solve:.3f} ms "
+          f"(host clock, synchronized) on {name_power}")
+    wall, busy, idle, count, rows = profile_table(lambda: ct.zpotrf("L", Ap),
+                                                  top=8)
+    print(f"zpotrf n={n} under torch.profiler: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {idle:.4f}, {count} operations "
+          "on the device; by device time:")
+    for name, cnt, ms in rows:
+        print(f"  {ms:10.3f} ms  {cnt:6d}  {name[:160]}")
+    del Fz, Bz, B128, L128, inv128, Ap
+
+    # c: an HPD c64 tensor, auto -> the embedding -> the f32 kernels
+    Ac = A.to(torch.complex64)
+    del A
+    (Fc, info), runs["cpotrf"] = run_path(
+        "cpotrf", lambda: ct.cpotrf("L", Ac), only(potrf_stream_f32=1))
+    (ldc, info_ld), _ = run_path("cpotrf", lambda: ct.clogdet("L", Ac),
+                                 only(potrf_stream_f32=1))
+    require(int(info) == int(info_ld) == 0, "cpotrf/clogdet info")
+    A = as_c128(Ac)
+    scale = float(A.abs().max())
+    ref_ld = float(torch.linalg.slogdet(A)[1])
+    Lc = torch.tril(as_c128(Fc))
+    be = float((Lc @ Lc.mH - A).abs().max())
+    b_be = bound(2 * n, scale)
+    require(be <= b_be, f"cpotrf n={n}: max|LLᴴ-A| {be} > {b_be}")
+    rel_ld = abs(float(ldc) - ref_ld) / abs(ref_ld)
+    require(rel_ld <= 2 * n * EPS32, f"clogdet: rel err {rel_ld}")
+    L128 = torch.linalg.cholesky(A)
+    inv128 = torch.cholesky_inverse(L128)
+    (invc, info), runs["cpotri"] = run_path("cpotri",
+                                            lambda: ct.cpotri("L", Fc),
+                                            exact("cpotri"))
+    require(int(info) == 0, "cpotri info")
+    # beside two c64 yardsticks, as spotri: cholesky_inverse, and potri's
+    # own algorithm (W = L⁻¹ by a solve against I, then WᴴW), whose
+    # explicit inverse multiplies the error by about cond(L)
+    def inv_err(R):
+        return float(torch.where(low, as_c128(R) - inv128, 0).abs().max())
+
+    e_inv = inv_err(invc)
+    Lt = torch.tril(Fc)
+    Wc = torch.linalg.solve_triangular(Lt, torch.eye(
+        n, dtype=Lt.dtype, device="cuda"), upper=False)
+    e_yards = (inv_err(torch.cholesky_inverse(Lt)), inv_err(Wc.mH @ Wc))
+    del Wc
+    lim_inv = yard("cpotri", e_inv, max(e_yards), float(inv128.abs().max()))
+    print(f"cpotrf n={n} c64 tensor under auto -> embed -> potrf_stream_f32 "
+          f"(one launch at {2 * n}): max|LLᴴ-A| {be:.3e} (bound 2n·2·eps "
+          f"{b_be:.3e}); clogdet rel err {rel_ld:.3e} (bound 2n·eps "
+          f"{2 * n * EPS32:.3e}); cpotri max err {e_inv:.3e}, c64 "
+          f"torch.cholesky_inverse's {e_yards[0]:.3e}, potri's algorithm's "
+          f"{e_yards[1]:.3e} (limit {lim_inv:.3e})")
+    del invc, Lc
+
+    # ctrsm on right-hand sides made by the f32 fill, as a pair
+    Fcp = (Fc.real.contiguous(), Fc.imag.contiguous())
+
+    def c_solve():
+        Bp = (uniform_device(23, (n, CZ_K)), uniform_device(24, (n, CZ_K)))
+        return Bp, ct.ctrsm("L", "L", "N", "N", 1.0, Fcp, Bp)
+
+    (Bc, Xc), runs["ctrsm"] = run_path("ctrsm", c_solve, exact("ctrsm"))
+    Bc64 = torch.complex(*Bc)
+    Xref = torch.linalg.solve_triangular(torch.tril(as_c128(Fc)),
+                                         as_c128(Bc64), upper=False)
+    e_lib = max_err(torch.linalg.solve_triangular(torch.tril(Fc), Bc64,
+                                                    upper=False), Xref)
+    err, lim, rms = gated("ctrsm", as_c128(Xc), Xref, e_lib,
+                          rms=rms_of(Xref.abs()))
+    print(f"ctrsm L,L,N,N n={n} k={CZ_K}, right-hand sides from "
+          f"uniform_device as a pair: max err {err:.3e}, c64 "
+          f"solve_triangular's {e_lib:.3e} (limit {lim:.3e}, 1/"
+          f"{rms / lim:.0f} of the RMS {rms:.3e})")
+    t_cpotrf = wall_ms(lambda: ct.cpotrf("L", Ac))
+    t_clogdet = wall_ms(lambda: ct.clogdet("L", Ac))
+    t_cpotri = wall_ms(lambda: ct.cpotri("L", Fc))
+    t_ctrsm = wall_ms(lambda: ct.ctrsm("L", "L", "N", "N", 1.0, Fcp, Bc))
+    t_chol = wall_ms(lambda: torch.linalg.cholesky_ex(Ac))
+    t_cinv = wall_ms(lambda: torch.cholesky_inverse(Lt))
+    t_solve = wall_ms(lambda: torch.linalg.solve_triangular(Lt, Bc64,
+                                                            upper=False))
+    print(f"cpotrf n={n}: port {t_cpotrf:.3f} ms, c64 "
+          f"torch.linalg.cholesky_ex {t_chol:.3f} ms; clogdet "
+          f"{t_clogdet:.3f} ms; cpotri {t_cpotri:.3f} ms, c64 "
+          f"torch.cholesky_inverse {t_cinv:.3f} ms; ctrsm k={CZ_K} "
+          f"{t_ctrsm:.3f} ms, c64 solve_triangular {t_solve:.3f} ms (host "
+          f"clock, synchronized) on {name_power}")
+    del Ac, A, Fc, Fcp, Bc, Bc64, Xc, Xref, L128, inv128, Lt, low
+
+    # cgemm, cherk and ctrmm at 2048 on dense inputs: gemm_f32 only
+    m = CZ_BLAS_N
+    X, Y, C = crandn(gen, m, m), crandn(gen, m, m), crandn(gen, m, m)
+    X128, Y128, C128 = as_c128(X), as_c128(Y), as_c128(C)
+    al, be_ = 1.5 - 0.5j, 0.5
+    G, runs["cgemm"] = run_path("cgemm", lambda: ct.cgemm(
+        "N", "C", al, X, Y, be_, C), exact("cgemm"))
+    ref = al * X128 @ Y128.mH + be_ * C128
+    e_lib = max_err(torch.addmm(C, X, Y.mH, beta=be_, alpha=al), ref)
+    err_g, lim_g, _ = gated("cgemm", as_c128(G), ref, e_lib,
+                            rms=rms_of(ref.abs()))
+    H, runs["cherk"] = run_path("cherk", lambda: ct.cherk(
+        "L", "N", 1.0, X, be_, C), exact("cherk"))
+    Ch = torch.tril(C128) + torch.tril(C128, -1).mH
+    Ch.diagonal().imag.zero_()
+    ref = torch.tril(X128 @ X128.mH + be_ * Ch)
+    ref.diagonal().imag.zero_()
+    e_lib = max_err(torch.tril(torch.addmm(Ch.to(torch.complex64), X,
+                                             X.mH, beta=be_)), ref)
+    err_h, lim_h, _ = gated("cherk", torch.tril(as_c128(H)), ref, e_lib,
+                            rms=rms_of(ref.abs()))
+    require(bool((H.diagonal().imag == 0).all()) and torch.equal(
+        torch.triu(H, 1), torch.triu(C, 1)),
+        "cherk: the diagonal is not real or the strict upper changed")
+    T, runs["ctrmm"] = run_path("ctrmm", lambda: ct.ctrmm(
+        "L", "L", "N", "N", 1.0, X, Y), exact("ctrmm"))
+    ref = torch.tril(X128) @ Y128
+    e_lib = max_err(torch.tril(X) @ Y, ref)
+    err_t, lim_t, _ = gated("ctrmm", as_c128(T), ref, e_lib,
+                            rms=rms_of(ref.abs()))
+    t_g = wall_ms(lambda: ct.cgemm("N", "C", al, X, Y, be_, C))
+    t_h = wall_ms(lambda: ct.cherk("L", "N", 1.0, X, be_, C))
+    t_t = wall_ms(lambda: ct.ctrmm("L", "L", "N", "N", 1.0, X, Y))
+    t_mm = wall_ms(lambda: torch.addmm(C, X, Y.mH, beta=be_, alpha=al))
+    t_tr = wall_ms(lambda: torch.tril(X) @ Y)
+    print(f"cgemm/cherk/ctrmm n={m}: max err vs c128 {err_g:.3e} / "
+          f"{err_h:.3e} / {err_t:.3e} (limits 8x the c64 library's: "
+          f"{lim_g:.3e} / {lim_h:.3e} / {lim_t:.3e}), cherk's diagonal "
+          f"real and strict upper kept; {t_g:.3f} / {t_h:.3f} / {t_t:.3f} "
+          f"ms, c64 torch.addmm {t_mm:.3f} ms, torch.matmul(tril(A), B) "
+          f"{t_tr:.3f} ms (host clock) on {name_power}")
+    print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 #: each path's kernels: the launch counters must show every one of them
 PATHS = {
     "potrf": ("potrf_stream_f32",),
@@ -1399,6 +1762,17 @@ PATHS = {
     "dtrmm": ("peel_f32pair", "mm_groups_f32pair"),
     "spotf2": ("potf2_f32",),
     "strtri block_size=8192": ("trti2_f32",),
+    "lauum block_size=2048": ("lauu2_f32",),
+    "z": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
+          "trtri_block_f32"),
+    "ztrsm": ("uniform_fill_f64", "peel_f32pair", "mm_groups_f32pair",
+              "trtri_block_f32"),
+    "cpotrf": ("potrf_stream_f32",),
+    "cpotri": ("trtri_stream_f32", "gemm_f32", "lauum_stream_f32"),
+    "ctrsm": ("uniform_fill_f32", "trtri_block_f32", "gemm_f32"),
+    "cgemm": ("gemm_f32",),
+    "cherk": ("gemm_f32",),
+    "ctrmm": ("gemm_f32",),
 }
 
 #: each kernel: its source, the TPU kernel it replaces, and the path whose
@@ -1435,6 +1809,10 @@ SOURCES = {
                   "strtri block_size=8192"),
     "trmm_lln_f32": ("cholesky_tpu_torch/ops/kernels/csrc/trmm.cu",
                      "cholesky_tpu/ops/pallas/trmm.py:66", "strmm"),
+    "uniform_fill_f32": ("cholesky_tpu_torch/ops/kernels/csrc/prng.cu",
+                         "cholesky_tpu/rng/pallas_prng.py:60", "ctrsm"),
+    "uniform_fill_f64": ("cholesky_tpu_torch/ops/kernels/csrc/prng.cu",
+                         "cholesky_tpu/rng/pallas_prng.py:106", "ztrsm"),
 }
 
 
@@ -1478,6 +1856,7 @@ def main() -> int:
     check_potf2(gen, rec, name_power)
     check_trti2(gen, rec, name_power)
     check_trmm(gen, rec, name_power)
+    check_prng(rec, name_power)
 
     # 4. the potrf path
     runs = main_path(gen, name_power)
@@ -1490,6 +1869,9 @@ def main() -> int:
 
     # 7. the BLAS path and the leaf routes
     runs.update(blas_path(gen, name_power))
+
+    # 8. the c/z tier through the real embedding
+    runs.update(cz_path(gen, name_power))
     require("jax" not in sys.modules, "jax was imported")
     require(set(SOURCES) == set(kernels.KERNELS),
             "a kernel is missing from the kernels line")

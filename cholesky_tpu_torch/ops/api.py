@@ -1,6 +1,6 @@
 """Public API of the ported routines; backends in ops/dispatch.py
-('ref', 'torch', 'cuda', 'ozaki', 'auto'), the s/d typed variants in
-ops/typed.py."""
+('ref', 'torch', 'cuda', 'ozaki', 'embed', 'auto'), the s/d/c/z typed
+variants in ops/typed.py."""
 
 from __future__ import annotations
 

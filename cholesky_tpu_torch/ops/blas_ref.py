@@ -1,4 +1,5 @@
-"""Reference (oracle) Level-3 BLAS tier in plain torch, real dtypes.
+"""Reference (oracle) Level-3 BLAS tier in plain torch, all four
+precisions.
 
 The counterpart of ``cholesky_tpu/ops/blas_ref.py``: gemm/gemm2,
 syrk/herk, trmm/trmm2 and trsm. Every routine returns a new tensor and
@@ -63,7 +64,10 @@ def gemm2(transa, transb, alpha, A, B, beta, C):
 
 def syrk(uplo, trans, alpha, A, beta, C):
     """C := alpha·op(A)·op(A)ᵀ + beta·C in the uplo triangle of C, its
-    other strict triangle kept (reference blas/ssyrk.c:34)."""
+    other strict triangle kept (reference blas/ssyrk.c:34). 'C' on a
+    complex A is refused: that update is :func:`herk`."""
+    check(norm_trans(trans) != Trans.CONJ_TRANS or not A.is_complex(),
+          "syrk", 2, "syrk with 'C' on complex operands: use herk")
     oA = op(A, trans)
     n = oA.shape[0]
     check(C.shape == (n, n), "syrk", 6,
@@ -73,8 +77,18 @@ def syrk(uplo, trans, alpha, A, beta, C):
 
 def herk(uplo, trans, alpha, A, beta, C):
     """C := alpha·op(A)·op(A)ᴴ + beta·C, alpha and beta real (reference
-    blas/cherk.c); for the real dtypes ported so far it is :func:`syrk`."""
-    return syrk(uplo, trans, alpha, A, beta, C)
+    blas/cherk.c); a complex result's diagonal is exactly real. 'T' on a
+    complex A is refused: that update is :func:`syrk`."""
+    check(norm_trans(trans) != Trans.TRANS or not A.is_complex(),
+          "herk", 2, "herk with 'T' on complex operands: use syrk")
+    oA = op(A, trans)
+    n = oA.shape[0]
+    check(C.shape == (n, n), "herk", 6,
+          f"C shape {tuple(C.shape)} != {(n, n)}")
+    out = (alpha * (oA @ oA.mH) + beta * C).to(C.dtype)
+    if out.is_complex():
+        out.diagonal().imag.zero_()
+    return _set_triangle(C, out, uplo)
 
 
 def trmm(side, uplo, transa, diag, alpha, A, B):
@@ -104,13 +118,19 @@ def trsm(side, uplo, transa, diag, alpha, A, B):
     transa = norm_trans(transa)
     unit = norm_diag(diag) == Diag.UNIT
     if side == Side.RIGHT:
-        # X·op(A) = alpha·B  <=>  op(A)ᵀ·Xᵀ = alpha·Bᵀ (real dtypes)
+        if transa == Trans.CONJ_TRANS and A.is_complex():
+            # (Aᴴ)ᵀ = conj(A): solve conj(A)·Xᵀ = alpha·Bᵀ, that is
+            # A·conj(Xᵀ) = conj(alpha)·conj(Bᵀ)
+            alpha_c = (alpha.conj() if isinstance(alpha, torch.Tensor)
+                       else complex(alpha).conjugate())
+            out = trsm(Side.LEFT, uplo, Trans.NO_TRANS, diag, alpha_c, A,
+                       B.mH)
+            return out.mH.resolve_conj()
+        # X·op(A) = alpha·B  <=>  op(A)ᵀ·Xᵀ = alpha·Bᵀ
         eff = Trans.TRANS if transa == Trans.NO_TRANS else Trans.NO_TRANS
         return trsm(Side.LEFT, uplo, eff, diag, alpha, A, B.T).T
     check(A.shape[0] == B.shape[0], "trsm", 6, "dim mismatch")
-    T = _tri(A, uplo, diag)
-    upper = uplo == Uplo.UPPER
-    if transa != Trans.NO_TRANS:
-        T, upper = T.T, not upper
+    T = op(_tri(A, uplo, diag), transa)
+    upper = (uplo == Uplo.UPPER) == (transa == Trans.NO_TRANS)
     return torch.linalg.solve_triangular(T, alpha * B.to(T.dtype),
                                          upper=upper, unitriangular=unit)

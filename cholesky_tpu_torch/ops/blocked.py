@@ -1,12 +1,12 @@
-"""Blocked single-device f32/f64 potrf, potf2, logdet, trtri, lauum, potri
-and the Level-3 BLAS (gemm, syrk, herk, trmm, trsm).
+"""Blocked single-device potrf, potf2, logdet, trtri, lauum, potri and the
+Level-3 BLAS (gemm, syrk, herk, trmm, trsm) in all four precisions.
 
 The counterpart of ``cholesky_tpu/ops/blocked.py`` for these routines: the
 same halving recursions (``_potrf_lower``, ``_trtri_lower``,
 ``_lauum_lower``, ``_trsm_lln``/``_trsm_llt``, ``_trmm_lln_tiles``), the
 same solves by the inverse of each leaf, identity padding to a block-size
 multiple, and upper (and right-side) cases canonicalized to lower-left by
-transposition (and, for trmm, by reversal).
+conjugate transposition (and, for trmm, by reversal).
 
 Where PyTorch differs from JAX, the port works in place: each routine
 copies the caller's matrix ONCE into a row-major working buffer
@@ -19,15 +19,22 @@ recursion waits for the device.
 
 Tile backends:
   'torch'   torch matmuls (TF32 off, see config.py) and the oracle tier's
-            sweeps at the leaves: f32 and f64, any device (the CPU path).
+            sweeps at the leaves: every dtype, complex natively, any
+            device (the CPU path).
   'cuda'    the hand-written CUDA kernels (ops/kernels/): f32 on a CUDA
             device.
   'ozaki'   the d tier: f64 products as exact int8 slice products
             (ops/ozaki.py), leaves by the f32 kernels plus one refinement
             step; the kernels on a CUDA device, their twins on the CPU.
+  'embed'   complex operands through the interleaved real embedding
+            (ops/complex_embed.py) onto the real tiles at twice the size,
+            which run under 'auto'.
   'auto'    'cuda' for a float32 CUDA tensor, 'ozaki' for a float64 CUDA
-            tensor (as the JAX package on its accelerator), 'torch' for a
-            CPU tensor.
+            tensor, 'embed' for a complex CUDA tensor (as the JAX package
+            on its accelerator), 'torch' for a CPU tensor.
+An (re, im) pair of real planes always takes the embedding, as in the
+JAX package (``_route_complex``). The BLAS wrappers send a complex tensor
+that is not embedded to the oracle (blas_ref), as JAX does.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from cholesky_tpu_torch.types import (Diag, Side, Trans, Uplo, norm_diag,
                                       norm_side, norm_trans, norm_uplo)
 from cholesky_tpu_torch.utils.errors import check
 
-BACKENDS = ("auto", "ref", "torch", "cuda", "ozaki")
+BACKENDS = ("auto", "ref", "torch", "cuda", "ozaki", "embed")
 
 def _mega_ok(n: int, op: str = "potrf") -> bool:
     """Can one whole-matrix kernel take this block? As in the JAX package
@@ -90,21 +97,26 @@ def _ozaki_hoist(n: Optional[int], op: str = "potrf") -> bool:
 # ---------------------------------------------------------------------------
 # Tile backends. Every method works on views of the working buffer:
 #   mm(A, B, C=None, *, alpha, beta, out)  D = alpha·A·B + beta·C (into out)
-#   syrk_ln(alpha, A, beta, C)             lower C += ..., in place
+#   syrk_ln(alpha, A, beta, C)             lower C += alpha·A·Aᴴ + ...,
+#                                          in place
 #   potf2(A) -> info                       lower factor of A, in place
 #   trti2(L, unit) -> (W, info)            W = tril(L)⁻¹, a new tensor
-#   lauu2(L) -> B                          tril(LᵀL) below, L's strict
+#   lauu2(L) -> B                          tril(LᴴL) below, L's strict
 #                                          upper above, a new tensor
+# Only the torch tile sees complex operands (and lazy conj views, which
+# torch's matmul reads as they are); the kernel tiles see real tensors.
 # ---------------------------------------------------------------------------
 
 class _TorchTiles:
-    """Tiles over plain torch (the kernels' twins): f32 and f64, any
-    device. The analog of the JAX package's ``_XlaTiles``."""
+    """Tiles over plain torch (the kernels' twins and the oracle tier):
+    every dtype, complex natively, any device. The analog of the JAX
+    package's ``_XlaTiles``."""
     default_nb = 128
     mm = staticmethod(_gemm.gemm_plain)
     syrk_ln = staticmethod(_syrk.syrk_lower_plain)
     potf2 = staticmethod(_mega.potrf_block_plain)
-    lauu2 = staticmethod(_leaf.lauu2_plain)
+    # the oracle's: a Hermitian product has an exactly real diagonal
+    lauu2 = staticmethod(functools.partial(lapack_ref.lauu2, Uplo.LOWER))
 
     @staticmethod
     def trti2(L, unit=False):
@@ -145,15 +157,7 @@ class _KernelTiles:
         kern = _k.trtri_block_f32 if n <= _mega.MAX_N else _k.trtri_stream_f32
         return _leaf.unit_inverse(kern, L) if unit else kern(L)
 
-    @staticmethod
-    def lauu2(L):
-        n = L.shape[0]
-        if n > _mega.MAX_N:
-            raise NotImplementedError(
-                f"lauu2 of an f32 leaf of n={n} on the card: lauu2_f32 "
-                f"takes n <= {_mega.MAX_N}; use a block_size <= "
-                f"{_mega.MAX_N}")
-        return _k.lauu2_f32(L)
+    lauu2 = staticmethod(_k.lauu2_f32)
 
 
 class _OzakiTiles:
@@ -383,11 +387,34 @@ class _OzakiTiles:
         return out
 
 
-def _require_real(A):
-    if A.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"{A.dtype} is not ported yet: the c/z tier is ROADMAP Queue 1 "
-            "item 10")
+def _route_complex(A, backend: str) -> bool:
+    """Does this operand go through the real embedding
+    (ops/complex_embed.py)? As the JAX package's ``_route_complex``
+    (``blocked.py:497-518``): an (re, im) pair always; a complex tensor
+    under 'embed', and under 'auto' on a CUDA device, the port's
+    accelerator. A complex CPU tensor under 'auto' takes the torch tile
+    natively. Also rejects an unknown backend name."""
+    check(backend in BACKENDS, "blocked", 0,
+          f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    if isinstance(A, tuple):
+        return True
+    if not A.is_complex():
+        return False
+    return backend == "embed" or (backend == "auto"
+                                  and A.device.type == "cuda")
+
+
+def _embed_backend(backend: str) -> str:
+    """The real planes' backend inside the embedding: 'embed' (or 'auto')
+    runs them under 'auto'; any other explicit backend is honored."""
+    return "auto" if backend in ("auto", "embed") else backend
+
+
+def _embedding():
+    """ops/complex_embed.py, imported on first use: it imports this
+    module."""
+    from cholesky_tpu_torch.ops import complex_embed
+    return complex_embed
 
 
 def _tiles_for(A, backend: str, n: Optional[int] = None,
@@ -396,7 +423,9 @@ def _tiles_for(A, backend: str, n: Optional[int] = None,
     or raise for what the port does not run yet."""
     check(backend in BACKENDS, "blocked", 0,
           f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    _require_real(A)
+    check(backend != "embed", "blocked", 0,
+          "backend='embed' requires complex operands (tensors or (re, im) "
+          "pairs)")
     dtype = A.dtype
     on_cuda = A.device.type == "cuda"
     if backend == "ozaki" or (backend == "auto" and on_cuda
@@ -423,20 +452,20 @@ def _split(n: int, nb: int) -> int:
 
 
 def _trsm_rlt(L, B, t, nb):
-    """Solve X·Lᵀ = B in place (B := X): the potrf panel solve, by the
-    inverse of each leaf of L."""
+    """Solve X·Lᴴ = B in place (B := X): the potrf panel solve, by the
+    inverse of each leaf of L (Lᴴ is Lᵀ for a real L)."""
     if getattr(t, "hoist", False):          # the d tier's hoisted peel
         return t.trsm_rlt(L, B, nb)
     n = L.shape[0]
     if n <= nb:
         T, _ = t.trti2(L)
-        B.copy_(t.mm(B, T.T))       # the product reads all of B: no aliasing
+        B.copy_(t.mm(B, T.mH))      # the product reads all of B: no aliasing
         return
     n1 = _split(n, nb)
     _trsm_rlt(L[:n1, :n1], B[:, :n1], t, nb)
-    # B2 -= X1·Mᵀ, in place on the view B2
+    # B2 -= X1·Mᴴ, in place on the view B2
     B2 = B[:, n1:]
-    t.mm(B[:, :n1], L[n1:, :n1].T, B2, alpha=-1.0, beta=1.0, out=B2)
+    t.mm(B[:, :n1], L[n1:, :n1].mH, B2, alpha=-1.0, beta=1.0, out=B2)
     _trsm_rlt(L[n1:, n1:], B2, t, nb)
 
 
@@ -526,7 +555,7 @@ def _trtri_lower(L, t, nb, unit, allow_mega=False):
 
 
 def _lauum_lower(L, t, nb, allow_mega=False):
-    """tril(LᵀL) of the lower triangle of the view L, in place; the strict
+    """tril(LᴴL) of the lower triangle of the view L, in place; the strict
     upper of L is never read."""
     n = L.shape[0]
     if n <= nb:
@@ -540,9 +569,9 @@ def _lauum_lower(L, t, nb, allow_mega=False):
         return
     n1 = _split(n, nb)
     L1, M, L2 = L[:n1, :n1], L[n1:, :n1], L[n1:, n1:]
-    B21 = t.mm(torch.tril(L2).T, M)         # L2ᵀ·M, before L2 is squared
+    B21 = t.mm(torch.tril(L2).mH, M)        # L2ᴴ·M, before L2 is squared
     _lauum_lower(L1, t, nb, allow_mega)
-    t.syrk_ln(1.0, M.T, 1.0, L1)            # B11 += MᵀM
+    t.syrk_ln(1.0, M.mH, 1.0, L1)           # B11 += MᴴM
     _lauum_lower(L2, t, nb, allow_mega)
     M.copy_(B21)
 
@@ -552,12 +581,14 @@ def _lauum_lower(L, t, nb, allow_mega=False):
 # ---------------------------------------------------------------------------
 
 def _to_lower(A, uplo):
-    """A view whose lower triangle holds the selected triangle of A."""
-    return A.T if norm_uplo(uplo) == Uplo.UPPER else A
+    """A view whose lower triangle holds the selected triangle of A,
+    conjugated for upper (a lazy conj view for a complex A: the working
+    copy resolves it)."""
+    return A.mH if norm_uplo(uplo) == Uplo.UPPER else A
 
 
 def _from_lower(R, uplo):
-    return R.T if norm_uplo(uplo) == Uplo.UPPER else R
+    return R.mH if norm_uplo(uplo) == Uplo.UPPER else R
 
 
 def _pad_identity(A, nb):
@@ -623,7 +654,13 @@ def _potrf_work(uplo, A, backend, block_size):
 def potrf(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     """Blocked Cholesky (reference cuSpotrf, lapack/spotrf.c:261-398).
     Returns (A_factored, info); A itself is not modified. The opposite
-    strict triangle is the caller's."""
+    strict triangle is the caller's. A complex operand the embedding
+    takes (``_route_complex``) factors there: c64 on the f32 tiles, c128
+    on the d tier, a pair in and a pair out."""
+    if _route_complex(A, backend):
+        return _embedding().potrf_split(uplo, A,
+                                        backend=_embed_backend(backend),
+                                        block_size=block_size)
     uplo = norm_uplo(uplo)
     if backend == "ref":
         return lapack_ref.potrf(uplo, A)
@@ -632,8 +669,12 @@ def potrf(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
 
 
 def logdet(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
-    """SPD log-determinant: blocked potrf + log-diagonal sum. Returns
-    (value, info); the value is meaningless when info != 0."""
+    """SPD (HPD) log-determinant: blocked potrf + log-diagonal sum.
+    Returns (value, info); the value is meaningless when info != 0."""
+    if _route_complex(A, backend):
+        return _embedding().logdet_split(uplo, A,
+                                         backend=_embed_backend(backend),
+                                         block_size=block_size)
     uplo = norm_uplo(uplo)
     if backend == "ref":
         return lapack_ref.logdet(uplo, A)
@@ -647,7 +688,11 @@ def potf2(uplo, A, backend: str = "auto"):
     kernel: the whole-matrix kernel where it fits, potf2_f32 above it
     (``_KernelTiles.potf2``); anything else to the oracle sweep. Returns
     (A_factored, info); A itself is not modified, the opposite strict
-    triangle is the caller's."""
+    triangle is the caller's. A complex operand the embedding takes
+    factors there, as in the JAX package."""
+    if _route_complex(A, backend):
+        return _embedding().potrf_split(uplo, A,
+                                        backend=_embed_backend(backend))
     u = norm_uplo(uplo)
     n = lapack_ref._square(A, "potf2")
     if backend == "ref":
@@ -663,13 +708,20 @@ def potf2(uplo, A, backend: str = "auto"):
 
 def trti2(uplo, diag, A, backend: str = "auto"):
     """Unblocked triangular inverse of one block: the oracle sweep, as in
-    the JAX package for real dtypes. Returns (A_inv, info)."""
+    the JAX package; a complex operand the embedding takes is inverted
+    there. Returns (A_inv, info)."""
+    if _route_complex(A, backend):
+        return _embedding().trtri_split(uplo, diag, A,
+                                        backend=_embed_backend(backend))
     return lapack_ref.trti2(uplo, diag, A)
 
 
 def lauu2(uplo, A, backend: str = "auto"):
     """Unblocked triangular square of one block: the oracle, as in the JAX
-    package for real dtypes."""
+    package; complex routing as in :func:`trti2`."""
+    if _route_complex(A, backend):
+        return _embedding().lauum_split(uplo, A,
+                                        backend=_embed_backend(backend))
     return lapack_ref.lauu2(uplo, A)
 
 
@@ -678,7 +730,12 @@ def trtri(uplo, diag, A, backend: str = "auto",
     """Blocked triangular inverse (reference cuStrtri, strtri.c:369-472).
     Returns (A_inv, info); A itself is not modified. A zero diagonal sets
     info and is read as 1. With diag='U' the diagonal passes through
-    (every leaf puts it back, ``kernels.leaf.unit_inverse``)."""
+    (every leaf puts it back, ``kernels.leaf.unit_inverse``). Complex
+    routing as in :func:`potrf`."""
+    if _route_complex(A, backend):
+        return _embedding().trtri_split(uplo, diag, A,
+                                        backend=_embed_backend(backend),
+                                        block_size=block_size)
     uplo = norm_uplo(uplo)
     unit = norm_diag(diag) == Diag.UNIT
     n = lapack_ref._square(A, "trtri")
@@ -707,8 +764,13 @@ def trtri2(uplo, diag, A, backend: str = "auto",
 
 def lauum(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     """Blocked triangular square (reference cuSlauum, slauum.c:197-305):
-    Lᵀ·L (lower) or U·Uᵀ (upper) in the uplo triangle, the opposite strict
-    triangle the caller's. A itself is not modified."""
+    Lᴴ·L (lower) or U·Uᴴ (upper) in the uplo triangle, the opposite strict
+    triangle the caller's. A itself is not modified. Complex routing as in
+    :func:`potrf`."""
+    if _route_complex(A, backend):
+        return _embedding().lauum_split(uplo, A,
+                                        backend=_embed_backend(backend),
+                                        block_size=block_size)
     uplo = norm_uplo(uplo)
     n = lapack_ref._square(A, "lauum")
     if backend == "ref":
@@ -724,8 +786,8 @@ def lauum(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
 
 
 def potri(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
-    """SPD inverse from the Cholesky factor: trtri then lauum, the pure
-    composition of every tier of the reference (spotri.c). Returns
+    """SPD (HPD) inverse from the Cholesky factor: trtri then lauum, the
+    pure composition of every tier of the reference (spotri.c). Returns
     (A_inv, info), the inverse in the uplo triangle."""
     W, info = trtri(uplo, Diag.NON_UNIT, A, backend=backend,
                     block_size=block_size)
@@ -733,25 +795,54 @@ def potri(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
 
 
 # ---------------------------------------------------------------------------
-# BLAS (JAX blocked.py:897-1161): real dtypes; backend='ref' takes the
-# oracle (blas_ref), and so does a CPU operand with a scalar that is not a
-# Python number
+# BLAS (JAX blocked.py:897-1161): backend='ref' takes the oracle (blas_ref),
+# and so do a complex tensor the embedding does not take and a CPU operand
+# with a scalar that is not a Python number
 # ---------------------------------------------------------------------------
 
 def _static_scalar(x) -> bool:
     return isinstance(x, (int, float)) and not isinstance(x, bool)
 
 
+def _static_scalar_cx(x) -> bool:
+    """A Python number for the embedding tier: complex allowed (the
+    reference's c/z BLAS takes complex alpha and beta)."""
+    return isinstance(x, (int, float, complex)) and not isinstance(x, bool)
+
+
+def _embed_scalars_ok(A, scalars, real: bool = False) -> bool:
+    """May the embedding tier read these scalars? Python numbers (complex
+    unless ``real``), or anything on the card, where a 0-d tensor is read
+    with complex() or float() as the real wrappers read it; JAX sends a
+    traced scalar away from the embedding."""
+    static = _static_scalar if real else _static_scalar_cx
+    plane = A[0] if isinstance(A, tuple) else A
+    return all(map(static, scalars)) or plane.device.type == "cuda"
+
+
+def _check_no_stray_pairs(name, *operands):
+    """A pair operand the embedding did not take (a scalar it may not
+    read) fails with an xerbla-style error, as in the JAX package."""
+    for X in operands:
+        check(not isinstance(X, tuple), name, 0,
+              "(re, im) pair operands need Python-number alpha/beta off "
+              "the card")
+
+
 def _fast_tiles_or_none(A, backend: str, n: Optional[int] = None,
                         op: str = "potrf", scalars=()):
     """The tile backend of a BLAS wrapper (``_tiles_for``), or None for the
-    oracle: under backend='ref', and for a CPU operand given a scalar that
-    is not a Python number (JAX sends a traced one there). On the card such
-    a scalar (a 0-d tensor) is read with float() and the kernel runs. A
-    complex operand raises."""
-    _require_real(A)
-    if backend == "ref" or (A.device.type != "cuda"
-                            and not all(map(_static_scalar, scalars))):
+    oracle: under backend='ref', for a complex tensor (the embedding was
+    not chosen: JAX sends it to its oracle too), and for a CPU operand
+    given a scalar that is not a Python number (JAX sends a traced one
+    there). On the card such a scalar (a 0-d tensor) is read with float()
+    and the kernel runs."""
+    check(backend in BACKENDS and backend != "embed", "blocked", 0,
+          f"backend {backend!r} takes no real operand here; expected one of "
+          f"{BACKENDS} ('embed' requires complex operands: tensors or "
+          "(re, im) pairs)")
+    if backend == "ref" or A.is_complex() or (
+            A.device.type != "cuda" and not all(map(_static_scalar, scalars))):
         return None
     return _tiles_for(A, backend, n, op)
 
@@ -765,7 +856,12 @@ def _flip_trans(transa):
 def gemm(transa, transb, alpha, A, B, beta, C, backend: str = "auto"):
     """C := alpha·op(A)·op(B) + beta·C (reference cuSgemm). Returns a new
     tensor; C is read only when beta != 0. On the card f32 runs
-    ``gemm_f32`` and f64 the Ozaki products."""
+    ``gemm_f32`` and f64 the Ozaki products; complex as in :func:`potrf`
+    (one embedded real product at twice each dimension)."""
+    if _route_complex(A, backend) and _embed_scalars_ok(A, (alpha, beta)):
+        return _embedding().gemm_split(transa, transb, alpha, A, B, beta, C,
+                                       backend=_embed_backend(backend))
+    _check_no_stray_pairs("gemm", A, B, C)
     transa, transb = norm_trans(transa), norm_trans(transb)
     t = _fast_tiles_or_none(A, backend, scalars=(alpha, beta))
     if t is None:
@@ -786,7 +882,11 @@ def syrk(uplo, trans, alpha, A, beta, C, backend: str = "auto"):
     """C := alpha·op(A)·op(A)ᵀ + beta·C in the uplo triangle, C's other
     strict triangle kept (reference cuSsyrk). Returns a new tensor. On the
     card f32 runs ``syrk_lower_f32`` (upper through the transposed view of
-    the result), f64 the Ozaki ``syrk_ln`` on the whole square."""
+    the result), f64 the Ozaki ``syrk_ln`` on the whole square. There is
+    no complex pair syrk: the complex rank-k update is :func:`herk`."""
+    check(not isinstance(A, tuple) and not isinstance(C, tuple), "syrk", 4,
+          "the complex rank-k update is herk; the reference has no "
+          "csyrk/zsyrk (include/blas.h:57-66)")
     uplo, trans = norm_uplo(uplo), norm_trans(trans)
     t = _fast_tiles_or_none(A, backend, C.shape[0], "syrk",
                             scalars=(alpha, beta))
@@ -808,9 +908,14 @@ def syrk(uplo, trans, alpha, A, beta, C, backend: str = "auto"):
 
 def herk(uplo, trans, alpha, A, beta, C, backend: str = "auto"):
     """C := alpha·op(A)·op(A)ᴴ + beta·C, alpha and beta real (reference
-    cuCherk). For real operands: f32 is :func:`syrk`, f64 the oracle, as in
-    the JAX package (``blocked.py:994-1004``)."""
-    _require_real(A)
+    cuCherk). Complex as in :func:`potrf` (one embedded real product,
+    ``herk_split``); otherwise f32 is :func:`syrk` and the rest the
+    oracle, as in the JAX package (``blocked.py:994-1004``)."""
+    if _route_complex(A, backend) and _embed_scalars_ok(A, (alpha, beta),
+                                                        real=True):
+        return _embedding().herk_split(uplo, trans, alpha, A, beta, C,
+                                       backend=_embed_backend(backend))
+    _check_no_stray_pairs("herk", A, C)
     if A.dtype == torch.float32:
         tr = Trans.NO_TRANS if norm_trans(trans) == Trans.NO_TRANS \
             else Trans.TRANS
@@ -823,7 +928,13 @@ def trmm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto"):
     only its uplo triangle referenced (reference cuStrmm). Returns a new
     tensor. All 16 side/uplo/trans/diag combinations reduce to one
     lower-left product: on the card f32 is ONE ``trmm_lln_f32`` launch
-    (``_trmm_left_f32``), f64 the Ozaki live-block recursion."""
+    (``_trmm_left_f32``), f64 the Ozaki live-block recursion. Complex as
+    in :func:`potrf`: embedded real products over live blocks
+    (``trmm_split``), never ``trmm_lln_f32``, as in the JAX package."""
+    if _route_complex(A, backend) and _embed_scalars_ok(A, (alpha,)):
+        return _embedding().trmm_split(side, uplo, transa, diag, alpha, A, B,
+                                       backend=_embed_backend(backend))
+    _check_no_stray_pairs("trmm", A, B)
     side, uplo = norm_side(side), norm_uplo(uplo)
     transa, diag = norm_trans(transa), norm_diag(diag)
     t = _fast_tiles_or_none(A, backend, op="trmm", scalars=(alpha,))
@@ -908,13 +1019,22 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
          block_size: Optional[int] = None):
     """Blocked triangular solve by the inverse of each leaf (reference
     cuStrsm): B := alpha·op(A)⁻¹·B (left) or alpha·B·op(A)⁻¹ (right).
-    Real dtypes; alpha a Python number. Returns a new tensor; A and B are
-    not modified."""
+    Real dtypes take a Python-number alpha; a complex operand the
+    embedding takes is solved there (``trsm_split``, complex alpha
+    allowed), any other complex tensor by the oracle, as in the JAX
+    package. Returns a new tensor; A and B are not modified."""
+    if _route_complex(A, backend):
+        check(_embed_scalars_ok(A, (alpha,)), "trsm", 5,
+              "complex trsm through the embedding needs a Python-number "
+              "alpha off the card")
+        return _embedding().trsm_split(side, uplo, transa, diag, alpha, A, B,
+                                       backend=_embed_backend(backend),
+                                       block_size=block_size)
     side = norm_side(side)
     uplo = norm_uplo(uplo)
     transa = norm_trans(transa)
     diag = norm_diag(diag)
-    if backend == "ref":
+    if backend == "ref" or A.is_complex():
         return blas_ref.trsm(side, uplo, transa, diag, alpha, A, B)
     check(_static_scalar(alpha), "trsm", 5,
           f"alpha must be a Python number, got {type(alpha)}")

@@ -8,9 +8,11 @@ Backends: 'ref' (the oracle tier, ops/lapack_ref.py and ops/blas_ref.py),
 'torch' (the blocked recursions over torch matmuls, the JAX package's
 'xla'), 'cuda' (the blocked recursions over the hand-written f32 CUDA
 kernels, its 'pallas'), 'ozaki' (the f64 d tier: exact int8 slice products
-through two more kernels, as the JAX package's 'ozaki') and 'auto'
-('cuda' for a float32 CUDA tensor, 'ozaki' for a float64 CUDA tensor,
-'torch' on the CPU).
+through two more kernels, as the JAX package's 'ozaki'), 'embed' (complex
+operands through the interleaved real embedding, ops/complex_embed.py)
+and 'auto' ('cuda' for a float32 CUDA tensor, 'ozaki' for a float64 CUDA
+tensor, 'embed' for a complex CUDA tensor, 'torch' on the CPU; an
+(re, im) pair always takes the embedding).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of the f32 potrf, trsm, trtri, lauum,
-potri, potf2 and trmm paths and of the d tier's Ozaki products, each beside
-its plain torch twin. Nothing is compiled at import: the first launch
-builds ``csrc/`` (see ``_build.py``)."""
+potri, potf2 and trmm paths, of the d tier's Ozaki products and of the
+device fills, each beside its plain torch twin. The complex tier runs on
+the same kernels through the real embedding. Nothing is compiled at
+import: the first launch builds ``csrc/`` (see ``_build.py``)."""
 
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32
 from cholesky_tpu_torch.ops.kernels.leaf import lauu2_f32, potf2_f32, trti2_f32
@@ -12,6 +13,8 @@ from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
                                                  trtri_stream_f32)
 from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
                                                   peel_f32pair)
+from cholesky_tpu_torch.ops.kernels.prng import (uniform_fill_f32,
+                                                 uniform_fill_f64)
 from cholesky_tpu_torch.ops.kernels.syrk import syrk_lower_f32
 from cholesky_tpu_torch.ops.kernels.trmm import trmm_lln_f32
 
@@ -30,6 +33,8 @@ KERNELS = {
     "trmm_lln_f32": trmm_lln_f32,
     "peel_f32pair": peel_f32pair,
     "mm_groups_f32pair": mm_groups_f32pair,
+    "uniform_fill_f32": uniform_fill_f32,
+    "uniform_fill_f64": uniform_fill_f64,
 }
 
 

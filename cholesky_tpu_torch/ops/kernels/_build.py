@@ -139,6 +139,8 @@ def library() -> ctypes.CDLL:
                                 I, I, P],
             "ct_mm_groups_f32pair": [P, LL, LL, P, LL, LL, P, P, LL, I, I, I,
                                      I, I, P],
+            "ct_uniform_fill_f32": [P, LL, LL, I, P, I, P],
+            "ct_uniform_fill_f64": [P, LL, LL, I, P, I, P],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -6,7 +6,8 @@
 // cholesky_tpu/ops/pallas/leaf.py:lauu2_f32 (_lauu2_kernel, one leaf, whose
 // strict upper passes the input through). On the GP model's train step the
 // first is potri's lauum at n = 4096 and 8192; the second is each leaf of
-// the lauum recursion when a block size is given.
+// the lauum recursion when a block size is given, of any n (a complex
+// lauum runs at twice its dimension through the real embedding).
 //
 // What bounds it on the H100: n^3/6 FFMA (92 G at n = 8192) in plain f32,
 // as gemm.cu. The TPU kernel walked 128-row panels top-down, in place, with
@@ -32,7 +33,6 @@ constexpr int BT = 64;
 constexpr int BK = 16;
 constexpr int NT = (BT / ct::TM) * (BT / ct::TN);   // 256 threads
 constexpr int STREAM_MAX_N = 8192;
-constexpr int LEAF_MAX_N = 1024;
 
 // S[k][r] = L[k0 + k][r0 + r], zero outside the lower triangle and outside
 // n. Row-major L: consecutive threads walk r, the unit-stride axis.
@@ -98,10 +98,11 @@ int launch(const float* L, long long ldl, float* B, long long ldb, int n,
            int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nt = (n + BT - 1) / BT;
+  const long long nt = (n + BT - 1) / BT;
+  if (nt * nt > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   lauum_f32_kernel<PASS_UPPER>
-      <<<nt * nt, NT, 0, static_cast<cudaStream_t>(stream)>>>(L, ldl, B, ldb,
-                                                             n);
+      <<<static_cast<unsigned>(nt * nt), NT, 0,
+         static_cast<cudaStream_t>(stream)>>>(L, ldl, B, ldb, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -117,7 +118,7 @@ CT_EXPORT int ct_lauum_stream_f32(const float* L, long long ldl, float* B,
 
 CT_EXPORT int ct_lauu2_f32(const float* L, long long ldl, float* B,
                            long long ldb, int n, int device, void* stream) {
-  if (n < 1 || n > LEAF_MAX_N || ldl < n || ldb < n)
+  if (n < 1 || ldl < n || ldb < n)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch<true>(L, ldl, B, ldb, n, device, stream);
 }

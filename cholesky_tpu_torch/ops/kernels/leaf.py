@@ -18,14 +18,18 @@ from __future__ import annotations
 import torch
 
 from cholesky_tpu_torch.ops.kernels import _build
-from cholesky_tpu_torch.ops.kernels.mega import (MAX_N, NB, _check_block,
+from cholesky_tpu_torch.ops.kernels.mega import (NB, _check_block,
                                                  potrf_stream_plain,
                                                  trtri_stream_plain)
 from cholesky_tpu_torch.utils.errors import check
 
 
+#: the leaf kernels take any n a 32-bit index reaches
+LEAF_MAX_N = 2 ** 31 - 1
+
+
 def _check_leaf(A, name):
-    n = _check_block(A, name, max_n=2 ** 31 - 1)
+    n = _check_block(A, name, max_n=LEAF_MAX_N)
     check(n <= NB or n % NB == 0, name, 1,
           f"n={n} must be <= {NB} or a multiple of {NB}")
     return n
@@ -110,10 +114,10 @@ def lauu2_plain(A):
 
 
 def lauu2_f32(A):
-    """Lower triangle of tril(A)ᵀ·tril(A) for the f32 block A (n <= MAX_N,
+    """Lower triangle of tril(A)ᵀ·tril(A) for the f32 block A (any n,
     unit-stride rows), strict upper passed through from A. Returns a new
     contiguous tensor; A is not modified."""
-    n = _check_block(A, "lauu2_f32", MAX_N)
+    n = _check_block(A, "lauu2_f32", LEAF_MAX_N)
     if A.device.type == "cpu":
         return lauu2_plain(A)
     B = torch.empty((n, n), dtype=A.dtype, device=A.device)

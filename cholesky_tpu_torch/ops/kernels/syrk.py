@@ -16,9 +16,10 @@ from cholesky_tpu_torch.utils.errors import check
 
 
 def syrk_lower_plain(alpha, A, beta, C):
-    """The plain torch version, any real dtype and device: updates the
-    lower triangle of C in place and returns C."""
-    full = alpha * (A @ A.T)
+    """The plain torch version, any dtype and device: updates the lower
+    triangle of C in place and returns C. A·Aᴴ for a complex A (the torch
+    tile's Hermitian update); Aᴴ is Aᵀ for the kernel's real operands."""
+    full = alpha * (A @ A.mH)
     if beta != 0.0:
         full = full + beta * C
     n = C.shape[0]

@@ -1,4 +1,4 @@
-"""Reference (oracle) LAPACK tier in plain torch, f32 and f64.
+"""Reference (oracle) LAPACK tier in plain torch, all four precisions.
 
 The counterpart of ``cholesky_tpu/ops/lapack_ref.py``, kept branch-free in
 the same way: every routine returns ``info`` as a 0-d int32 tensor on the
@@ -37,25 +37,27 @@ def _info0(A):
 
 def potf2(uplo, A):
     """Unblocked Cholesky of the uplo triangle. Returns (A_factored, info);
-    ``A`` itself is not modified. Lower: A = L·Lᵀ with L in the lower
-    triangle; upper: A = Uᵀ·U. The opposite strict triangle is returned
-    unchanged."""
+    ``A`` itself is not modified. Lower: A = L·Lᴴ with L in the lower
+    triangle; upper: A = Uᴴ·U. The opposite strict triangle is returned
+    unchanged. A complex factor has a real diagonal."""
     uplo = norm_uplo(uplo)
     n = _square(A, "potf2")
     A = A.clone()
     info = _info0(A)
     # work on the lower form: for upper, Aᵀ is a view whose lower triangle
-    # holds the selected data, and writes land in A's upper triangle
+    # holds the selected data, and writes land in A's upper triangle (Aᵀ
+    # is Hermitian too, and its lower factor is Uᵀ)
     W = A if uplo == Uplo.LOWER else A.T
     for j in range(n):
         frozen = info > 0                       # latched BEFORE this pivot
         rowm = W[j, :j]
-        ajj = W[j, j] - torch.dot(rowm, rowm)
+        # the pivot is real: Re a_jj − Σ |l_jk|²
+        ajj = W[j, j].real - torch.vdot(rowm, rowm).real
         bad = ~(ajj > 0)                        # NaN-safe
         info = torch.where(bad & (info == 0), j + 1, info)
         d = torch.sqrt(torch.where(bad, torch.ones_like(ajj), ajj))
         col = W[j + 1:, j]
-        newcol = (col - W[j + 1:, :j] @ rowm) / d
+        newcol = (col - W[j + 1:, :j] @ rowm.conj()) / d
         W[j + 1:, j] = torch.where(frozen, col, newcol)
         W[j, j] = torch.where(frozen, W[j, j], d)
     return A, info
@@ -66,9 +68,9 @@ def potf2(uplo, A):
 # ---------------------------------------------------------------------------
 
 def potrf(uplo, A, block_size: int = 64):
-    """Blocked Cholesky: syrk → potf2 → gemm → trsm per block column, the
-    left-looking schedule of the reference CPU tier. ``A`` is not
-    modified."""
+    """Blocked Cholesky: syrk (herk) → potf2 → gemm → trsm per block
+    column, the left-looking schedule of the reference CPU tier. ``A`` is
+    not modified."""
     uplo = norm_uplo(uplo)
     n = _square(A, "potrf")
     nb = block_size
@@ -81,14 +83,16 @@ def potrf(uplo, A, block_size: int = 64):
         jb = min(nb, n - j)
         Ajj = W[j:j + jb, j:j + jb]
         Ajl = W[j:j + jb, :j]
-        upd = Ajj - Ajl @ Ajl.T
+        # the lower form of an upper complex matrix is Aᵀ = conj(A), whose
+        # lower factor L satisfies L·Lᴴ = Aᵀ: every product is with Lᴴ
+        upd = Ajj - Ajl @ Ajl.mH
         Ajj_in = torch.tril(upd) + torch.triu(Ajj, 1)
         F, linfo = potf2(Uplo.LOWER, Ajj_in)
         W[j:j + jb, j:j + jb] = F
         if j + jb < n:
-            Apj = W[j + jb:, j:j + jb] - W[j + jb:, :j] @ Ajl.T
+            Apj = W[j + jb:, j:j + jb] - W[j + jb:, :j] @ Ajl.mH
             W[j + jb:, j:j + jb] = torch.linalg.solve_triangular(
-                torch.tril(F).T, Apj, upper=True, left=False)
+                torch.tril(F).mH, Apj, upper=True, left=False)
         # first failure, offset by the block (reference spotrf.c:112-115)
         info = torch.where((info == 0) & (linfo > 0), linfo + j, info)
     return A, info
@@ -154,17 +158,20 @@ def trtri2(uplo, diag, A):
 # ---------------------------------------------------------------------------
 
 def lauu2(uplo, A):
-    """U·Uᵀ (upper) or Lᵀ·L (lower) of the uplo triangle, stored in that
+    """U·Uᴴ (upper) or Lᴴ·L (lower) of the uplo triangle, stored in that
     triangle; the opposite strict triangle is returned unchanged (LAPACK
-    xlauu2 semantics). ``A`` itself is not modified."""
+    xlauu2 semantics). A complex result's diagonal is exactly real. ``A``
+    itself is not modified."""
     uplo = norm_uplo(uplo)
     _square(A, "lauu2")
     if uplo == Uplo.UPPER:
         U = torch.triu(A)
-        prod = U @ U.T
+        prod = U @ U.mH
     else:
         L = torch.tril(A)
-        prod = L.T @ L
+        prod = L.mH @ L
+    if prod.is_complex():
+        prod.diagonal().imag.zero_()
     return blas_ref._set_triangle(A, prod, uplo)
 
 
@@ -198,7 +205,7 @@ def logdet_from_factor(x):
 
 
 def logdet(uplo, A, block_size: int = 64):
-    """SPD log-determinant: potrf + log-diagonal reduction.
+    """SPD (HPD) log-determinant: potrf + log-diagonal reduction.
     Returns (value, info)."""
     F, info = potrf(uplo, A, block_size=block_size)
     return logdet_from_factor(F), info

@@ -233,11 +233,28 @@ def test_no_typed_herk_or_gemm2():
 
 @pytest.mark.parametrize("name", ["gemm", "syrk", "herk", "trmm", "potf2"])
 def test_complex_is_not_ported_yet(name):
-    X = torch.eye(4, dtype=torch.complex64)
+    # the c/z tier is ported now: a complex CPU tensor runs under 'auto'
+    # (the oracle for the BLAS, the native torch tile for potf2, as JAX
+    # off its accelerator) and under 'embed' (the real embedding), both
+    # as backend='ref' computes it (tests/test_torch_complex.py holds the
+    # c/z tier against the JAX package)
+    X = torch.eye(4, dtype=torch.complex64) * (2.0 + 0.5j)
+    X[2, 1] = 0.25 - 0.125j
+    if name == "potf2":
+        X = X @ X.mH
     args = {"herk": ("L", "N", 1.0, X, 0.0, X), **{
         k: f(X) for k, f in TYPED.items()}}[name]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        getattr(ct, name)(*args)
+    ref = getattr(ct, name)(*args, backend="ref")
+    backends = ["auto"] if name == "syrk" else ["auto", "embed"]
+    for backend in backends:
+        got = getattr(ct, name)(*args, backend=backend)
+        if name == "potf2":
+            (got, info), ref_f = got, ref[0]
+            assert int(info) == 0
+        else:
+            ref_f = ref
+        assert got.dtype == torch.complex64
+        torch.testing.assert_close(got, ref_f, rtol=0, atol=1e-6)
 
 
 def test_a_tensor_alpha_takes_the_oracle():

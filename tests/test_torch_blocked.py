@@ -131,8 +131,8 @@ def test_backend_errors():
         ct.potrf("L", A, backend="pallas")        # not a port backend
     with pytest.raises(ValueError):
         ct.potrf("X", A)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ct.potrf("L", A.to(torch.complex64))
+    with pytest.raises(ValueError):
+        ct.potrf("L", A, backend="embed")         # a real tensor
 
 
 def test_empty_matrix():

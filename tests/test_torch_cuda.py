@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, each against its plain torch twin,
-and the f32 potrf, BLAS and d paths through them. Every test is marked ``cuda`` and
-skips where torch sees no CUDA device.
+and the f32 potrf, BLAS, d and c/z paths through them. Every test is
+marked ``cuda`` and skips where torch sees no CUDA device.
 
 A machine with a card need not have JAX installed, so this file imports
 neither JAX nor tests/util.py, and the repo's tests/conftest.py (which
@@ -21,7 +21,10 @@ from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import blocked, kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import gemm, leaf, mega, syrk, trmm
 from cholesky_tpu_torch.ops.kernels import ozaki as ozk
-from cholesky_tpu_torch.rng import latmc
+from cholesky_tpu_torch.ops.kernels import prng
+from cholesky_tpu_torch.rng import (latmc, latmc_pair, uniform_device,
+                                    uniform_device64)
+from cholesky_tpu_torch.rng import device as rdev
 
 # the blocked recursion's kernels, which potrf runs with a block size
 POTRF_PATH = ("gemm_f32", "syrk_lower_f32", "potrf_block_f32",
@@ -34,8 +37,10 @@ EPS32 = float(np.finfo(np.float32).eps)
 
 
 def assert_close(got, ref, fpe, what):
-    got = got.double().cpu()
-    ref = ref.double().cpu()
+    wide = torch.complex128 if got.is_complex() or ref.is_complex() \
+        else torch.float64
+    got = got.to(wide).cpu()
+    ref = ref.to(wide).cpu()
     bound = fpe * 2.0 * EPS32 * max(1.0, float(ref.abs().max()))
     diff = float((got - ref).abs().max())
     assert diff <= bound, f"{what}: max abs diff {diff:.3e} > {bound:.3e}"
@@ -226,7 +231,7 @@ def test_lauum_stream_vs_twin(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [100, 512])
+@pytest.mark.parametrize("n", [100, 512, 2048])
 def test_lauu2_vs_twin(cuda, n):
     W = rand((n, n + 40), 6).to(cuda)
     A = W[:, 20:20 + n]                  # a leaf of a wider buffer
@@ -630,3 +635,115 @@ def test_leaf_routes_on_the_card(cuda):
     eye = torch.eye(n, dtype=torch.float64, device=cuda)
     ref = torch.linalg.solve_triangular(L.double(), eye, upper=False)
     assert_close(torch.tril(W), ref, 60 * n, "strtri block_size=n")
+
+
+@pytest.mark.cuda
+def test_lauum_block_2048_on_the_card(cuda):
+    # leaves above 1024 go to lauu2_f32 (it used to raise there)
+    n = 4096
+    A = latmc(torch.Generator(device=cuda).manual_seed(1), n, 30.0)
+    L = torch.tril(torch.linalg.cholesky(A))
+    kernels.reset_launch_counts()
+    R = ct.lauum("L", L, block_size=2048)
+    assert kernels.launch_counts()["lauu2_f32"] == 2
+    assert_close(torch.tril(R), mega.lauum_stream_plain(L), 2 * n + 3,
+                 "lauum block_size=2048")
+
+
+# ---------------------------------------------------------------------------
+# the device fills and the c/z tier
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(1, 1), (100, 57), (257, 3),
+                                       (1000, 4096)])
+def test_fills_vs_twins(cuda, rows, cols):
+    seeds = rdev._mix_seeds(9, -(-rows // prng.rows_per_block(rows)))
+    kernels.reset_launch_counts()
+    for fill, plain in ((prng.uniform_fill_f32, prng.uniform_fill_f32_plain),
+                        (prng.uniform_fill_f64, prng.uniform_fill_f64_plain)):
+        got = fill(seeds.to(cuda), rows, cols)
+        assert torch.equal(got, plain(seeds.to(cuda), rows, cols))
+        assert torch.equal(got.cpu(), plain(seeds, rows, cols))
+    counts = kernels.launch_counts()
+    assert counts["uniform_fill_f32"] == counts["uniform_fill_f64"] == 1
+
+
+@pytest.mark.cuda
+def test_uniform_device_defaults_to_the_card(cuda):
+    u = uniform_device(3, (300, 70), "(0,1)")
+    v = uniform_device64(3, (300, 70), "[0,1]")
+    assert u.device.type == v.device.type == "cuda"
+    assert torch.equal(u.cpu(), uniform_device(3, (300, 70), "(0,1)",
+                                               device="cpu"))
+    assert torch.equal(v.cpu(), uniform_device64(3, (300, 70), "[0,1]",
+                                                 device="cpu"))
+
+
+def crand(n, m, dtype, seed):
+    g = np.random.default_rng(seed)
+    return torch.from_numpy(g.standard_normal((n, m))
+                            + 1j * g.standard_normal((n, m))).to(dtype)
+
+
+@pytest.mark.cuda
+def test_complex_auto_embeds_on_the_card(cuda):
+    # a c64 CUDA tensor goes through the embedding onto the f32 kernels
+    # (cpotrf at 1024 is one potrf_stream_f32 launch at 2048), never the
+    # torch tile
+    n = 1024
+    re, im = latmc_pair(torch.Generator().manual_seed(2), n, 30.0,
+                        torch.float64)
+    A = torch.complex(re, im)
+    kernels.reset_launch_counts()
+    F, info = ct.cpotrf("L", A.to(torch.complex64).to(cuda))
+    counts = kernels.launch_counts()
+    assert int(info) == 0 and counts["potrf_stream_f32"] == 1, counts
+    assert sum(counts.values()) == 1, counts
+    L = torch.tril(F).cpu().to(torch.complex128)
+    err = float((L @ L.mH - A).abs().max())
+    assert err <= 2 * n * 2 * EPS32 * float(A.abs().max()), err
+    # a c128 pair goes to the d tier: the Ozaki kernels and the f32 leaves
+    kernels.reset_launch_counts()
+    (fr, fi), info = ct.zpotrf("L", (re.to(cuda), im.to(cuda)))
+    counts = kernels.launch_counts()
+    assert int(info) == 0 and all(counts[k] > 0 for k in D_PATH), counts
+    assert counts["gemm_f32"] == counts["potrf_stream_f32"] == 0, counts
+    L = torch.tril(torch.complex(fr, fi)).cpu()
+    err = float((L @ L.mH - A).abs().max())
+    assert err <= 2 * n * 2.0 ** -40 * float(A.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_complex_blas_on_the_card(cuda):
+    n = 300
+    A, B, C = (crand(n, n, torch.complex64, s) for s in (1, 2, 3))
+    Ad, Bd, Cd = (X.to(torch.complex128) for X in (A, B, C))
+    kernels.reset_launch_counts()
+    G = ct.cgemm("N", "C", 0.5 + 1j, A.to(cuda), B.to(cuda), -1.0,
+                 C.to(cuda))
+    H = ct.cherk("L", "N", 2.0, A.to(cuda), 0.5, C.to(cuda))
+    T = ct.ctrmm("L", "U", "C", "N", 1j, A.to(cuda), B.to(cuda))
+    counts = kernels.launch_counts()
+    assert counts["gemm_f32"] >= 3 and counts["trmm_lln_f32"] == 0, counts
+    assert_close(G.cpu(), (0.5 + 1j) * Ad @ Bd.mH - Cd, 2 * 2 * n + 3,
+                 "cgemm")
+    want = torch.tril(2.0 * Ad @ Ad.mH + 0.5 * Cd) + torch.triu(Cd, 1)
+    want.diagonal().imag.zero_()
+    assert_close(H.cpu(), want, 2 * 2 * n + 3, "cherk")
+    assert bool((H.diagonal().imag == 0).all())
+    assert_close(T.cpu(), 1j * torch.triu(Ad).mH @ Bd, 2 * 2 * n + 3,
+                 "ctrmm")
+    # trsm with fill-made pair right-hand sides, c and z
+    L = torch.tril(A) + 20.0 * torch.eye(n)
+    for fill, dtype in ((uniform_device, torch.float32),
+                        (uniform_device64, torch.float64)):
+        Bp = (fill(5, (n, 64)), fill(6, (n, 64)))
+        Lp = (L.real.to(dtype).to(cuda), L.imag.to(dtype).to(cuda))
+        X = ct.trsm("L", "L", "C", "N", 1.0, Lp, Bp)
+        Xc = torch.complex(*X).cpu().to(torch.complex128)
+        Bc = torch.complex(*Bp).cpu().to(torch.complex128)
+        Lc = L.to(torch.complex128)
+        res = float((Lc.mH @ Xc - Bc).abs().max())
+        assert res <= 150 * n * (EPS32 if dtype == torch.float32
+                                 else 2.0 ** -40), res

@@ -29,6 +29,9 @@ def test_import_loads_neither_jax_nor_triton():
         "import cholesky_tpu_torch.models\n"
         "import cholesky_tpu_torch.ops.kernels._build\n"
         "import cholesky_tpu_torch.ops.ozaki, cholesky_tpu_torch.ops.typed\n"
+        "import cholesky_tpu_torch.ops.complex_embed\n"
+        "import cholesky_tpu_torch.ops.kernels.prng\n"
+        "import cholesky_tpu_torch.rng.device\n"
         "import cholesky_tpu_torch.utils.benchlib\n"
         "bad = [m for m in ('jax', 'triton', 'cholesky_tpu')\n"
         "       if m in sys.modules]\n"
@@ -55,12 +58,20 @@ def test_public_api():
     routines = ["potrf", "potf2", "logdet", "trtri", "trtri2", "trti2",
                 "lauum", "lauu2", "potri", "gemm", "syrk", "trmm", "trmm2",
                 "trsm"]
-    typed = [letter + r for letter in "sd" for r in routines]
+    # s/d/c/z, as in the JAX package: no csyrk/zsyrk, cherk/zherk instead
+    typed = [letter + r for letter in "sdcz" for r in routines
+             if not (letter in "cz" and r == "syrk")] + ["cherk", "zherk"]
     assert sorted(ct.__all__) == sorted(
         routines + typed + ["herk", "logdet_from_factor", "Side", "Uplo",
                             "Trans", "Diag", "set_error_handler",
                             "set_xerbla"])
     assert all(callable(getattr(ct, name)) for name in typed)
+
+
+def test_typed_names_equal_the_jax_packages():
+    import cholesky_tpu.ops.typed as jtyped
+    from cholesky_tpu_torch.ops import typed
+    assert set(typed.__all__) == set(jtyped.__all__)
 
 
 def test_tf32_is_off():

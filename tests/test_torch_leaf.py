@@ -207,3 +207,23 @@ def test_potrf_recursion_routes_as_jax_under_a_small_cap(monkeypatch):
     assert seen == seen_j == [512]          # one whole-block call in each
     assert_close(np.tril(W.numpy()), np.tril(np.asarray(F)), F32, 8 * 512,
                  "potrf under a small cap")
+
+
+def test_lauum_leaves_above_1024_reach_lauu2(monkeypatch):
+    # lauu2_f32 takes any n, as the Pallas leaf does: lauum with a block
+    # size above 1024 hands its leaves to it (here its twin); it used to
+    # raise NotImplementedError on the card
+    seen = []
+    real = tblocked._KernelTiles.lauu2
+    monkeypatch.setattr(tblocked._KernelTiles, "lauu2", staticmethod(
+        lambda L: seen.append(L.shape[0]) or real(L)))
+    n, nb = 2176, 1088
+    L = np.tril(tri_np(n, seed=4))
+    W = torch.from_numpy(L.copy())
+    kernels.reset_launch_counts()
+    tblocked._lauum_lower(W, tblocked._KernelTiles(), nb, False)
+    assert seen == [nb, nb]
+    L64 = L.astype(np.float64)
+    assert_close(np.tril(W.numpy()), np.tril(L64.T @ L64), F32, 2 * n + 3,
+                 "lauum on 1088 leaves")
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)

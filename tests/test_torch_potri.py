@@ -180,7 +180,7 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         kernels.lauum_stream_f32(torch.rand(256, 256).T)  # column-major
     with pytest.raises(ValueError):
-        kernels.lauu2_f32(torch.eye(1025))              # over 1024
+        kernels.lauu2_f32(torch.eye(256).double())      # f64
 
 
 # ---------------------------------------------------------------------------
@@ -328,8 +328,8 @@ def test_kernel_tiles_route_by_size():
     # the unit-diagonal trick keeps L's own diagonal
     W, info = t.trti2(torch.eye(256) * 3.0, unit=True)
     assert int(info) == 0 and torch.equal(W, torch.eye(256) * 3.0)
-    with pytest.raises(NotImplementedError):
-        t.lauu2(torch.eye(1100))
+    # the leaf kernel lauu2_f32 takes any n (here its twin)
+    assert torch.equal(t.lauu2(torch.eye(1100) * 2.0), torch.eye(1100) * 4.0)
     # no whole-matrix kernel takes 1100, and the leaf kernel trti2_f32
     # takes n <= 128 or a multiple of 128 only, as the Pallas leaf asserts
     with pytest.raises(ValueError, match="multiple of 128"):
