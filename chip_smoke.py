@@ -42,8 +42,21 @@ show that the path went through each of its kernels:
   at 2048 (``gemm_f32`` only), each held in c128 on the card and timed
   beside a c64/c128 ``torch.linalg`` or ``matmul`` call.
 
+Phase 3 also runs the A/B of ``potrf_block_f32``'s two launches (one
+thread block, or one cooperative launch over many) that sets its
+crossover, and phase 6 counts every ``mm_groups_f32pair`` launch of the
+profiled ``dpotrf`` by shape, with its device time.
+
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
+
+    python3 chip_smoke.py --compare
+
+builds the kernels and prints only the numbers the two redesigned kernels
+are judged by (no checks, no result line), through whichever
+``cholesky_tpu_torch`` is first on the path: run from another checkout's
+root as ``python3 - --compare < chip_smoke.py``, it times that tree on the
+same card.
 
 The last two lines of standard output are one JSON object per kernel
 ({"kernels": [...]}, each with the path its launch count comes from, its
@@ -65,7 +78,7 @@ import torch
 import cholesky_tpu_torch as ct
 from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import kernels, ozaki
-from cholesky_tpu_torch.ops.kernels import _build
+from cholesky_tpu_torch.ops.kernels import _build, mega
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32, gemm_plain
 from cholesky_tpu_torch.ops.kernels.leaf import (lauu2_f32, lauu2_plain,
                                                  potf2_f32, potf2_plain,
@@ -305,56 +318,93 @@ def check_syrk(gen, rec, on):
 
 
 def check_potrf_block(gen, rec, on):
-    for n in (128, 512, 1024):
+    """Both launches (one thread block, and one cooperative launch over
+    many) against the twin on views of a wider buffer whose strict upper
+    holds NaN, ragged sizes included; the A/B of the two launches that
+    sets POTRF_BLOCK_MULTI_MIN_N; failed pivots in the first, a later and
+    the last panel, and a NaN pivot; the times of the default launch at
+    128, 512 and 1024 beside cuSOLVER's cholesky_ex."""
+    for n in (128, 200, 512, 777, 1024):
         # a diagonal block of the recursion: a view with a longer row
-        buf = torch.zeros(n, 2 * n, device="cuda")
-        blk = buf[:, n // 2:n // 2 + n]
-        blk.copy_(spd(gen, n))
-        A0 = blk.clone()
+        A0 = spd(gen, n)
         want = A0.clone()
         i_ref = potrf_block_plain(want)
-        info = potrf_block_f32(blk)
-        require(int(info) == 0 and int(i_ref) == 0,
-                f"potrf_block_f32 n={n}: info {int(info)}/{int(i_ref)}")
-        err = max_err(blk, want)
         b = bound(8 * n, float(want.abs().max()))
-        require(err <= b, f"potrf_block_f32 n={n}: err {err} > {b}")
-        require(bool((torch.triu(blk, 1) == 0).all()),
-                f"potrf_block_f32 n={n}: strict upper not zero")
-        require(bool((buf[:, :n // 2] == 0).all()
-                     and (buf[:, n // 2 + n:] == 0).all()),
-                f"potrf_block_f32 n={n}: wrote outside the view")
-        ms = bench_op(lambda a: potrf_block_f32(a.clone()), A0) * 1e3
+        errs = []
+        for multi in (False, True):
+            buf = torch.zeros(n, 2 * n, device="cuda")
+            blk = buf[:, n // 2:n // 2 + n]
+            blk.copy_(A0)
+            blk[torch.ones_like(blk, dtype=torch.bool).triu(1)] = math.nan
+            info = potrf_block_f32(blk, multi=multi)
+            require(int(info) == 0 and int(i_ref) == 0,
+                    f"potrf_block_f32 n={n} multi={multi}: info "
+                    f"{int(info)}/{int(i_ref)}")
+            err = max_err(blk, want)
+            require(err <= b, f"potrf_block_f32 n={n} multi={multi}: err "
+                    f"{err} > {b}")
+            require(bool((torch.triu(blk, 1) == 0).all()),
+                    f"potrf_block_f32 n={n} multi={multi}: strict upper not "
+                    "zero")
+            require(bool((buf[:, :n // 2] == 0).all()
+                         and (buf[:, n // 2 + n:] == 0).all()),
+                    f"potrf_block_f32 n={n} multi={multi}: wrote outside "
+                    "the view")
+            errs.append(err)
+        print(f"potrf_block_f32 n={n} on a view, NaN strict upper: max err "
+              f"one block {errs[0]:.3e}, many {errs[1]:.3e} (bound {b:.3e})")
+        if n == 1024:
+            err_1024 = max(errs)
+    # the A/B of the two launches, in turns (one, many, many, one)
+    for n in (128, 256, 512, 768, 1024):
+        A0 = spd(gen, n)
+        t = [ms_inplace(lambda a: potrf_block_f32(a, multi=m), A0, 20)
+             for m in (False, True, True, False)]
+        print(f"potrf_block_f32 A/B n={n}: one block {t[0]:.4f}/{t[3]:.4f} "
+              f"ms, many {t[1]:.4f}/{t[2]:.4f} ms on {on}")
+    # failed pivots: info, nothing non-finite but an input NaN pivot, the
+    # leading block right; the first panel, a later one, the last one
+    for n, k, v in ((256, 4, -1.0), (1024, 100, -1.0), (1024, 1000, -1.0),
+                    (777, 776, -1.0), (256, 7, math.nan), (512, 300, math.nan)):
+        A0 = spd(gen, n, 10.0)
+        A0[k, k] = v
+        want = A0.clone()
+        i_ref = potrf_block_plain(want)
+        for multi in (False, True):
+            A = A0.clone()
+            info = potrf_block_f32(A, multi=multi)
+            bad = (~torch.isfinite(A)).nonzero().tolist()
+            require(int(info) == k + 1 == int(i_ref)
+                    and all(ix == [k, k] for ix in bad),
+                    f"potrf_block_f32 n={n} A[{k},{k}]={v} multi={multi}: "
+                    f"info {int(info)}, non-finite at {bad[:5]}")
+            lead = max_err(torch.tril(A[:k, :k]), torch.tril(want[:k, :k]))
+            require(lead <= bound(8 * n, 10.0),
+                    f"potrf_block_f32 n={n} A[{k},{k}]={v}: leading block "
+                    f"err {lead}")
+    print("potrf_block_f32 failed pivots A[4,4]=-1 (n=256), A[100,100] and "
+          "A[1000,1000]=-1 (n=1024), A[776,776]=-1 (n=777), NaN at [7,7] "
+          "(n=256) and [300,300] (n=512), both launches: info k+1, nothing "
+          "but an input NaN pivot non-finite, leading block right")
+    # times of the default launch beside cuSOLVER
+    for n in (128, 512, 1024):
+        A0 = spd(gen, n)
+        ms = ms_inplace(potrf_block_f32, A0, 20)
+        lib_ms = bench_op(lambda a: torch.linalg.cholesky_ex(a), A0,
+                          reps=20) * 1e3
         plain_ms = bench_op(lambda a: potrf_block_plain(a.clone()), A0,
                             warmup=1, reps=3) * 1e3
-        print(f"potrf_block_f32 n={n}: max err {err:.3e} (bound {b:.3e}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {on}")
+        rl = roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n))
+        launch = ("many blocks" if n >= mega.POTRF_BLOCK_MULTI_MIN_N
+                  else "one block")
+        print(f"potrf_block_f32 n={n} ({launch}): "
+              f"kernel {ms:.4f} ms, torch.linalg.cholesky_ex {lib_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {rl['bound_ms']:.4f} ms "
+              f"({rl['bound_by']}) on {on}")
         if n == 1024:
-            lib_ms = bench_op(lambda a: torch.linalg.cholesky_ex(a), A0) * 1e3
-            print(f"  torch.linalg.cholesky_ex n={n}: {lib_ms:.4f} ms")
             rec["potrf_block_f32"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
-    # non-PD pivot: info 5, everything finite, the leading block right
-    A = spd(gen, 256, 10.0)
-    A[4, 4] = -1.0
-    want = A.clone()
-    i_ref = potrf_block_plain(want)
-    info = potrf_block_f32(A)
-    require(int(info) == 5 == int(i_ref), f"non-PD info {int(info)}")
-    require(bool(torch.isfinite(A).all()), "non-PD output not finite")
-    require(max_err(A[:4, :4], want[:4, :4]) <= bound(8 * 4, 10.0),
-            "non-PD leading block")
-    # NaN pivot: info 8, only (7, 7) non-finite; the strict upper unread
-    A = spd(gen, 256, 10.0)
-    A[7, 7] = float("nan")
-    A[torch.ones_like(A, dtype=torch.bool).triu(1)] = float("nan")
-    info = potrf_block_f32(A)
-    bad = (~torch.isfinite(A)).nonzero().tolist()
-    require(int(info) == 8 and all(ix == [7, 7] for ix in bad),
-            f"NaN pivot: info {int(info)}, non-finite at {bad[:5]}")
-    print("potrf_block_f32 non-PD A[4,4]=-1: info 5, finite; NaN pivot "
-          "A[7,7]: info 8, nothing but (7,7) non-finite, strict upper unread")
+                max_abs_err=err_1024, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **rl)
 
 
 def check_potrf_stream(gen, rec, on):
@@ -762,8 +812,9 @@ def check_mm_groups(gen, rec, on):
     1e-12·max|ref| (the JAX package's bound of its fused kernel against
     the plain products): an 8192×128 row panel times a 128-wide leaf (the
     panel solve's leaf product), dpotrf's top trailing update at 8192 (a
-    4096² panel times itself, one peel for both sides) and a sub-block
-    view of one hoisted peel of the factor."""
+    4096² panel times itself, one peel for both sides), sub-block views of
+    one hoisted peel of the factor, one of them at a k offset that is not
+    a multiple of 16, and S = 1, 4, 8 on ragged shapes."""
     buf = torch.randn(8192, 8192, dtype=torch.float64, device="cuda",
                       generator=gen)
     T = torch.tril(torch.randn(128, 128, dtype=torch.float64, device="cuda",
@@ -773,9 +824,21 @@ def check_mm_groups(gen, rec, on):
     Xs, _ = ozaki.split_rows(buf[4096:, :4096], D_SLICES)
     Ls, _ = ozaki.split_rows(torch.tril(buf[:4096, :4096]), D_SLICES)
     Ws, _ = ozaki.split_rows(buf[:4096, 4096:6144], D_SLICES)
+    Us, _ = ozaki.split_rows(buf[:500, 6000:7000], D_SLICES)
     cases = {"8192×128·128": (Ps, Ts), "4096³ (syrk, one peel)": (Xs, Xs),
              "4096×2048·2048 on a view of a hoisted peel":
-                 (Ws, Ls[:, 2048:4096, :2048])}
+                 (Ws, Ls[:, 2048:4096, :2048]),
+             # k offset 40: the wrapper copies the rows to 16-byte starts
+             "500×2000·1000 on a view at k offset 40 of a hoisted peel":
+                 (Us, Ls[:, 1000:3000, 40:1040])}
+    # other slice counts (matmul_f64 defaults to 4), ragged m, n and k;
+    # 2000×600 takes the 64 × 128 tiles, the others the 64 × 64 ones
+    for S, (m, n, k) in ((1, (300, 200, 100)), (4, (2000, 600, 700)),
+                         (8, (777, 130, 1001))):
+        X = torch.randn(m + n, k, dtype=torch.float64, device="cuda",
+                        generator=gen)
+        Ss, _ = ozaki.split_rows(X, S)
+        cases[f"{m}×{n}·{k}, S={S}"] = (Ss[:, :m], Ss[:, m:])
     errs = {}
     for what, (As, Bs) in cases.items():
         hi, lo = mm_groups_f32pair(As, Bs)
@@ -785,8 +848,8 @@ def check_mm_groups(gen, rec, on):
         b = 1e-12 * float(ref.abs().max())
         require(err <= b, f"mm_groups_f32pair {what}: err {err} > {b}")
         errs[what] = err
-        print(f"mm_groups_f32pair {what}, S={D_SLICES}: max err {err:.3e} "
-              f"(bound {b:.3e})")
+        print(f"mm_groups_f32pair {what}, S={As.shape[0]}: max err "
+              f"{err:.3e} (bound {b:.3e})")
     ms_p = bench_op(lambda a: mm_groups_f32pair(a, Ts), Ps) * 1e3
     P64, T64 = buf[:, 256:384], T
     lib_p = bench_op(lambda a: torch.matmul(a, T64.T), P64) * 1e3
@@ -796,16 +859,23 @@ def check_mm_groups(gen, rec, on):
     plain_ms = bench_op(lambda a: mm_groups_plain(a, a), Xs, reps=3) * 1e3
     X64 = buf[4096:, :4096]
     lib_ms = bench_op(lambda a: torch.matmul(a, a.T), X64, reps=5) * 1e3
-    print(f"mm_groups_f32pair 4096³: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-          f" ms, f64 torch.matmul {lib_ms:.4f} ms on {on}")
     # S(S+1)/2 int8 products; one peel (S bytes per element) read, an f32
     # pair written
-    n = 4096
+    rl = groups_roofline(4096, 4096, 4096, one_peel=True)
+    print(f"mm_groups_f32pair 4096³: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+          f" ms, f64 torch.matmul {lib_ms:.4f} ms, int8 bound "
+          f"{rl['bound_ms']:.4f} ms on {on}")
     rec["mm_groups_f32pair"] = dict(
         max_abs_err=errs["4096³ (syrk, one peel)"], ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms,
-        **roofline(2 * n ** 3 * D_SLICES * (D_SLICES + 1) // 2, "int8",
-                   D_SLICES * n * n + 8 * n * n))
+        library_ms=lib_ms, **rl)
+
+
+def groups_roofline(m, n, k, one_peel=False, S=D_SLICES):
+    """The bound of one grouped product: S(S+1)/2 int8 products of m·n·k
+    multiply-adds; S bytes per element of each peel read (one peel when
+    both sides share it), an f32 pair written."""
+    return roofline(2 * m * n * k * S * (S + 1) // 2, "int8",
+                    S * (m * k + (0 if one_peel else n * k)) + 8 * m * n)
 
 
 FILL_N = 8192
@@ -1183,21 +1253,43 @@ def gp_path(name_power, dev="cuda"):
 D_N, D_COND = 8192, 100.0
 
 
-def profile_table(fn, top=16):
+def profile_table(fn, top=16, census=None):
     """One call of fn under torch.profiler: (wall ms, device busy ms, idle
     share, operations on the device, [(name, count, ms)] by device time).
     Busy is the union of the device intervals, so overlapping kernels
-    count once."""
+    count once. With a list ``census``, every mm_groups_f32pair launch of
+    the call is also recorded there as ((m, n, k), device ms), its shape
+    read by the wrapper and its time from the profiler's kernel of the
+    same rank in launch order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    real, shapes = ozaki._kz, []
+
+    class Recorder:
+        """ops/ozaki.py's view of the kernel module, noting each product's
+        shape on its way to the real wrapper."""
+
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        @staticmethod
+        def mm_groups_f32pair(As, Bs):
+            shapes.append((As.shape[1], Bs.shape[1], As.shape[2]))
+            return real.mm_groups_f32pair(As, Bs)
+
+    if census is not None:
+        ozaki._kz = Recorder()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    spans, by_name = [], {}
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        ozaki._kz = real
+    spans, by_name, groups = [], {}, []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1205,6 +1297,12 @@ def profile_table(fn, top=16):
         spans.append((a, b))
         c, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, t + (b - a) / 1e3)
+        if "mm_groups_kernel" in e.name:
+            groups.append((a, (b - a) / 1e3))
+    if census is not None:
+        require(len(groups) == len(shapes), f"census: {len(shapes)} "
+                f"launches, {len(groups)} kernels in the trace")
+        census.extend(zip(shapes, (t for _, t in sorted(groups))))
     busy, end = 0.0, -math.inf
     for a, b in sorted(spans):
         if b > end:
@@ -1214,6 +1312,35 @@ def profile_table(fn, top=16):
     rows = sorted(((k, c, t) for k, (c, t) in by_name.items()),
                   key=lambda r: -r[2])
     return wall, busy, max(0.0, 1.0 - busy / wall), len(spans), rows[:top]
+
+
+def print_census(census, on, top=3):
+    """The mm_groups_f32pair launches of one call by (m, n, k), by device
+    time, then the top shapes timed alone (CUDA events, fresh S = 6 peels
+    of Gaussian f64 inputs) beside one f64 torch.matmul of the same
+    shape, with their int8 bound."""
+    by = {}
+    for shape, ms in census:
+        c, t = by.get(shape, (0, 0.0))
+        by[shape] = (c + 1, t + ms)
+    rows = sorted(by.items(), key=lambda r: -r[1][1])
+    total = sum(t for _, (_, t) in rows)
+    print(f"mm_groups_f32pair census: {len(census)} launches, {total:.3f} "
+          f"ms of device time, {len(rows)} shapes (m, n, k):")
+    for (m, n, k), (c, t) in rows:
+        print(f"  {m:5d} {n:5d} {k:5d}  {c:4d} launches  {t:9.3f} ms")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for (m, n, k), _ in rows[:top]:
+        A = torch.randn(m, k, dtype=torch.float64, device="cuda", generator=g)
+        B = torch.randn(n, k, dtype=torch.float64, device="cuda", generator=g)
+        As, _ = ozaki.split_rows(A, D_SLICES)
+        Bs, _ = ozaki.split_rows(B, D_SLICES)
+        ms = bench_op(lambda a: mm_groups_f32pair(a, Bs), As) * 1e3
+        lib = bench_op(lambda a: torch.matmul(a, B.T), A) * 1e3
+        rl = groups_roofline(m, n, k)
+        print(f"  mm_groups_f32pair {m}×{n}·{k}, S={D_SLICES}: kernel "
+              f"{ms:.4f} ms, f64 torch.matmul {lib:.4f} ms, int8 bound "
+              f"{rl['bound_ms']:.4f} ms on {on}")
 
 
 def d_path(gen, name_power):
@@ -1304,12 +1431,19 @@ def d_path(gen, name_power):
           f"({2 * n ** 3 / 3 / t_cinv / 1e6:.1f} GF/s) on {name_power}")
 
     # where one dpotrf's time goes
-    wall, busy, idle, count, rows = profile_table(lambda: ct.dpotrf("L", A))
+    census = []
+    wall, busy, idle, count, rows = profile_table(lambda: ct.dpotrf("L", A),
+                                                  top=None, census=census)
     print(f"dpotrf n={n} under torch.profiler: wall {wall:.3f} ms, device "
           f"busy {busy:.3f} ms, idle share {idle:.4f}, {count} operations "
           "on the device; by device time:")
-    for name, count, ms in rows:
+    for name, count, ms in rows[:16]:
         print(f"  {ms:10.3f} ms  {count:6d}  {name[:160]}")
+    for name, count, ms in rows:
+        if "potrf_block_f32_kernel" in name:
+            print(f"  the 128-wide leaves: {ms:.3f} ms over {count} "
+                  f"potrf_block_f32 launches ({name[:60]})")
+    print_census(census, name_power)
     return {"d": launches}
 
 
@@ -1816,10 +1950,66 @@ SOURCES = {
 }
 
 
+def compare(gen, on):
+    """The numbers a kernel redesign is judged by, through whichever
+    cholesky_tpu_torch is first on the path, so that one card can time two
+    trees in turns: potrf_block_f32 at 128, 512 and 1024 beside
+    cholesky_ex, spotrf at 1024 and potrf(block_size=512) at 4096,
+    mm_groups_f32pair at 4096³, one profiled dpotrf at 8192 with its
+    census, and dpotrf, dpotri and zpotrf wall times."""
+    print(f"compare: cholesky_tpu_torch from {ct.__path__[0]}")
+    for n in (128, 512, 1024):
+        A = spd(gen, n)
+        ms = ms_inplace(potrf_block_f32, A, 20)
+        lib = bench_op(lambda a: torch.linalg.cholesky_ex(a), A, reps=20)
+        print(f"compare: potrf_block_f32 n={n} {ms:.4f} ms, cholesky_ex "
+              f"{lib * 1e3:.4f} ms")
+    A = spd(gen, 1024)
+    t = bench_op(lambda a: ct.potrf("L", a), A, reps=20)
+    print(f"compare: spotrf n=1024 {flops_potrf(1024) / t / 1e9:.1f} GF/s "
+          f"({t * 1e3:.4f} ms)")
+    A = spd(gen, 4096)
+    t = bench_op(lambda a: ct.potrf("L", a, block_size=512), A, reps=5)
+    print(f"compare: spotrf n=4096 block_size=512 {t * 1e3:.3f} ms")
+    X = torch.randn(4096, 4096, dtype=torch.float64, device="cuda",
+                    generator=gen)
+    Xs, _ = ozaki.split_rows(X, D_SLICES)
+    ms = bench_op(lambda a: mm_groups_f32pair(a, a), Xs, reps=5) * 1e3
+    lib = bench_op(lambda a: torch.matmul(a, a.T), X, reps=5) * 1e3
+    print(f"compare: mm_groups_f32pair 4096³ S=6 {ms:.4f} ms, f64 matmul "
+          f"{lib:.4f} ms")
+    del X, Xs
+    A = latmc(gen, D_N, D_COND, torch.float64)
+    census = []
+    wall, busy, idle, count, rows = profile_table(lambda: ct.dpotrf("L", A),
+                                                  census=census)
+    groups_ms = sum(t for _, t in census)
+    print(f"compare: dpotrf n={D_N} profiled: wall {wall:.3f} ms, busy "
+          f"{busy:.3f} ms, idle {idle:.4f}, {count} operations, "
+          f"mm_groups_f32pair {groups_ms:.3f} ms over {len(census)}")
+    for name, c, ms in rows[:8]:
+        print(f"compare:   {ms:10.3f} ms  {c:6d}  {name[:100]}")
+    print_census(census, on)
+    F, _ = ct.dpotrf("L", A)
+    t_potrf = wall_ms(lambda: ct.dpotrf("L", A))
+    t_potri = wall_ms(lambda: ct.dpotri("L", F))
+    del A, F
+    Ap = latmc_pair(gen, CZ_N, CZ_COND, torch.float64)
+    t_z = wall_ms(lambda: ct.zpotrf("L", Ap))
+    print(f"compare: dpotrf n={D_N} {t_potrf:.3f} ms, dpotri {t_potri:.3f} "
+          f"ms, zpotrf n={CZ_N} {t_z:.3f} ms wall on {on}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--compare"]:
+        name_power = card()
+        print(name_power)
+        _build.build()
+        compare(torch.Generator(device="cuda").manual_seed(0), name_power)
+        return 0
 
     # 1. device and environment
     name_power = card()

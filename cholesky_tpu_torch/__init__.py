@@ -22,13 +22,14 @@ from cholesky_tpu_torch.ops.api import (gemm, herk, lauu2, lauum, logdet,
 from cholesky_tpu_torch.ops.typed import *  # noqa: F401,F403
 from cholesky_tpu_torch.ops.typed import __all__ as _typed_all
 from cholesky_tpu_torch.types import Diag, Side, Trans, Uplo
-from cholesky_tpu_torch.utils.errors import set_error_handler, set_xerbla
+from cholesky_tpu_torch.utils.errors import (set_error_handler, set_xerbla,
+                                             xerbla)
 
 __all__ = [
     "potrf", "potf2", "logdet", "logdet_from_factor",
     "trtri", "trtri2", "trti2", "lauum", "lauu2", "potri",
     "gemm", "syrk", "herk", "trmm", "trmm2", "trsm",
     "Side", "Uplo", "Trans", "Diag",
-    "set_error_handler", "set_xerbla",
+    "set_error_handler", "set_xerbla", "xerbla",
     *_typed_all,
 ]

@@ -1019,10 +1019,12 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
          block_size: Optional[int] = None):
     """Blocked triangular solve by the inverse of each leaf (reference
     cuStrsm): B := alpha·op(A)⁻¹·B (left) or alpha·B·op(A)⁻¹ (right).
-    Real dtypes take a Python-number alpha; a complex operand the
-    embedding takes is solved there (``trsm_split``, complex alpha
-    allowed), any other complex tensor by the oracle, as in the JAX
-    package. Returns a new tensor; A and B are not modified."""
+    A complex operand the embedding takes is solved there (``trsm_split``,
+    complex alpha allowed), any other complex tensor by the oracle, as in
+    the JAX package. A real CPU operand with an alpha that is not a Python
+    number takes the oracle too (JAX sends a traced one there); on the card
+    such an alpha (a 0-d tensor) is read with float() and the kernels run.
+    Returns a new tensor; A and B are not modified."""
     if _route_complex(A, backend):
         check(_embed_scalars_ok(A, (alpha,)), "trsm", 5,
               "complex trsm through the embedding needs a Python-number "
@@ -1034,10 +1036,10 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
     uplo = norm_uplo(uplo)
     transa = norm_trans(transa)
     diag = norm_diag(diag)
-    if backend == "ref" or A.is_complex():
+    if backend == "ref" or A.is_complex() or (
+            A.device.type != "cuda" and not _static_scalar(alpha)):
         return blas_ref.trsm(side, uplo, transa, diag, alpha, A, B)
-    check(_static_scalar(alpha), "trsm", 5,
-          f"alpha must be a Python number, got {type(alpha)}")
+    alpha = float(alpha)
     # canonicalize: side=R -> transposed left solve; upper -> lower on Aᵀ
     if side == Side.RIGHT:
         return trsm(Side.LEFT, uplo, _flip_trans(transa), diag, alpha, A,

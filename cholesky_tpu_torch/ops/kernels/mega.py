@@ -24,6 +24,9 @@ from cholesky_tpu_torch.utils.errors import check
 
 NB = 128            # the blocked recursion's granularity for these kernels
 MAX_N = 1024        # one thread block holds a 32-wide panel of this height
+#: from this n potrf_block_f32 runs as one cooperative launch over many
+#: thread blocks, below it on one (the A/B of chip_smoke.py's phase 3)
+POTRF_BLOCK_MULTI_MIN_N = 256
 STREAM_MAX_N = 8192  # the JAX package's {POTRF,TRTRI,LAUUM}_HBM_MAX_N
 
 
@@ -60,19 +63,23 @@ def trtri_block_plain(L):
     return torch.tril(W), info
 
 
-def potrf_block_f32(A):
+def potrf_block_f32(A, *, multi=None):
     """Lower Cholesky of the f32 block A (n <= MAX_N, unit-stride rows), in
     place: only the lower triangle is read, the strict upper is zeroed.
     Returns info, a 0-d int32 tensor on A's device: the 1-based index of
     the first pivot with !(d > 0) (NaN-safe), 0 on success. The factor
     freezes at a failed pivot and every stored value stays finite, except
-    an input NaN at its own position."""
+    an input NaN at its own position. ``multi`` picks the launch on the
+    card (one thread block, or one cooperative launch over many); None
+    takes many from POTRF_BLOCK_MULTI_MIN_N."""
     n = _check_block(A, "potrf_block_f32")
     if A.device.type == "cpu":
         return potrf_block_plain(A)
+    if multi is None:
+        multi = n >= POTRF_BLOCK_MULTI_MIN_N
     info = torch.empty((), dtype=torch.int32, device=A.device)
     err = _build.library().ct_potrf_block_f32(
-        A.data_ptr(), A.stride(0), n, info.data_ptr(),
+        A.data_ptr(), A.stride(0), n, info.data_ptr(), int(multi),
         *_build.device_args(A))
     _build.check_launch(err, "potrf_block_f32")
     potrf_block_f32.launches += 1

@@ -21,7 +21,7 @@ from cholesky_tpu_torch.utils.errors import check
 
 SLICE_BITS = 7      # bits per slice, as the JAX package's ozaki_mm.SLICE_BITS
 MAX_SLICES = 8      # the kernels' limit, and the S of ozaki.K_EXACT_MAX
-ALIGN = 16          # bytes: where every slice row must start on the card
+ALIGN = 16          # bytes: where the kernel's slice rows start on the card
 
 
 def peel_plain(rh, rl, slices: int):
@@ -44,10 +44,10 @@ def peel_plain(rh, rl, slices: int):
 def peel_f32pair(rh, rl, *, slices: int):
     """int8 slices (S, m, k) of the exact pair value rh + rl, f32 (m, k)
     strided views already scaled into [-1/2, 1/2]. On the card the result
-    is a view of an (S, m, kp) buffer whose rows are padded with zeros to a
-    multiple of ALIGN bytes, so that its rows, and the rows of any
-    sub-block at a k offset that is a multiple of ALIGN, suit
-    :func:`mm_groups_f32pair`."""
+    is a view of an (S, m, kp) buffer whose rows are padded to a multiple
+    of ALIGN bytes, so that its rows, and the rows of any sub-block at a k
+    offset that is a multiple of ALIGN, reach :func:`mm_groups_f32pair`'s
+    kernel without a copy."""
     check(rh.ndim == 2 and rh.shape == rl.shape, "peel_f32pair", 1,
           f"rh and rl must be 2-D of one shape, got {tuple(rh.shape)} and "
           f"{tuple(rl.shape)}")
@@ -107,27 +107,37 @@ def mm_groups_plain(As, Bs):
     return hi, (x - hi.double()).float()
 
 
+def aligned_rows(X):
+    """X itself when its k axis is unit-stride and every slice row starts
+    on an ALIGN-byte boundary (the kernel's 16-byte copies need both), else
+    X copied by one ``copy_`` into a new (S, rows, kp) buffer, kp the k
+    extent rounded up to ALIGN, and viewed back to (S, rows, k): a
+    sub-block of a peel at any k offset, a transposed view. The kernel
+    zero-fills past k itself and never reads the pad."""
+    S, rows, k = X.shape
+    if ((X.stride(2) == 1 or k <= 1) and X.data_ptr() % ALIGN == 0
+            and X.stride(0) % ALIGN == 0 and X.stride(1) % ALIGN == 0):
+        return X
+    kp = -(-max(k, 1) // ALIGN) * ALIGN
+    buf = X.new_empty((S, rows, kp))
+    buf[:, :, :k].copy_(X)
+    return buf[:, :, :k]
+
+
 def mm_groups_f32pair(As, Bs):
     """Group-weighted slice-product sum of As (S, m, k) and Bs (S, n, k),
     int8, as an f32 pair (hi, lo), (m, n) each:
-    hi + lo = sum_g 2^(-7(g+2)) sum_{s+t=g} As[s]·Bs[t]ᵀ, g < S. On the card
-    both may be strided views with unit k stride whose rows start on
-    ALIGN-byte boundaries (a peel from :func:`peel_f32pair`, or a sub-block
-    of one at a k offset that is a multiple of ALIGN); any other alignment
-    is refused."""
+    hi + lo = sum_g 2^(-7(g+2)) sum_{s+t=g} As[s]·Bs[t]ᵀ, g < S. Both may
+    be any strided views; on the card one whose rows do not start on
+    ALIGN-byte boundaries with a unit k stride (a sub-block of a peel at a
+    k offset that is not a multiple of ALIGN) is first copied into an
+    aligned buffer (:func:`aligned_rows`)."""
     S, m, n, k = _check_groups(As, Bs)
     if As.device.type == "cpu":
         return mm_groups_plain(As, Bs)
     check(As.device.type == "cuda", "mm_groups_f32pair", 1,
           f"unsupported device {As.device}")
-    for arg, X in ((1, As), (2, Bs)):
-        check(X.stride(2) == 1 or k <= 1, "mm_groups_f32pair", arg,
-              "the k axis must be unit-stride")
-        check(X.data_ptr() % ALIGN == 0 and X.stride(0) % ALIGN == 0
-              and X.stride(1) % ALIGN == 0, "mm_groups_f32pair", arg,
-              f"every slice row must start on a {ALIGN}-byte boundary: "
-              f"pointer offset {X.data_ptr() % ALIGN}, strides "
-              f"{tuple(X.stride())}")
+    As, Bs = aligned_rows(As), aligned_rows(Bs)
     hi = torch.empty((m, n), dtype=torch.float32, device=As.device)
     lo = torch.empty_like(hi)
     if m == 0 or n == 0:

@@ -116,6 +116,48 @@ def test_potrf_block_failed_pivots(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 128, 129, 200, 512, 777,
+                               1024])
+@pytest.mark.parametrize("multi", [False, True], ids=["one", "many"])
+def test_potrf_block_launches_on_views(cuda, n, multi):
+    # both launches on a view of a wider buffer whose strict upper holds
+    # NaN: the lower read, the strict upper zeroed, nothing else written
+    A = spd(n, seed=n).to(cuda)
+    want = A.clone()
+    i_ref = mega.potrf_block_plain(want)
+    buf = torch.full((n, n + 24), 7.0, device=cuda)
+    v = buf[:, 8:8 + n]
+    v.copy_(A)
+    v[torch.ones_like(v, dtype=torch.bool).triu(1)] = float("nan")
+    info = kernels.potrf_block_f32(v, multi=multi)
+    assert int(info) == int(i_ref) == 0
+    assert_close(v, want, 8 * n, f"potrf_block n={n} multi={multi}")
+    assert bool((torch.triu(v, 1) == 0).all())
+    assert bool((buf[:, :8] == 7.0).all() and (buf[:, 8 + n:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,value", [(256, 4, -1.0), (1024, 100, -1.0),
+                                       (1024, 1000, -1.0), (777, 776, -1.0),
+                                       (512, 300, "nan"), (256, 7, "nan")])
+@pytest.mark.parametrize("multi", [False, True], ids=["one", "many"])
+def test_potrf_block_failed_pivot_panels(cuda, n, k, value, multi):
+    # a failed pivot in the first, a later and the last panel, and NaN
+    # pivots: info, nothing non-finite but an input NaN at its own place,
+    # the leading block the twin's
+    A = spd(n, cond=10.0, seed=k).to(cuda)
+    A[k, k] = float(value)
+    want = A.clone()
+    i_ref = mega.potrf_block_plain(want)
+    info = kernels.potrf_block_f32(A, multi=multi)
+    assert int(info) == int(i_ref) == k + 1
+    bad = (~torch.isfinite(A)).nonzero().tolist()
+    assert all(ix == [k, k] for ix in bad), bad[:5]
+    assert_close(torch.tril(A[:k, :k]), torch.tril(want[:k, :k]), 8 * n,
+                 f"leading block n={n} k={k}")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [100, 512])
 def test_trtri_block_vs_twin(cuda, n):
     L = torch.linalg.cholesky(spd(n).double()).float().contiguous().to(cuda)
@@ -354,15 +396,33 @@ def assert_groups_close(As, Bs, atol=None):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k", [(192, 160, 640), (1, 1, 1), (77, 130, 1000),
-                                   (64, 64, 33), (16, 24, 40000)])
+                                   (64, 64, 33), (16, 24, 40000),
+                                   (1100, 1100, 33000)])
 def test_mm_groups_vs_twin(cuda, m, n, k):
-    # k over many 32-wide steps, a ragged k end, ragged m and n, and one k
-    # past the kernel's exact int32 chunk
+    # k over many 32-wide steps, a ragged k end, ragged m and n, and k past
+    # the kernel's exact int32 chunk on both tile widths
     g = torch.Generator().manual_seed(m + n + k)
     A = torch.randn(m, k, generator=g, dtype=torch.float64) * torch.exp(
         2.0 * torch.randn(m, k, generator=g, dtype=torch.float64))
     B = torch.randn(k, n, generator=g, dtype=torch.float64)
     assert_groups_close(*peel_pair(A.to(cuda), B.to(cuda)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slices", [1, 4, 6, 8])
+@pytest.mark.parametrize("m,n,k,off", [(64, 64, 32, 0), (130, 77, 333, 0),
+                                       (200, 300, 1000, 40), (65, 1, 17, 3),
+                                       (2000, 600, 333, 5)])
+def test_mm_groups_slices_and_offsets(cuda, slices, m, n, k, off):
+    # every slice count the kernel takes, ragged m, n and k, operands at k
+    # offsets off the 16-byte grid (copied to aligned rows first), and a
+    # grid large enough for the 64 x 128 tiles (S <= 6)
+    g = torch.Generator().manual_seed(slices * 1000 + m)
+    A = torch.randn(m, k + off, generator=g, dtype=torch.float64)
+    B = torch.randn(n, k + off, generator=g, dtype=torch.float64)
+    As, _ = ozaki.split_rows(A.to(cuda), slices)
+    Bs, _ = ozaki.split_rows(B.to(cuda), slices)
+    assert_groups_close(As[:, :, off:], Bs[:, :, off:])
 
 
 @pytest.mark.cuda
@@ -399,9 +459,11 @@ def test_mm_groups_on_views_of_one_peel(cuda):
     # row scales, which a sub-block takes from its full rows (the bound of
     # the JAX package's hoisted products, test_ozaki.py)
     assert float((C - ref).abs().max()) < 1e-9 * float(ref.abs().max())
-    # a k offset off the 16-byte grid is refused, not worked around
-    with pytest.raises(ValueError, match="16-byte"):
-        kernels.mm_groups_f32pair(Ls[:, :64, 3:67], Ls[:, 64:128, 3:67])
+    # a k offset off the 16-byte grid: the wrapper copies the rows into an
+    # aligned buffer and the kernel runs
+    kernels.reset_launch_counts()
+    assert_groups_close(Ls[:, :64, 3:67], Ls[:, 64:128, 3:67])
+    assert kernels.launch_counts()["mm_groups_f32pair"] == 1
 
 
 @pytest.mark.cuda
@@ -443,6 +505,30 @@ def test_dlogdet_dpotri_dtrsm_on_the_card(cuda):
     B = torch.randn(n, 96, dtype=torch.float64)
     for trans in ("N", "T"):
         X = ct.dtrsm("L", "L", trans, "N", 1.0, L.to(cuda), B.to(cuda))
+        M = L if trans == "N" else L.T
+        assert float((M @ X.cpu() - B).abs().max()) <= 1e-9 * float(
+            B.abs().max())
+
+
+@pytest.mark.cuda
+def test_hoisted_drivers_with_block_size_40_on_the_card(cuda, monkeypatch):
+    # the hoisted peel sliced at k offsets 40, 80, ...: the wrapper realigns
+    # those rows and the kernel runs
+    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", True)
+    n = 200
+    A = spd(n, cond=30.0).double()
+    A = 0.5 * (A + A.T)
+    kernels.reset_launch_counts()
+    F, info = ct.dpotrf("L", A.to(cuda), block_size=40)
+    assert int(info) == 0
+    assert all(kernels.launch_counts()[k] > 0 for k in D_PATH)
+    L = torch.linalg.cholesky(A)
+    assert float((torch.tril(F).cpu() - L).abs().max()) <= 1e-9 * float(
+        L.abs().max())
+    B = torch.randn(n, 24, dtype=torch.float64)
+    for trans in ("N", "T"):
+        X = ct.dtrsm("L", "L", trans, "N", 1.0, L.to(cuda), B.to(cuda),
+                     block_size=40)
         M = L if trans == "N" else L.T
         assert float((M @ X.cpu() - B).abs().max()) <= 1e-9 * float(
             B.abs().max())
@@ -569,6 +655,20 @@ def test_tensor_scalars_launch_the_kernels(cuda):
             ct.strmm("L", "U", "N", "U", 0.5, A, B))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,trans", [("L", "N"), ("R", "T")])
+def test_trsm_tensor_alpha_launches_the_kernels(cuda, side, trans):
+    # a 0-d tensor alpha on the card is read with float(): the kernels run
+    A = torch.eye(8, device=cuda) * 2.0
+    B = torch.ones((8, 3) if side == "L" else (3, 8), device=cuda)
+    kernels.reset_launch_counts()
+    X = ct.strsm(side, "L", trans, "N", torch.tensor(0.5, device=cuda), A, B)
+    assert kernels.launch_counts()["gemm_f32"] > 0
+    assert torch.equal(X, torch.full_like(B, 0.25))
+    assert torch.equal(ct.trsm(side, "L", trans, "N", torch.tensor(0.5), A, B),
+                       ct.trsm(side, "L", trans, "N", 0.5, A, B))
 
 
 @pytest.mark.cuda

@@ -225,3 +225,37 @@ def test_typed_wrappers_refuse_the_other_dtype(name, args):
 def test_dtrsm_refuses_float32():
     with pytest.raises(ValueError, match="expected torch.float64"):
         ct.dtrsm("L", "L", "N", "N", 1.0, torch.eye(4), torch.ones(4, 2))
+
+
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_hoisted_drivers_with_block_size_40_vs_jax(uplo, monkeypatch):
+    # a block size that is not a multiple of 16: the hoisted recursions
+    # slice one peel at k offsets 40, 80, ... (on the card the wrapper
+    # realigns those rows); dpotrf, dtrsm both ways, dtrtri and dpotri
+    monkeypatch.setattr(jblocked, "_OZAKI_HOIST_OVERRIDE", True)
+    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", True)
+    A = spd_np(120, seed=6)
+    F, info = ct.dpotrf(uplo, torch.from_numpy(A), backend="ozaki",
+                        block_size=40)
+    F_j, info_j = jblocked.potrf(uplo, jnp.asarray(A), backend="ozaki",
+                                 block_size=40)
+    assert int(info) == int(info_j) == 0
+    tri = np.tril if uplo == "L" else np.triu
+    assert rel(tri(F.numpy()), tri(np.asarray(F_j))) < 1e-9
+    T = tri_np(120, uplo, seed=7)
+    B = np.random.default_rng(8).standard_normal((120, 8))
+    for trans in ("N", "T"):
+        X = ct.dtrsm("L", uplo, trans, "N", 1.0, torch.from_numpy(T),
+                     torch.from_numpy(B), backend="ozaki", block_size=40)
+        X_j = jblocked.trsm("L", uplo, trans, "N", 1.0, jnp.asarray(T),
+                            jnp.asarray(B), backend="ozaki", block_size=40)
+        M = tri(T) if trans == "N" else tri(T).T
+        assert rel(X.numpy(), np.linalg.solve(M, B)) < 1e-8
+        assert rel(X.numpy(), np.asarray(X_j)) < 1e-8
+    W, info = ct.dtrtri(uplo, "N", torch.from_numpy(T), backend="ozaki",
+                        block_size=40)
+    W_j, _ = jblocked.trtri(uplo, "N", jnp.asarray(T), backend="ozaki",
+                            block_size=40)
+    assert int(info) == 0
+    assert rel(tri(W.numpy()), tri(np.asarray(W_j))) < 1e-8
+    assert rel(tri(W.numpy()), np.linalg.inv(tri(T))) < 1e-8

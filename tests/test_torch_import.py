@@ -64,8 +64,23 @@ def test_public_api():
     assert sorted(ct.__all__) == sorted(
         routines + typed + ["herk", "logdet_from_factor", "Side", "Uplo",
                             "Trans", "Diag", "set_error_handler",
-                            "set_xerbla"])
+                            "set_xerbla", "xerbla"])
     assert all(callable(getattr(ct, name)) for name in typed)
+
+
+def test_xerbla_is_exported_as_in_the_jax_package():
+    import cholesky_tpu
+    assert "xerbla" in cholesky_tpu.__dict__ and "xerbla" in ct.__all__
+    assert ct.xerbla is errors.xerbla
+    seen = []
+    prev = ct.set_xerbla(lambda routine, arg, msg="": seen.append(
+        (routine, arg, msg)))
+    try:
+        with pytest.raises(ValueError, match="parameter 3"):
+            ct.xerbla("spotrf", 3, "n < 0")
+    finally:
+        ct.set_xerbla(prev)
+    assert seen == [("spotrf", 3, "n < 0")]
 
 
 def test_typed_names_equal_the_jax_packages():

@@ -20,7 +20,8 @@ from cholesky_tpu.ops import ozaki as jozaki
 from cholesky_tpu.ops.pallas.ozaki_mm import mm_groups_f32pair as j_mm
 from cholesky_tpu.ops.pallas.ozaki_split import peel_f32pair as j_peel
 from cholesky_tpu_torch.ops import kernels, ozaki
-from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
+from cholesky_tpu_torch.ops.kernels.ozaki import (ALIGN, aligned_rows,
+                                                  mm_groups_f32pair,
                                                   mm_groups_plain,
                                                   peel_f32pair, peel_plain)
 
@@ -183,3 +184,55 @@ def test_kernel_wrappers_refuse_bad_arguments(bad):
             mm_groups_f32pair(S8, S8[:, :, :8])
         else:
             peel_f32pair(torch.zeros(4, 4), torch.zeros(4, 4), slices=9)
+
+
+def rows_aligned(X):
+    return (X.stride(2) == 1 and X.data_ptr() % ALIGN == 0
+            and X.stride(0) % ALIGN == 0 and X.stride(1) % ALIGN == 0)
+
+
+@pytest.mark.parametrize("view", ["peel", "k offset 40", "k offset 3",
+                                  "transposed", "odd row stride"])
+def test_aligned_rows_copies_only_what_the_kernel_cannot_read(view):
+    # the card's wrapper hands the kernel rows that start on ALIGN bytes
+    # with a unit k stride: a misaligned view is copied once, values kept
+    rh, rl = pair(4, (96, 120))
+    Ls = peel_plain(torch.from_numpy(rh), torch.from_numpy(rl), 6)
+    kp = torch.zeros((6, 96, 128), dtype=torch.int8)   # a peel's padded rows
+    kp[:, :, :120] = Ls
+    X = {"peel": kp[:, :, :120], "k offset 40": kp[:, 50:90, 40:80],
+         "k offset 3": kp[:, 50:90, 3:43],
+         "transposed": kp[:, :64, :64].transpose(1, 2),
+         "odd row stride": Ls[:, :40, :37].contiguous()}[view]
+    got = aligned_rows(X)
+    assert torch.equal(got, X) and got.shape == X.shape
+    assert rows_aligned(got)
+    if rows_aligned(X):
+        assert got.data_ptr() == X.data_ptr()       # no copy
+    else:
+        assert got.data_ptr() != X.data_ptr()
+        assert got.stride(1) == -(-X.shape[2] // ALIGN) * ALIGN
+
+
+def test_hoisted_drivers_pass_misaligned_views_that_realign(monkeypatch):
+    # block_size=40 under the hoisted peel: the sub-peels start at k
+    # offsets 40, 80, ... which the kernel's copies cannot read in place;
+    # through aligned_rows the products are unchanged
+    seen = []
+    real = ozaki._kz.mm_groups_plain
+
+    def via_aligned(As, Bs):
+        seen.extend(rows_aligned(X) for X in (As, Bs))
+        return real(aligned_rows(As), aligned_rows(Bs))
+
+    monkeypatch.setattr(ozaki._kz, "mm_groups_plain", via_aligned)
+    from cholesky_tpu_torch.ops import blocked as tblocked
+    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", True)
+    rng = np.random.default_rng(5)
+    G = rng.standard_normal((160, 160))
+    A = G @ G.T / 160 + np.eye(160)
+    F, info = tblocked.potrf("L", torch.from_numpy(A), backend="ozaki",
+                             block_size=40)
+    assert int(info) == 0 and not all(seen)
+    L = np.linalg.cholesky(A)
+    assert np.max(np.abs(np.tril(F.numpy()) - L)) < 1e-9 * np.max(np.abs(L))

@@ -281,12 +281,41 @@ def test_trsm_backends_and_arguments():
     for backend in ("ref", "torch"):
         got = ct.trsm("L", "U", "N", "N", 2.0, A, B, backend=backend)
         assert_close(got.numpy(), ref.numpy(), np.float64, 60 * 50, backend)
-    with pytest.raises(ValueError):
-        ct.trsm("L", "L", "N", "N", torch.tensor(1.0), A, B)  # tensor alpha
+    # a tensor alpha on the CPU takes the oracle, as JAX sends a traced one
+    assert torch.equal(ct.trsm("L", "L", "N", "N", torch.tensor(2.0), A, B),
+                       tblas.trsm("L", "L", "N", "N", 2.0, A, B))
     with pytest.raises(ValueError):
         ct.trsm("L", "L", "N", "N", 1.0, A, B[:40])            # dims
     with pytest.raises(ValueError):
         ct.trsm("L", "L", "N", "N", 1.0, A, B, backend="cuda")  # CPU tensor
+
+
+@pytest.mark.parametrize("name,dt", [("trsm", F32), ("strsm", F32),
+                                     ("dtrsm", np.float64)])
+@pytest.mark.parametrize("side,trans", [("L", "N"), ("L", "T"), ("R", "N"),
+                                        ("R", "T")])
+def test_trsm_tensor_alpha_vs_jax(name, dt, side, trans):
+    # a 0-d tensor alpha goes to the oracle on the CPU in both packages
+    A = np.eye(8, dtype=dt) * 2.0
+    B = np.ones((8, 3) if side == "L" else (3, 8), dtype=dt)
+    ref = jblocked.trsm(side, "L", trans, "N", jnp.asarray(0.5, dtype=dt),
+                        jnp.asarray(A), jnp.asarray(B))
+    got = getattr(ct, name)(side, "L", trans, "N",
+                            torch.tensor(0.5, dtype=torch.from_numpy(A).dtype),
+                            torch.from_numpy(A), torch.from_numpy(B))
+    assert got.dtype == torch.from_numpy(A).dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert float(got[0, 0]) == 0.25
+    # a wider triangle: the same as the port's own Python-number route
+    T = tri_np(40, seed=9, dtype=dt)
+    R = np.random.default_rng(10).standard_normal(
+        (40, 3) if side == "L" else (3, 40)).astype(dt)
+    ref = jblocked.trsm(side, "L", trans, "N", jnp.asarray(0.5, dtype=dt),
+                        jnp.asarray(T), jnp.asarray(R))
+    got = getattr(ct, name)(side, "L", trans, "N", torch.tensor(0.5),
+                            torch.from_numpy(T), torch.from_numpy(R))
+    assert_close(got.numpy(), np.asarray(ref), dt, 60 * 40,
+                 f"{name} tensor alpha {side}{trans}")
 
 
 # ---------------------------------------------------------------------------
