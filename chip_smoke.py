@@ -43,20 +43,13 @@ show that the path went through each of its kernels:
   beside a c64/c128 ``torch.linalg`` or ``matmul`` call.
 
 Phase 3 also runs the A/B of ``potrf_block_f32``'s two launches (one
-thread block, or one cooperative launch over many) that sets its
-crossover, and phase 6 counts every ``mm_groups_f32pair`` launch of the
-profiled ``dpotrf`` by shape, with its device time.
+thread block, or one cooperative launch over many) and of
+``potrf_stream_f32`` at the multiples of 128 that sets its crossover, and
+phase 6 counts every ``mm_groups_f32pair`` launch of the profiled
+``dpotrf`` by shape, with its device time.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
-
-    python3 chip_smoke.py --compare
-
-builds the kernels and prints only the numbers the two redesigned kernels
-are judged by (no checks, no result line), through whichever
-``cholesky_tpu_torch`` is first on the path: run from another checkout's
-root as ``python3 - --compare < chip_smoke.py``, it times that tree on the
-same card.
 
 The last two lines of standard output are one JSON object per kernel
 ({"kernels": [...]}, each with the path its launch count comes from, its
@@ -317,78 +310,98 @@ def check_syrk(gen, rec, on):
                    2048 * 2048 * 4 + 2 * tri_bytes(2048)))
 
 
+def potrf_block_on(A, many: bool):
+    """potrf_block_f32 on one thread block or on many, whatever n: the
+    crossover POTRF_BLOCK_MULTI_MIN_N, its only selector, is moved for the
+    one call."""
+    keep = mega.POTRF_BLOCK_MULTI_MIN_N
+    mega.POTRF_BLOCK_MULTI_MIN_N = 1 if many else mega.MAX_N + 1
+    try:
+        return potrf_block_f32(A)
+    finally:
+        mega.POTRF_BLOCK_MULTI_MIN_N = keep
+
+
 def check_potrf_block(gen, rec, on):
     """Both launches (one thread block, and one cooperative launch over
-    many) against the twin on views of a wider buffer whose strict upper
-    holds NaN, ragged sizes included; the A/B of the two launches that
-    sets POTRF_BLOCK_MULTI_MIN_N; failed pivots in the first, a later and
-    the last panel, and a NaN pivot; the times of the default launch at
+    many) on views of a wider buffer whose strict upper holds NaN, ragged
+    sizes included, against an f64 factor of a dense SPD input, gated on
+    the twin's error; the A/B of the two launches and of potrf_stream_f32
+    at the multiples of 128 that sets POTRF_BLOCK_MULTI_MIN_N; failed
+    pivots in the first, a later and the last panel, and NaN pivots, the
+    leading block gated the same way; the times of the default launch at
     128, 512 and 1024 beside cuSOLVER's cholesky_ex."""
     for n in (128, 200, 512, 777, 1024):
         # a diagonal block of the recursion: a view with a longer row
-        A0 = spd(gen, n)
+        A0 = dense_spd(gen, n)
         want = A0.clone()
         i_ref = potrf_block_plain(want)
-        b = bound(8 * n, float(want.abs().max()))
+        L64 = torch.linalg.cholesky(A0.double())
+        twin_err = max_err(want, L64)
         errs = []
-        for multi in (False, True):
+        for many in (False, True):
+            what = f"potrf_block_f32 n={n} {'many' if many else 'one'}"
             buf = torch.zeros(n, 2 * n, device="cuda")
             blk = buf[:, n // 2:n // 2 + n]
             blk.copy_(A0)
             blk[torch.ones_like(blk, dtype=torch.bool).triu(1)] = math.nan
-            info = potrf_block_f32(blk, multi=multi)
+            info = potrf_block_on(blk, many)
             require(int(info) == 0 and int(i_ref) == 0,
-                    f"potrf_block_f32 n={n} multi={multi}: info "
-                    f"{int(info)}/{int(i_ref)}")
-            err = max_err(blk, want)
-            require(err <= b, f"potrf_block_f32 n={n} multi={multi}: err "
-                    f"{err} > {b}")
+                    f"{what}: info {int(info)}/{int(i_ref)}")
+            err, lim, rms = gated(what, blk, L64, twin_err)
             require(bool((torch.triu(blk, 1) == 0).all()),
-                    f"potrf_block_f32 n={n} multi={multi}: strict upper not "
-                    "zero")
+                    f"{what}: strict upper not zero")
             require(bool((buf[:, :n // 2] == 0).all()
                          and (buf[:, n // 2 + n:] == 0).all()),
-                    f"potrf_block_f32 n={n} multi={multi}: wrote outside "
-                    "the view")
+                    f"{what}: wrote outside the view")
             errs.append(err)
-        print(f"potrf_block_f32 n={n} on a view, NaN strict upper: max err "
-              f"one block {errs[0]:.3e}, many {errs[1]:.3e} (bound {b:.3e})")
+        print(f"potrf_block_f32 n={n} (dense, cond 100) on a view, NaN strict "
+              f"upper: max err vs f64 one block {errs[0]:.3e}, many "
+              f"{errs[1]:.3e}, the twin's {twin_err:.3e} (limit {lim:.3e}, "
+              f"1/{rms / lim:.0f} of the strict lower's RMS {rms:.3e})")
         if n == 1024:
             err_1024 = max(errs)
-    # the A/B of the two launches, in turns (one, many, many, one)
+        del buf, L64
+    # the A/B of the two launches and of potrf_stream_f32 (multiples of
+    # 128), in turns: one, many, stream, stream, many, one
     for n in (128, 256, 512, 768, 1024):
-        A0 = spd(gen, n)
-        t = [ms_inplace(lambda a: potrf_block_f32(a, multi=m), A0, 20)
-             for m in (False, True, True, False)]
-        print(f"potrf_block_f32 A/B n={n}: one block {t[0]:.4f}/{t[3]:.4f} "
-              f"ms, many {t[1]:.4f}/{t[2]:.4f} ms on {on}")
+        A0 = dense_spd(gen, n)
+        fns = (lambda a: potrf_block_on(a, False),
+               lambda a: potrf_block_on(a, True), potrf_stream_f32)
+        t = [ms_inplace(fns[i], A0, 20) for i in (0, 1, 2, 2, 1, 0)]
+        print(f"potrf_block_f32 A/B n={n}: one block {t[0]:.4f}/{t[5]:.4f} "
+              f"ms, many {t[1]:.4f}/{t[4]:.4f} ms; potrf_stream_f32 "
+              f"{t[2]:.4f}/{t[3]:.4f} ms on {on}")
     # failed pivots: info, nothing non-finite but an input NaN pivot, the
-    # leading block right; the first panel, a later one, the last one
+    # leading block against its f64 factor, gated on the twin's; the first
+    # panel, a later one, the last one
     for n, k, v in ((256, 4, -1.0), (1024, 100, -1.0), (1024, 1000, -1.0),
                     (777, 776, -1.0), (256, 7, math.nan), (512, 300, math.nan)):
-        A0 = spd(gen, n, 10.0)
+        A0 = dense_spd(gen, n, 10.0)
         A0[k, k] = v
+        L64 = torch.linalg.cholesky(A0[:k, :k].double())
         want = A0.clone()
         i_ref = potrf_block_plain(want)
-        for multi in (False, True):
+        twin_err = max_err(torch.tril(want[:k, :k]), L64)
+        for many in (False, True):
+            what = (f"potrf_block_f32 n={n} A[{k},{k}]={v} "
+                    f"{'many' if many else 'one'}")
             A = A0.clone()
-            info = potrf_block_f32(A, multi=multi)
+            info = potrf_block_on(A, many)
             bad = (~torch.isfinite(A)).nonzero().tolist()
             require(int(info) == k + 1 == int(i_ref)
                     and all(ix == [k, k] for ix in bad),
-                    f"potrf_block_f32 n={n} A[{k},{k}]={v} multi={multi}: "
-                    f"info {int(info)}, non-finite at {bad[:5]}")
-            lead = max_err(torch.tril(A[:k, :k]), torch.tril(want[:k, :k]))
-            require(lead <= bound(8 * n, 10.0),
-                    f"potrf_block_f32 n={n} A[{k},{k}]={v}: leading block "
-                    f"err {lead}")
+                    f"{what}: info {int(info)}, non-finite at {bad[:5]}")
+            gated(f"{what}: leading block", torch.tril(A[:k, :k]), L64,
+                  twin_err)
     print("potrf_block_f32 failed pivots A[4,4]=-1 (n=256), A[100,100] and "
           "A[1000,1000]=-1 (n=1024), A[776,776]=-1 (n=777), NaN at [7,7] "
-          "(n=256) and [300,300] (n=512), both launches: info k+1, nothing "
-          "but an input NaN pivot non-finite, leading block right")
+          "(n=256) and [300,300] (n=512), dense, both launches: info k+1, "
+          "nothing but an input NaN pivot non-finite, each leading block "
+          "within the gate")
     # times of the default launch beside cuSOLVER
     for n in (128, 512, 1024):
-        A0 = spd(gen, n)
+        A0 = dense_spd(gen, n)
         ms = ms_inplace(potrf_block_f32, A0, 20)
         lib_ms = bench_op(lambda a: torch.linalg.cholesky_ex(a), A0,
                           reps=20) * 1e3
@@ -1013,7 +1026,7 @@ def main_path(gen, name_power):
             f"potrf block_size=512: info {int(info)}, backward error {be}")
     print(f"spotrf n=4096 block_size=512: info 0, max|LLᵀ-A| {be:.3e}")
     # upper at n = 1024 (the whole-block route)
-    A = spd(gen, 1024)
+    A = A1024 = spd(gen, 1024)
     F, info = ct.potrf("U", A)
     be = backward_error(F, A, "U")
     require(int(info) == 0 and be <= bound(1024, float(A.abs().max())),
@@ -1029,8 +1042,9 @@ def main_path(gen, name_power):
             f"non-PD leading block: backward error {be}")
     print(f"spotrf non-PD n=4096 A[3000,3000]=-1: info 3001, leading "
           f"3000 block max|LLᵀ-A| {be:.3e}")
-    # rates, beside torch.linalg.cholesky (oracle and yardstick)
-    for n, A in inputs.items():
+    # rates, beside torch.linalg.cholesky (oracle and yardstick); at 1024
+    # potrf is one potrf_block_f32 launch
+    for n, A in {1024: A1024, **inputs}.items():
         t = bench_op(lambda a: ct.potrf("L", a), A, reps=5)
         t_ref = bench_op(lambda a: torch.linalg.cholesky(a), A, reps=5)
         t_blk = bench_op(lambda a: ct.potrf("L", a, block_size=512), A,
@@ -1950,67 +1964,10 @@ SOURCES = {
 }
 
 
-def compare(gen, on):
-    """The numbers a kernel redesign is judged by, through whichever
-    cholesky_tpu_torch is first on the path, so that one card can time two
-    trees in turns: potrf_block_f32 at 128, 512 and 1024 beside
-    cholesky_ex, spotrf at 1024 and potrf(block_size=512) at 4096,
-    mm_groups_f32pair at 4096³, one profiled dpotrf at 8192 with its
-    census, and dpotrf, dpotri and zpotrf wall times."""
-    print(f"compare: cholesky_tpu_torch from {ct.__path__[0]}")
-    for n in (128, 512, 1024):
-        A = spd(gen, n)
-        ms = ms_inplace(potrf_block_f32, A, 20)
-        lib = bench_op(lambda a: torch.linalg.cholesky_ex(a), A, reps=20)
-        print(f"compare: potrf_block_f32 n={n} {ms:.4f} ms, cholesky_ex "
-              f"{lib * 1e3:.4f} ms")
-    A = spd(gen, 1024)
-    t = bench_op(lambda a: ct.potrf("L", a), A, reps=20)
-    print(f"compare: spotrf n=1024 {flops_potrf(1024) / t / 1e9:.1f} GF/s "
-          f"({t * 1e3:.4f} ms)")
-    A = spd(gen, 4096)
-    t = bench_op(lambda a: ct.potrf("L", a, block_size=512), A, reps=5)
-    print(f"compare: spotrf n=4096 block_size=512 {t * 1e3:.3f} ms")
-    X = torch.randn(4096, 4096, dtype=torch.float64, device="cuda",
-                    generator=gen)
-    Xs, _ = ozaki.split_rows(X, D_SLICES)
-    ms = bench_op(lambda a: mm_groups_f32pair(a, a), Xs, reps=5) * 1e3
-    lib = bench_op(lambda a: torch.matmul(a, a.T), X, reps=5) * 1e3
-    print(f"compare: mm_groups_f32pair 4096³ S=6 {ms:.4f} ms, f64 matmul "
-          f"{lib:.4f} ms")
-    del X, Xs
-    A = latmc(gen, D_N, D_COND, torch.float64)
-    census = []
-    wall, busy, idle, count, rows = profile_table(lambda: ct.dpotrf("L", A),
-                                                  census=census)
-    groups_ms = sum(t for _, t in census)
-    print(f"compare: dpotrf n={D_N} profiled: wall {wall:.3f} ms, busy "
-          f"{busy:.3f} ms, idle {idle:.4f}, {count} operations, "
-          f"mm_groups_f32pair {groups_ms:.3f} ms over {len(census)}")
-    for name, c, ms in rows[:8]:
-        print(f"compare:   {ms:10.3f} ms  {c:6d}  {name[:100]}")
-    print_census(census, on)
-    F, _ = ct.dpotrf("L", A)
-    t_potrf = wall_ms(lambda: ct.dpotrf("L", A))
-    t_potri = wall_ms(lambda: ct.dpotri("L", F))
-    del A, F
-    Ap = latmc_pair(gen, CZ_N, CZ_COND, torch.float64)
-    t_z = wall_ms(lambda: ct.zpotrf("L", Ap))
-    print(f"compare: dpotrf n={D_N} {t_potrf:.3f} ms, dpotri {t_potri:.3f} "
-          f"ms, zpotrf n={CZ_N} {t_z:.3f} ms wall on {on}")
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if sys.argv[1:] == ["--compare"]:
-        name_power = card()
-        print(name_power)
-        _build.build()
-        compare(torch.Generator(device="cuda").manual_seed(0), name_power)
-        return 0
-
     # 1. device and environment
     name_power = card()
     print(name_power)           # exactly as nvidia-smi gives it

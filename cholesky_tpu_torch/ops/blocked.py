@@ -1036,8 +1036,8 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
     uplo = norm_uplo(uplo)
     transa = norm_trans(transa)
     diag = norm_diag(diag)
-    if backend == "ref" or A.is_complex() or (
-            A.device.type != "cuda" and not _static_scalar(alpha)):
+    t = _fast_tiles_or_none(A, backend, A.shape[0], "trsm", scalars=(alpha,))
+    if t is None:
         return blas_ref.trsm(side, uplo, transa, diag, alpha, A, B)
     alpha = float(alpha)
     # canonicalize: side=R -> transposed left solve; upper -> lower on Aᵀ
@@ -1050,7 +1050,6 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
     n = lapack_ref._square(A, "trsm")
     check(B.ndim == 2 and B.shape[0] == n, "trsm", 7,
           f"B shape {tuple(B.shape)} does not match A ({n}x{n})")
-    t = _tiles_for(A, backend, n, "trsm")
     check(B.dtype == A.dtype and B.device == A.device, "trsm", 7,
           "A and B must share dtype and device")
     nb = block_size or t.default_nb

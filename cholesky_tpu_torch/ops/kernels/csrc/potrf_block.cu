@@ -52,7 +52,8 @@
 // publishes it in info before the panel's sync, and every CTA leaves the
 // loop on info after it, so no grid sync is left waiting. Every read of
 // data another CTA wrote bypasses L1 (__ldcg). The wrapper picks multi by
-// n (ops/kernels/mega.py, from an A/B on the card).
+// n (ops/kernels/mega.py, from an A/B on the card); the device's limits
+// are queried once, at the first launch on it.
 #include <cooperative_groups.h>
 
 #include "sgemm_tile.cuh"
@@ -288,43 +289,62 @@ potrf_block_f32_kernel(float* A, long long lda, int n, int* info) {
   if (!failed) store_panel(A, lda, n - wl, wl, wl, P, ldp, blk, nblk);
 }
 
+// The device's limit on co-resident blocks of the many-block launch, found
+// once per device: 0 until then, -1 where the device has no cooperative
+// launch. Both kernels' dynamic shared memory limit is set to the largest
+// panel's (n = MAX_N) at the same time, so the limit, queried at that
+// size, holds at every n.
+constexpr int MAX_DEVICES = 64;
+constexpr int SMEM_MAX = static_cast<int>(sizeof(float)) * W * (MAX_N | 1);
+int multi_cap[MAX_DEVICES];
+
+cudaError_t init_device(int device) {
+  int coop = 0, nsm = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(potrf_block_f32_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_MAX);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(potrf_block_f32_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_MAX);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, potrf_block_f32_kernel<true>, NT, SMEM_MAX);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  multi_cap[device] = coop ? nsm * per_sm : -1;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // multi = 0: one thread block; 1: one cooperative launch over as many
 // blocks as the first panel has update tiles for their teams.
 CT_EXPORT int ct_potrf_block_f32(float* A, long long lda, int n, int* info,
                                  int multi, int device, void* stream) {
-  if (n < 1 || n > MAX_N || lda < n)
+  if (n < 1 || n > MAX_N || lda < n || device < 0 || device >= MAX_DEVICES)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(float)) * W * (n | 1);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (!multi_cap[device]) {
+    err = init_device(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!multi) {
-    err = cudaFuncSetAttribute(potrf_block_f32_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
     potrf_block_f32_kernel<false><<<1, NT, smem, st>>>(A, lda, n, info);
     return static_cast<int>(cudaGetLastError());
   }
-  int coop = 0, nsm = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(potrf_block_f32_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, potrf_block_f32_kernel<true>, NT, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  if (multi_cap[device] < 0) return static_cast<int>(cudaErrorNotSupported);
   const int nt = (n - W + TT - 1) / TT;       // tile rows of the first A22
   const int want = (nt * (nt + 1) / 2 + TEAMS - 1) / TEAMS;
-  const int nblk = max(1, min(want, nsm * per_sm));
+  const int nblk = max(1, min(want, multi_cap[device]));
   void* args[] = {&A, &lda, &n, &info};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(potrf_block_f32_kernel<true>), dim3(nblk),

@@ -63,20 +63,19 @@ def trtri_block_plain(L):
     return torch.tril(W), info
 
 
-def potrf_block_f32(A, *, multi=None):
+def potrf_block_f32(A):
     """Lower Cholesky of the f32 block A (n <= MAX_N, unit-stride rows), in
     place: only the lower triangle is read, the strict upper is zeroed.
     Returns info, a 0-d int32 tensor on A's device: the 1-based index of
     the first pivot with !(d > 0) (NaN-safe), 0 on success. The factor
     freezes at a failed pivot and every stored value stays finite, except
-    an input NaN at its own position. ``multi`` picks the launch on the
-    card (one thread block, or one cooperative launch over many); None
-    takes many from POTRF_BLOCK_MULTI_MIN_N."""
+    an input NaN at its own position. On the card it runs on one thread
+    block below POTRF_BLOCK_MULTI_MIN_N, else as one cooperative launch
+    over many."""
     n = _check_block(A, "potrf_block_f32")
     if A.device.type == "cpu":
         return potrf_block_plain(A)
-    if multi is None:
-        multi = n >= POTRF_BLOCK_MULTI_MIN_N
+    multi = n >= POTRF_BLOCK_MULTI_MIN_N
     info = torch.empty((), dtype=torch.int32, device=A.device)
     err = _build.library().ct_potrf_block_f32(
         A.data_ptr(), A.stride(0), n, info.data_ptr(), int(multi),

@@ -65,6 +65,15 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(params=[False, True], ids=["one", "many"])
+def multi(request, monkeypatch):
+    """potrf_block_f32 on one thread block or on many, whatever n: the
+    crossover POTRF_BLOCK_MULTI_MIN_N is the only selector."""
+    monkeypatch.setattr(mega, "POTRF_BLOCK_MULTI_MIN_N",
+                        1 if request.param else mega.MAX_N + 1)
+    return request.param
+
+
 @pytest.mark.cuda
 def test_gemm_vs_twin(cuda):
     X, T = rand((1000, 512), 1).to(cuda), rand((512, 300), 2).to(cuda)
@@ -118,7 +127,6 @@ def test_potrf_block_failed_pivots(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 31, 33, 127, 128, 129, 200, 512, 777,
                                1024])
-@pytest.mark.parametrize("multi", [False, True], ids=["one", "many"])
 def test_potrf_block_launches_on_views(cuda, n, multi):
     # both launches on a view of a wider buffer whose strict upper holds
     # NaN: the lower read, the strict upper zeroed, nothing else written
@@ -129,7 +137,7 @@ def test_potrf_block_launches_on_views(cuda, n, multi):
     v = buf[:, 8:8 + n]
     v.copy_(A)
     v[torch.ones_like(v, dtype=torch.bool).triu(1)] = float("nan")
-    info = kernels.potrf_block_f32(v, multi=multi)
+    info = kernels.potrf_block_f32(v)
     assert int(info) == int(i_ref) == 0
     assert_close(v, want, 8 * n, f"potrf_block n={n} multi={multi}")
     assert bool((torch.triu(v, 1) == 0).all())
@@ -140,7 +148,6 @@ def test_potrf_block_launches_on_views(cuda, n, multi):
 @pytest.mark.parametrize("n,k,value", [(256, 4, -1.0), (1024, 100, -1.0),
                                        (1024, 1000, -1.0), (777, 776, -1.0),
                                        (512, 300, "nan"), (256, 7, "nan")])
-@pytest.mark.parametrize("multi", [False, True], ids=["one", "many"])
 def test_potrf_block_failed_pivot_panels(cuda, n, k, value, multi):
     # a failed pivot in the first, a later and the last panel, and NaN
     # pivots: info, nothing non-finite but an input NaN at its own place,
@@ -149,7 +156,7 @@ def test_potrf_block_failed_pivot_panels(cuda, n, k, value, multi):
     A[k, k] = float(value)
     want = A.clone()
     i_ref = mega.potrf_block_plain(want)
-    info = kernels.potrf_block_f32(A, multi=multi)
+    info = kernels.potrf_block_f32(A)
     assert int(info) == int(i_ref) == k + 1
     bad = (~torch.isfinite(A)).nonzero().tolist()
     assert all(ix == [k, k] for ix in bad), bad[:5]
