@@ -464,6 +464,66 @@ def check_potrf_stream(gen, rec, on):
     print("potrf_stream_f32 non-PD A[3000,3000]=-1 at n=4096: info 3001, "
           "finite; NaN pivot A[7,7] at n=1152: info 8, nothing but (7,7) "
           "non-finite")
+    trace_potrf_stream(gen, on)
+
+
+def stream_trace(A0):
+    """One traced potrf_stream_f32 launch on a copy of A0 (after one
+    untraced warm-up): its stamps in µs from the launch's start, one row
+    per phase 0 and per panel (mega.STREAM_TRACE_SLOTS columns), and the
+    grid size."""
+    n = A0.shape[0]
+    potrf_stream_f32(A0.clone())
+    tr = torch.zeros(n // mega.NB, mega.STREAM_TRACE_SLOTS, dtype=torch.int64,
+                     device="cuda")
+    A = A0.clone()
+    torch.cuda.synchronize()
+    require(int(potrf_stream_f32(A, trace=tr)) == 0, "traced launch: info")
+    t = tr.cpu()
+    grid = int(t[0, 1])
+    t[0, 1] = t[0, 0]
+    return (t - t[0, 0]).double() / 1e3, grid
+
+
+def trace_potrf_stream(gen, on, sizes=(1024, 4096, 8192)):
+    """The panel loop of potrf_stream_f32 from its trace: per phase the sum
+    over panels (S: block 0's entry to the last block's arrival at the
+    sync; U: the sync's exit to the last updating block's end; F exposed:
+    block 0's end of F beyond that; each sync: its exit after the last
+    arrival), F's mean and the first panel whose F is not hidden behind
+    U. Returns {n: (total µs, F mean µs)}."""
+    out = {}
+    nsm = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in sizes:
+        t, grid = stream_trace(dense_spd(gen, n))
+        f0 = t[0]
+        p = t[1:]                       # panel rows
+        s = (p[:, 1] - p[:, 0]).sum()
+        sync1 = (p[:, 2] - p[:, 1]).sum()
+        diag = (p[:, 3] - p[:, 2]).sum()
+        fac = (p[:, 4] - p[:, 3]).sum()
+        inv = (p[:, 5] - p[:, 4]).sum()
+        u = (p[:, 6] - p[:, 2]).sum()
+        exposed = (p[:, 5] - p[:, 6]).clamp(min=0)
+        sync2 = (p[:, 7] - torch.maximum(p[:, 5], p[:, 6])).sum()
+        total = float(p[-1, 7]) if len(p) else float(f0[7])
+        f_mean = float(((p[:, 5] - p[:, 3]).sum() + f0[5] - f0[3])
+                       / (len(p) + 1))
+        late = (exposed > 0).nonzero()
+        first = int(late[0]) if len(late) else None
+        print(f"potrf_stream_f32 trace n={n}, grid {grid} ({grid / nsm:g} "
+              f"per SM x {nsm} SMs), {len(p)} panels: total {total:.1f} µs; "
+              f"phase 0 {float(f0[7]):.1f} (F(0) factor "
+              f"{float(f0[4] - f0[3]):.1f}, inverse {float(f0[5] - f0[4]):.1f}"
+              f"); sums over panels: S {float(s):.1f}, sync after S "
+              f"{float(sync1):.1f}, U (last block) {float(u):.1f}, block 0's "
+              f"diagonal update {float(diag):.1f}, factor {float(fac):.1f}, "
+              f"inverse {float(inv):.1f}, F exposed beyond U "
+              f"{float(exposed.sum()):.1f}, sync after U {float(sync2):.1f}; "
+              f"F (factor + inverse) mean {f_mean:.2f} µs; F exposed from "
+              f"panel {first} on ({len(late)} panels) on {on}")
+        out[n] = (total, f_mean)
+    return out
 
 
 def check_trtri_block(gen, rec, on):

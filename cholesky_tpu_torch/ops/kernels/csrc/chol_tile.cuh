@@ -27,10 +27,12 @@ constexpr int SMEM = NB * LDT * static_cast<int>(sizeof(float));
 // pivot failed, its inverse into Winv (NB x NB, row-major, zero strict
 // upper). Writes info: the absolute 1-based failed pivot, or 0. T is
 // SMEM bytes of shared memory; dinv NB floats of shared memory. On a
-// failed pivot the tile is stored as far as it got.
+// failed pivot the tile is stored as far as it got. With a stamp, thread
+// 0 writes %globaltimer there when the factor (the first half) is done.
 static __device__ void factor_tile(float* A, long long lda, int c0, int pw,
                                    bool want_inv, float* Winv, int* info,
-                                   float* T, float* dinv, int* s_fail) {
+                                   float* T, float* dinv, int* s_fail,
+                                   unsigned long long* stamp = nullptr) {
   const int tid = threadIdx.x;
   float* const At = A + (long long)c0 * lda + c0;
   __syncthreads();                 // this block's own updates of the tile
@@ -135,6 +137,7 @@ static __device__ void factor_tile(float* A, long long lda, int c0, int pw,
     __syncthreads();
   }
 
+  if (stamp && tid == 0) *stamp = globaltimer();
   if (!fail && want_inv) {
     // ---- W = T⁻¹ by DB-row blocks I: W[I, :] = D_I⁻¹·(E_I − T[I, <I]·W).
     // W[i][j] (i > j) is kept at T[j][i], the unused strict upper of the

@@ -39,6 +39,12 @@
 // other blocks wrote in this launch bypasses L1 (__ldcg). 1 + 2·(n/128 - 1) grid syncs; a failed pivot is
 // published in info before a sync and every block leaves the panel loop
 // on it.
+//
+// Trace: given a buffer of TRACE_SLOTS x (n/128) zeroed 64-bit words,
+// the launch records %globaltimer (ns) at each phase boundary: row 0 for
+// phase 0 (F(0)), row 1 + j for panel j. Block 0 writes its own stamps;
+// the other blocks' ends of S and of U are the latest over them
+// (atomicMax). A null buffer records nothing.
 #include <cooperative_groups.h>
 
 #include "chol_tile.cuh"
@@ -54,6 +60,26 @@ constexpr int NT = (BT / ct::TM) * (BT / ct::TN);   // 256 threads
 static_assert(NT == ct::tile::NT, "factor_tile runs on the whole block");
 constexpr int MAX_N = 8192;
 constexpr int SMEM = ct::tile::SMEM;
+
+// the stamps of one trace row
+enum Stamp {
+  S_START = 0,    // block 0 enters S(j) (row 0: the launch starts)
+  S_LAST = 1,     // the last block arrives at the sync after S(j)
+                  // (row 0: the grid size)
+  SYNC1_EXIT = 2, // block 0 leaves that sync
+  DIAG_END = 3,   // block 0 has updated the next diagonal tile
+  FACTOR_END = 4, // block 0 has factored it
+  F_END = 5,      // block 0 has inverted it: F(j + 1) is done
+  U_LAST = 6,     // the last updating block finds no tile left (row 0:
+                  // the last block arrives at the first sync)
+  SYNC2_EXIT = 7, // block 0 leaves the sync after U(j)
+  TRACE_SLOTS = 8
+};
+
+__device__ __forceinline__ void stamp_max(unsigned long long* slot) {
+  __syncthreads();                 // every thread of the block is done
+  if (threadIdx.x == 0) atomicMax(slot, ct::globaltimer());
+}
 
 using ct::tile::factor_tile;
 
@@ -100,7 +126,7 @@ __device__ __forceinline__ int sm_id() {
 
 __global__ void __launch_bounds__(NT, 2)
 potrf_stream_f32_kernel(float* A, long long lda, float* P, float* Winv, int n,
-                        int* info) {
+                        int* info, unsigned long long* trace) {
   extern __shared__ float T[];     // the diagonal tile, or the GEMM slabs
   __shared__ float dinv[NB];
   __shared__ int s_fail, s_tile;
@@ -113,16 +139,29 @@ potrf_stream_f32_kernel(float* A, long long lda, float* P, float* Winv, int n,
   // ctl[1 + j] the next trailing tile of U(j)
   int* const ctl = reinterpret_cast<int*>(P);
 
+  // block 0's stamp of row r
+  const bool stamps = trace && blockIdx.x == 0 && tid == 0;
+  auto mark = [&](int r, int s) {
+    if (stamps) trace[r * TRACE_SLOTS + s] = ct::globaltimer();
+  };
+
   // ---- phase 0: the strict upper zeroed, the counters, F(0)
   if (blockIdx.x == 0) {
     if (tid == 0) ctl[0] = sm_id();
-    factor_tile(A, lda, 0, NB, true, Winv, info, T, dinv, &s_fail);
+    mark(0, S_START);
+    mark(0, DIAG_END);
+    if (stamps) trace[S_LAST] = gridDim.x;
+    factor_tile(A, lda, 0, NB, true, Winv, info, T, dinv, &s_fail,
+                trace ? trace + FACTOR_END : nullptr);
+    mark(0, F_END);
   }
   if (blockIdx.x == gridDim.x - 1)
     for (int j = tid; j < nd; j += NT) ctl[1 + j] = 0;
   for (int r = blockIdx.x; r < n; r += gridDim.x)
     for (int c = r + 1 + tid; c < n; c += NT) A[(long long)r * lda + c] = 0.f;
+  if (trace) stamp_max(trace + U_LAST);
   grid.sync();
+  mark(0, SYNC2_EXIT);
   // the trailing updates run on every block but block 0, which factors
   // the diagonal tiles, and those beside it on its SM, which would take
   // issue slots from it
@@ -133,6 +172,8 @@ potrf_stream_f32_kernel(float* A, long long lda, float* P, float* Winv, int n,
     if (__ldcg(info) != 0) break;   // F(j) failed: freeze
     const int c0 = j * NB, b = c0 + NB, m = n - b;
     const int mt = m / BT;
+    const int row = 1 + j;
+    mark(row, S_START);
 
     // ---- S(j): P[b:, :] = A[b:, c0:c0+NB] · Winvᵀ by 64-row tiles;
     // Winv is lower, so column tile lc needs k < (lc + 1)·BT only. The
@@ -153,7 +194,9 @@ potrf_stream_f32_kernel(float* A, long long lda, float* P, float* Winv, int n,
         A[r * lda + c0 + c] = __ldcg(P + r * NB + c);
       }
     }
+    if (trace) stamp_max(trace + row * TRACE_SLOTS + S_LAST);
     grid.sync();
+    mark(row, SYNC1_EXIT);
 
     // ---- U(j): A22 -= P·Pᵀ on the lower tiles. Block 0 takes the next
     // diagonal tile (the first three tiles) and F(j + 1); the updating
@@ -162,7 +205,10 @@ potrf_stream_f32_kernel(float* A, long long lda, float* P, float* Winv, int n,
       update_tile(A, lda, P, b, m, 0, 0, Xs, Ys);
       update_tile(A, lda, P, b, m, 1, 0, Xs, Ys);
       update_tile(A, lda, P, b, m, 1, 1, Xs, Ys);
-      factor_tile(A, lda, b, NB, true, Winv, info, T, dinv, &s_fail);
+      mark(row, DIAG_END);
+      factor_tile(A, lda, b, NB, true, Winv, info, T, dinv, &s_fail,
+                  trace ? trace + row * TRACE_SLOTS + FACTOR_END : nullptr);
+      mark(row, F_END);
     }
     if (updates) {
       const int ntri = mt * (mt + 1) / 2;
@@ -176,15 +222,18 @@ potrf_stream_f32_kernel(float* A, long long lda, float* P, float* Winv, int n,
         ct::tri_tile(t, ti, tj);
         update_tile(A, lda, P, b, m, ti, tj, Xs, Ys);
       }
+      if (trace) stamp_max(trace + row * TRACE_SLOTS + U_LAST);
     }
     grid.sync();
+    mark(row, SYNC2_EXIT);
   }
 }
 
 }  // namespace
 
 CT_EXPORT int ct_potrf_stream_f32(float* A, long long lda, float* P,
-                                  float* Winv, int n, int* info, int device,
+                                  float* Winv, int n, int* info,
+                                  unsigned long long* trace, int device,
                                   void* stream) {
   if (n < NB || n > MAX_N || n % NB != 0 || lda < n)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -204,7 +253,7 @@ CT_EXPORT int ct_potrf_stream_f32(float* A, long long lda, float* P,
       &per_sm, potrf_stream_f32_kernel, NT, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  void* args[] = {&A, &lda, &P, &Winv, &n, &info};
+  void* args[] = {&A, &lda, &P, &Winv, &n, &info, &trace};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(potrf_stream_f32_kernel), dim3(nsm * per_sm),
       dim3(NT), args, SMEM, static_cast<cudaStream_t>(stream));

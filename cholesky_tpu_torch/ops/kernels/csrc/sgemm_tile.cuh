@@ -20,6 +20,13 @@ namespace ct {
 constexpr int TM = 4;  // micro-tile rows per thread
 constexpr int TN = 4;  // micro-tile cols per thread
 
+// The card's global nanosecond clock, comparable across SMs.
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // Lower-triangle tile t -> (i, j), j <= i, row-major over the triangle.
 __device__ __forceinline__ void tri_tile(int t, int& i, int& j) {
   i = static_cast<int>((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);

@@ -129,21 +129,35 @@ def potrf_stream_plain(A):
     return info
 
 
-def potrf_stream_f32(A):
+#: stamps per row of potrf_stream_f32's trace (csrc/potrf_stream.cu, enum
+#: Stamp): row 0 is the launch's first phase, row 1 + j panel j
+STREAM_TRACE_SLOTS = 8
+
+
+def potrf_stream_f32(A, *, trace=None):
     """Lower Cholesky of the f32 matrix A, n a multiple of NB up to
     STREAM_MAX_N, unit-stride rows, in place, as :func:`potrf_block_f32`
     does: only the lower triangle is read, the strict upper is zeroed, and
     info (0-d int32) is the first pivot with !(d > 0), the factor frozen
     there. The launch also takes (n + NB)·NB floats of scratch on the
-    card, freed on return."""
+    card, freed on return. ``trace``, for measurement on the card only: a
+    zeroed int64 tensor of (n / NB, STREAM_TRACE_SLOTS) into which the
+    launch writes the card's nanosecond clock at each phase boundary."""
     n = _check_block(A, "potrf_stream_f32", STREAM_MAX_N, NB)
+    if trace is not None:
+        check(A.device.type == "cuda" and trace.device == A.device
+              and trace.dtype == torch.int64 and trace.is_contiguous()
+              and trace.shape == (n // NB, STREAM_TRACE_SLOTS),
+              "potrf_stream_f32", 2, "trace must be a contiguous int64 "
+              f"({n // NB}, {STREAM_TRACE_SLOTS}) tensor beside A on the card")
     if A.device.type == "cpu":
         return potrf_stream_plain(A)
     P = torch.empty((n + NB, NB), dtype=A.dtype, device=A.device)
     info = torch.empty((), dtype=torch.int32, device=A.device)
     err = _build.library().ct_potrf_stream_f32(
         A.data_ptr(), A.stride(0), P.data_ptr(), P[n:].data_ptr(), n,
-        info.data_ptr(), *_build.device_args(A))
+        info.data_ptr(), trace.data_ptr() if trace is not None else None,
+        *_build.device_args(A))
     _build.check_launch(err, "potrf_stream_f32")
     potrf_stream_f32.launches += 1
     return info
