@@ -42,11 +42,16 @@ show that the path went through each of its kernels:
   at 2048 (``gemm_f32`` only), each held in c128 on the card and timed
   beside a c64/c128 ``torch.linalg`` or ``matmul`` call.
 
-Phase 3 also runs the A/B of ``potrf_block_f32``'s two launches (one
-thread block, or one cooperative launch over many) and of
-``potrf_stream_f32`` at the multiples of 128 that sets its crossover, and
-phase 6 counts every ``mm_groups_f32pair`` launch of the profiled
-``dpotrf`` by shape, with its device time.
+Phase 3 also runs the A/B of ``gemm_f32``'s two tiles at the paths'
+shapes, of ``potrf_block_f32``'s two launches (one thread block, or one
+cooperative launch over many) and of ``potrf_stream_f32`` at the
+multiples of 128 that sets its crossover, and prints the trace of
+``potrf_stream_f32``'s panel loop at n = 1024, 4096 and 8192 (per phase
+the sum over panels, F's mean, the first panel whose F is not hidden
+behind the trailing update). Phase 5 counts every ``gemm_f32`` launch of
+one GP train step by shape and layout, with the tile the launch rule
+chose and its device time, and phase 6 every ``mm_groups_f32pair``
+launch of the profiled ``dpotrf``.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
@@ -72,6 +77,7 @@ import cholesky_tpu_torch as ct
 from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import _build, mega
+from cholesky_tpu_torch.ops.kernels import gemm as kgemm
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32, gemm_plain
 from cholesky_tpu_torch.ops.kernels.leaf import (lauu2_f32, lauu2_plain,
                                                  potf2_f32, potf2_plain,
@@ -226,60 +232,144 @@ def ms_inplace(fn, A, reps: int) -> float:
 # phase 3: each kernel against its plain twin at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def gemm_tile_on(tile: int):
+    """The gemm_f32 launch rule moved so that every launch takes the 128 or
+    the 64 tile: GEMM128_MIN_TILES, its only selector, set for a while.
+    Returns the value to put back."""
+    keep = kgemm.GEMM128_MIN_TILES
+    kgemm.GEMM128_MIN_TILES = 1 if tile == 128 else 1 << 30
+    return keep
+
+
+def operand(gen, rows, cols, transposed, off, odd):
+    """A (rows x cols) f32 view of a wider buffer, row-major or (with
+    ``transposed``) column-major, ``off`` elements past an aligned base
+    (off the 16-byte grid when odd), the leading stride a multiple of 4 or,
+    with ``odd``, odd."""
+    inner, outer = (rows, cols) if transposed else (cols, rows)
+    width = inner + off + 1
+    width += (width % 2 == 0) if odd else -width % 4
+    buf = torch.randn(outer, width, device="cuda", generator=gen)
+    v = buf[:, off:off + inner]
+    return v.T if transposed else v
+
+
+def gemm_gated(what, got, A, B, C=None, alpha=1.0, beta=0.0):
+    """gemm_f32's result against f64 within F32_GATE times torch.matmul's
+    f32 error (cuBLAS, TF32 off) on the same operands."""
+    ref = alpha * (A.double() @ B.double())
+    yard = alpha * torch.matmul(A, B)
+    if C is not None:
+        ref = ref + beta * C.double()
+        yard = yard + beta * C
+    return gated(what, got, ref, max_err(yard, ref), rms=rms_of(ref))
+
+
 def check_gemm(gen, rec, on):
-    dev = "cuda"
-    X = torch.randn(4096, 512, device=dev, generator=gen)
-    T = torch.randn(512, 512, device=dev, generator=gen)
-    # the leaf product of the panel solve: X·Tᵀ, Tᵀ a transposed view
-    got = gemm_f32(X, T.T)
-    ref = gemm_plain(X, T.T)
-    err = max_err(got, ref)
-    b = bound(2 * 512 + 3, float(ref.abs().max()))
-    require(err <= b, f"gemm_f32 X·Tᵀ: err {err} > {b}")
-    # the trsm update B2 -= X1·Mᵀ in place on a slice view (beta = 1)
-    buf = torch.randn(4096, 1024, device=dev, generator=gen)
-    M = torch.randn(512, 512, device=dev, generator=gen)
-    want = gemm_plain(buf[:, :512], M.T, buf[:, 512:].clone(), alpha=-1.0,
-                      beta=1.0)
-    left = buf[:, :512].clone()
-    B2 = buf[:, 512:]
-    gemm_f32(buf[:, :512], M.T, B2, alpha=-1.0, beta=1.0, out=B2)
-    err2 = max_err(B2, want)
-    b2 = bound(2 * 512 + 3, float(want.abs().max()))
-    require(err2 <= b2, f"gemm_f32 in place: err {err2} > {b2}")
-    require(torch.equal(buf[:, :512], left), "gemm_f32 wrote outside out")
-    D = torch.empty(4096, 512, device=dev)
-    ms = bench_op(lambda x: gemm_f32(x, T.T, out=D), X) * 1e3
-    plain_ms = bench_op(lambda x: gemm_plain(x, T.T, out=D), X) * 1e3
-    print(f"gemm_f32 (4096x512)·(512x512)ᵀ: max err {err:.3e} (bound "
-          f"{b:.3e}); in place beta=1 on a view: {err2:.3e} (bound "
-          f"{b2:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {on}")
-    del buf, X, D
-    # the GP step's largest products: potri's trtri recursion at 8192,
-    # M' = -W2·M·W1 on 4096 halves, all three views of one 8192 buffer
-    L = torch.randn(8192, 8192, device=dev, generator=gen) / 64.0
+    """gemm_f32 against f64, each case within F32_GATE times torch.matmul's
+    f32 error on the same operands: on both tiles, the four layout pairs of
+    A and B at a ragged 1000 x 777 · 515, on the 16-byte grid, one column
+    off it and with an odd leading stride; beta = 1 in place on a view with
+    a transposed B (the trsm update); the leaf product of the panel solve
+    and potri's 4096³ products on views of one 8192 buffer. Then the two
+    tiles' A/B at the path's shapes and the times beside torch.matmul."""
+    m, n, k = 1000, 777, 515
+    worst = {128: 0.0, 64: 0.0}
+    for tile in (128, 64):
+        keep = gemm_tile_on(tile)
+        try:
+            for a_t in (False, True):
+                for b_t in (False, True):
+                    for off, odd in ((0, False), (1, False), (0, True)):
+                        A = operand(gen, m, k, a_t, off, odd)
+                        B = operand(gen, k, n, b_t, off, odd)
+                        plan = kgemm.launch_plan(m, n, A.stride(),
+                                                 A.data_ptr(), B.stride(),
+                                                 B.data_ptr())
+                        require(plan[0] == tile
+                                and plan[3] == (off == 0 and not odd),
+                                f"gemm_f32 launch plan {plan}")
+                        err, lim, _ = gemm_gated(
+                            f"gemm_f32 {tile}-tile A{'T' if a_t else 'N'}"
+                            f" B{'T' if b_t else 'N'} off {off} odd {odd}",
+                            gemm_f32(A, B, alpha=0.5), A, B, alpha=0.5)
+                        worst[tile] = max(worst[tile], err / lim)
+            # the trsm update B2 -= X1·Mᵀ in place on a slice view
+            buf = torch.randn(m, k + n + 1, device="cuda", generator=gen)
+            M = torch.randn(n, k, device="cuda", generator=gen)
+            X1, B2 = buf[:, :k], buf[:, k + 1:]
+            C0, left = B2.clone(), buf[:, :k + 1].clone()
+            gemm_f32(X1, M.T, B2, alpha=-1.0, beta=1.0, out=B2)
+            err, lim, _ = gemm_gated(f"gemm_f32 {tile}-tile in place",
+                                     B2, X1, M.T, C0, -1.0, 1.0)
+            worst[tile] = max(worst[tile], err / lim)
+            require(torch.equal(buf[:, :k + 1], left),
+                    f"gemm_f32 {tile}-tile wrote outside out")
+        finally:
+            kgemm.GEMM128_MIN_TILES = keep
+    print(f"gemm_f32 {m}x{n}·{k}, both tiles, the four layouts of A and B "
+          f"on the 16-byte grid, one column off it and with an odd leading "
+          f"stride, and beta=1 in place on a view: the worst error "
+          f"{worst[128]:.3f} (128-tile) and {worst[64]:.3f} (64-tile) of the "
+          f"limit, {F32_GATE:g}x torch.matmul's f32 error against f64")
+    # the leaf product of the panel solve, X·Tᵀ with Tᵀ a transposed view
+    X = torch.randn(4096, 512, device="cuda", generator=gen)
+    T = torch.randn(512, 512, device="cuda", generator=gen)
+    err, lim, _ = gemm_gated("gemm_f32 (4096x512)·(512x512)ᵀ", gemm_f32(X, T.T),
+                             X, T.T)
+    # potri's trtri recursion at 8192: M' = -W2·M·W1 on 4096 halves, all
+    # three views of one 8192 buffer
+    L = torch.randn(8192, 8192, device="cuda", generator=gen) / 64.0
     W2, M, W1 = L[4096:, 4096:], L[4096:, :4096], L[:4096, :4096]
     Mp = gemm_f32(W2, M)
-    want = gemm_plain(W2, M)
-    err3 = max_err(Mp, want)
-    b3 = bound(2 * 4096 + 3, float(want.abs().max()))
-    require(err3 <= b3, f"gemm_f32 4096³ W2·M: err {err3} > {b3}")
-    want2 = gemm_plain(Mp, W1, alpha=-1.0)
+    err3, lim3, _ = gemm_gated("gemm_f32 4096³ W2·M", Mp, W2, M)
+    Mp64, W1c = Mp.double(), W1.clone()
     out = L[4096:, :4096]
-    gemm_f32(Mp, W1, alpha=-1.0, out=out)
-    err4 = max_err(out, want2)
-    b4 = bound(2 * 4096 + 3, float(want2.abs().max()))
-    require(err4 <= b4, f"gemm_f32 4096³ -T·W1 into a view: err {err4} > {b4}")
-    ms = bench_op(lambda m: gemm_f32(W2, m), M, reps=5) * 1e3
-    plain_ms = bench_op(lambda m: gemm_plain(W2, m), M, reps=5) * 1e3
-    lib_ms = bench_op(lambda m: torch.matmul(W2, m), M, reps=5) * 1e3
-    print(f"gemm_f32 4096³ on views of an 8192 buffer: W2·M max err "
-          f"{err3:.3e} (bound {b3:.3e}); -T·W1 into the view M: {err4:.3e} "
-          f"(bound {b4:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    gemm_f32(Mp, W1c, alpha=-1.0, out=out)
+    err4, lim4, _ = gemm_gated("gemm_f32 4096³ -M'·W1 into a view", out, Mp,
+                               W1c, alpha=-1.0)
+    del Mp64, W1c
+    print(f"gemm_f32 (4096x512)·(512x512)ᵀ: err {err:.3e} (limit {lim:.3e}); "
+          f"4096³ on views of an 8192 buffer: W2·M {err3:.3e} (limit "
+          f"{lim3:.3e}), -M'·W1 into the view M {err4:.3e} (limit "
+          f"{lim4:.3e}), against f64")
+    # the two tiles at the path's shapes, in turns 128, 64, 64, 128
+    for (mm, nn, kk, bt) in ((4096, 512, 512, True), (2048, 512, 512, True),
+                             (1024, 1024, 1024, False),
+                             (1536, 1024, 1024, False),
+                             (2048, 2048, 2048, False)):
+        Am = torch.randn(mm, kk, device="cuda", generator=gen)
+        Bm = (torch.randn(nn, kk, device="cuda", generator=gen).T if bt
+              else torch.randn(kk, nn, device="cuda", generator=gen))
+        t = []
+        for tile in (128, 64, 64, 128):
+            keep = gemm_tile_on(tile)
+            try:
+                t.append(bench_op(lambda a: gemm_f32(a, Bm), Am, reps=10)
+                         * 1e3)
+            finally:
+                kgemm.GEMM128_MIN_TILES = keep
+        tiles = -(-mm // 128) * -(-nn // 128)
+        print(f"gemm_f32 A/B {mm}x{nn}·{kk}{'ᵀ' if bt else ''} ({tiles} "
+              f"tiles of 128): 128-tile {t[0]:.4f}/{t[3]:.4f} ms, 64-tile "
+              f"{t[1]:.4f}/{t[2]:.4f} ms; the rule takes "
+              f"{128 if tiles >= kgemm.GEMM128_MIN_TILES else 64} on {on}")
+    D = torch.empty(4096, 512, device="cuda")
+    ms = bench_op(lambda x: gemm_f32(x, T.T, out=D), X) * 1e3
+    plain_ms = bench_op(lambda x: gemm_plain(x, T.T, out=D), X) * 1e3
+    lib_ms = bench_op(lambda x: torch.matmul(x, T.T, out=D), X) * 1e3
+    print(f"gemm_f32 (4096x512)·(512x512)ᵀ: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms on {on}")
+    ms = bench_op(lambda m: gemm_f32(W2, m), M, reps=10) * 1e3
+    plain_ms = bench_op(lambda m: gemm_plain(W2, m), M, reps=10) * 1e3
+    lib_ms = bench_op(lambda m: torch.matmul(W2, m), M, reps=10) * 1e3
+    print(f"gemm_f32 4096³ on views: kernel {ms:.4f} ms "
+          f"({2 * 4096 ** 3 / ms / 1e9:.1f} GF/s), plain {plain_ms:.4f} ms, "
           f"torch.matmul {lib_ms:.4f} ms on {on}")
     rec["gemm_f32"] = dict(max_abs_err=max(err3, err4), ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms,
                            **roofline(2 * 4096 ** 3, "f32", 3 * 4096 ** 2 * 4))
+    del L, X, D
 
 
 def check_syrk(gen, rec, on):
@@ -421,49 +511,93 @@ def check_potrf_block(gen, rec, on):
 
 
 def check_potrf_stream(gen, rec, on):
-    for n in (2048, 4096, 8192):
-        # the caller's strict upper holds NaN: only the lower may be read
-        A = spd(gen, n)
-        F = A.clone()
-        F[torch.ones_like(F, dtype=torch.bool).triu(1)] = float("nan")
-        info = potrf_stream_f32(F)
-        want = A.clone()
+    """potrf_stream_f32 against an f64 factor of a dense SPD input, gated on
+    its twin's error: n = 1152-8192 with a NaN strict upper, a view whose
+    base and leading stride are off the 16-byte grid, failed pivots in the
+    first, a middle and the last panel and a NaN pivot, each leading block
+    gated the same way; then the time at 8192 beside cuSOLVER and the
+    trace of the panel loop."""
+    for n in (1152, 2048, 4096, 8192):
+        A0 = dense_spd(gen, n)
+        L64 = torch.linalg.cholesky(A0.double())
+        want = A0.clone()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
         i_ref = potrf_stream_plain(want)
+        t1.record()
+        t1.synchronize()
+        twin_err = max_err(want, L64)
+        del want
+        # the caller's strict upper holds NaN: only the lower may be read
+        F = A0.clone()
+        F[torch.ones_like(F, dtype=torch.bool).triu(1)] = math.nan
+        info = potrf_stream_f32(F)
+        what = f"potrf_stream_f32 n={n}"
         require(int(info) == 0 and int(i_ref) == 0,
-                f"potrf_stream_f32 n={n}: info {int(info)}/{int(i_ref)}")
-        require(bool(torch.isfinite(F).all()),
-                f"potrf_stream_f32 n={n} read the NaN strict upper")
-        require(bool((torch.triu(F, 1) == 0).all()),
-                f"potrf_stream_f32 n={n}: strict upper not zero")
-        err = max_err(F, want)
-        b = bound(8 * n, float(want.abs().max()))
-        require(err <= b, f"potrf_stream_f32 n={n}: err {err} > {b}")
-        ms = bench_op(lambda a: potrf_stream_f32(a.clone()), A, reps=5) * 1e3
-        plain_ms = bench_op(lambda a: potrf_stream_plain(a.clone()), A,
-                            warmup=1, reps=3) * 1e3
-        print(f"potrf_stream_f32 n={n}: max err {err:.3e} (bound {b:.3e}), "
-              f"NaN strict upper unread; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms (incl. a copy) on {on}")
+                f"{what}: info {int(info)}/{int(i_ref)}")
+        require(bool(torch.isfinite(F).all())
+                and bool((torch.triu(F, 1) == 0).all()),
+                f"{what}: read the NaN strict upper or left it")
+        err, lim, rms = gated(what, F, L64, twin_err)
+        print(f"{what} (dense, cond 100), NaN strict upper: max err vs f64 "
+              f"{err:.3e}, the twin's {twin_err:.3e} (limit {lim:.3e}, "
+              f"1/{rms / lim:.0f} of the strict lower's RMS {rms:.3e})")
+        del F, L64
         if n == 8192:
-            lib_ms = bench_op(lambda a: torch.linalg.cholesky_ex(a), A,
-                              reps=5) * 1e3
-            print(f"  torch.linalg.cholesky_ex n={n}: {lib_ms:.4f} ms")
+            plain_ms = t0.elapsed_time(t1)
+            ms = ms_inplace(potrf_stream_f32, A0, 10)
+            lib_ms = ms_inplace(torch.linalg.cholesky_ex, A0, 10)
+            print(f"potrf_stream_f32 n={n}: kernel {ms:.4f} ms, "
+                  f"torch.linalg.cholesky_ex {lib_ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms (one run) on {on}")
             rec["potrf_stream_f32"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
-    # failed pivots: info, nothing non-finite but an input NaN pivot, the
-    # leading block right
-    for n, k, v in ((4096, 3000, -1.0), (1152, 7, float("nan"))):
-        A = spd(gen, n, 10.0)
-        A[k, k] = v
+        del A0
+    # a view one column into a buffer of odd row length: base and leading
+    # stride off the 16-byte grid; nothing outside the view written
+    n = 2048
+    A0 = dense_spd(gen, n)
+    L64 = torch.linalg.cholesky(A0.double())
+    want = A0.clone()
+    potrf_stream_plain(want)
+    buf = torch.full((n, n + 3), 7.0, device="cuda")
+    v = buf[:, 1:1 + n]
+    v.copy_(A0)
+    v[torch.ones_like(v, dtype=torch.bool).triu(1)] = math.nan
+    require(int(potrf_stream_f32(v)) == 0, "potrf_stream_f32 view: info")
+    err, lim, _ = gated(f"potrf_stream_f32 n={n} view, leading stride "
+                        f"{n + 3}", v, L64, max_err(want, L64))
+    require(bool((buf[:, 0] == 7.0).all() and (buf[:, 1 + n:] == 7.0).all()),
+            "potrf_stream_f32 wrote outside the view")
+    print(f"potrf_stream_f32 n={n} on a view off the 16-byte grid (base one "
+          f"column in, leading stride {n + 3}): max err vs f64 {err:.3e} "
+          f"(limit {lim:.3e}), nothing outside the view written")
+    del buf, v, want, L64
+    # failed pivots in the first, a middle and the last panel, and a NaN
+    # pivot: info, frozen and finite but an input NaN at its own place, the
+    # leading block gated on the twin's
+    for n, k, val in ((2048, 5, -1.0), (2048, 1000, -1.0), (2048, 2040, -1.0),
+                      (1152, 7, math.nan)):
+        A0 = dense_spd(gen, n, 10.0)
+        A0[k, k] = val
+        L64 = torch.linalg.cholesky(A0[:k, :k].double())
+        want = A0.clone()
+        i_ref = potrf_stream_plain(want)
+        A = A0.clone()
         info = potrf_stream_f32(A)
         bad = (~torch.isfinite(A)).nonzero().tolist()
-        require(int(info) == k + 1 and all(ix == [k, k] for ix in bad),
-                f"potrf_stream_f32 A[{k},{k}]={v}: info {int(info)}, "
-                f"non-finite at {bad[:5]}")
-    print("potrf_stream_f32 non-PD A[3000,3000]=-1 at n=4096: info 3001, "
-          "finite; NaN pivot A[7,7] at n=1152: info 8, nothing but (7,7) "
-          "non-finite")
+        what = f"potrf_stream_f32 n={n} A[{k},{k}]={val}"
+        require(int(info) == k + 1 == int(i_ref)
+                and all(ix == [k, k] for ix in bad),
+                f"{what}: info {int(info)}, non-finite at {bad[:5]}")
+        gated(f"{what}: leading block", torch.tril(A[:k, :k]), L64,
+              max_err(torch.tril(want[:k, :k]), L64))
+    print("potrf_stream_f32 failed pivots A[5,5], A[1000,1000], "
+          "A[2040,2040]=-1 (n=2048: the first, a middle and the last panel) "
+          "and a NaN pivot A[7,7] (n=1152), dense: info k+1, nothing but an "
+          "input NaN pivot non-finite, each leading block within the gate")
     trace_potrf_stream(gen, on)
 
 
@@ -1085,7 +1219,7 @@ def main_path(gen, name_power):
     require(int(info) == 0 and be <= bound(4096, float(A.abs().max())),
             f"potrf block_size=512: info {int(info)}, backward error {be}")
     print(f"spotrf n=4096 block_size=512: info 0, max|LLᵀ-A| {be:.3e}")
-    # upper at n = 1024 (the whole-block route)
+    # upper at n = 1024 (one whole-matrix launch)
     A = A1024 = spd(gen, 1024)
     F, info = ct.potrf("U", A)
     be = backward_error(F, A, "U")
@@ -1103,7 +1237,7 @@ def main_path(gen, name_power):
     print(f"spotrf non-PD n=4096 A[3000,3000]=-1: info 3001, leading "
           f"3000 block max|LLᵀ-A| {be:.3e}")
     # rates, beside torch.linalg.cholesky (oracle and yardstick); at 1024
-    # potrf is one potrf_block_f32 launch
+    # potrf is one potrf_stream_f32 launch
     for n, A in {1024: A1024, **inputs}.items():
         t = bench_op(lambda a: ct.potrf("L", a), A, reps=5)
         t_ref = bench_op(lambda a: torch.linalg.cholesky(a), A, reps=5)
@@ -1184,6 +1318,79 @@ def wall_ms(fn, reps=3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return sorted(times)[len(times) // 2] * 1e3
+
+
+def gemm_census(fn):
+    """One call of fn under torch.profiler with every gemm_f32 launch noted
+    on its way to the library (a proxy for _build.library): returns
+    [((m, n, k, A layout, B layout, tile), device ms)] in launch order,
+    each launch's time from the profiler's gemm kernel of the same rank."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    real, lib, shapes = _build.library, _build.library(), []
+
+    class Proxy:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def ct_gemm_f32(*args):
+            m, n, k = args[12:15]
+            tile, a_kf, b_kf = args[17:20]
+            shapes.append((m, n, k, "N" if a_kf else "T",
+                           "T" if b_kf else "N", tile))
+            return lib.ct_gemm_f32(*args)
+
+    torch.cuda.synchronize()
+    _build.library = Proxy
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        _build.library = real
+    runs = sorted((e.time_range.start, (e.time_range.end - e.time_range.start)
+                   / 1e3) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and ("gemm64_kernel" in e.name or "gemm128_kernel" in e.name))
+    require(len(runs) == len(shapes), f"gemm census: {len(shapes)} launches, "
+            f"{len(runs)} kernels in the trace")
+    return list(zip(shapes, (t for _, t in runs)))
+
+
+def print_gemm_census(census, on, top=6):
+    """The gemm_f32 launches of one GP train step by (m, n, k, layouts), with
+    the tile the launch rule chose, then the top shapes timed alone on both
+    tiles (CUDA events, fresh operands of the same layouts)."""
+    by = {}
+    for key, ms in census:
+        c, t = by.get(key, (0, 0.0))
+        by[key] = (c + 1, t + ms)
+    rows = sorted(by.items(), key=lambda r: -r[1][1])
+    print(f"gemm_f32 census of one GP train step: {len(census)} launches, "
+          f"{sum(t for _, (_, t) in rows):.3f} ms of device time; (m, n, k), "
+          f"A and B layouts (N row-major, T transposed), the tile chosen:")
+    for (m, n, k, la, lb, tile), (c, t) in rows:
+        print(f"  {m:5d} {n:5d} {k:5d} {la}{lb} {tile:3d}  {c:4d} launches  "
+              f"{t:9.3f} ms")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for (m, n, k, la, lb, tile), _ in rows[:top]:
+        A = (torch.randn(k, m, device="cuda", generator=g).T if la == "T"
+             else torch.randn(m, k, device="cuda", generator=g))
+        B = (torch.randn(n, k, device="cuda", generator=g).T if lb == "T"
+             else torch.randn(k, n, device="cuda", generator=g))
+        t = {}
+        for edge in (128, 64):
+            keep = gemm_tile_on(edge)
+            try:
+                t[edge] = bench_op(lambda a: gemm_f32(a, B), A, reps=10) * 1e3
+            finally:
+                kgemm.GEMM128_MIN_TILES = keep
+        lib_ms = bench_op(lambda a: torch.matmul(a, B), A, reps=10) * 1e3
+        print(f"  gemm_f32 {m}x{n}·{k} {la}{lb}: 128-tile {t[128]:.4f} ms, "
+              f"64-tile {t[64]:.4f} ms (the rule: {tile}), torch.matmul "
+              f"{lib_ms:.4f} ms on {on}")
 
 
 def gp_path(name_power, dev="cuda"):
@@ -1304,6 +1511,9 @@ def gp_path(name_power, dev="cuda"):
     b2 = bound(2 * 2048 + 3, float(lau2.abs().max()))
     require(e2 <= b2, f"lauum block_size=512 n=2048: err {e2} > {b2}")
     print(f"lauum n=2048 on 512 leaves: max err {e2:.3e} (bound {b2:.3e})")
+
+    print_gemm_census(gemm_census(lambda: gp.gp_train_step(p0, X, y, lr=lr)),
+                      name_power)
 
     # times, beside torch.linalg yardsticks (never the port)
     step_ms = wall_ms(lambda: gp.gp_train_step(p0, X, y, lr=lr))
@@ -1956,7 +2166,7 @@ def cz_path(gen, name_power):
 #: each path's kernels: the launch counters must show every one of them
 PATHS = {
     "potrf": ("potrf_stream_f32",),
-    "potrf block_size=512": ("gemm_f32", "syrk_lower_f32", "potrf_block_f32",
+    "potrf block_size=512": ("gemm_f32", "syrk_lower_f32", "potrf_stream_f32",
                              "trtri_block_f32"),
     "GP": ("gemm_f32", "trtri_block_f32", "potrf_stream_f32",
            "trtri_stream_f32", "lauum_stream_f32"),
@@ -1992,8 +2202,7 @@ SOURCES = {
                        "cholesky_tpu/ops/pallas/syrk.py:70",
                        "potrf block_size=512"),
     "potrf_block_f32": ("cholesky_tpu_torch/ops/kernels/csrc/potrf_block.cu",
-                        "cholesky_tpu/ops/pallas/mega.py:234",
-                        "potrf block_size=512"),
+                        "cholesky_tpu/ops/pallas/mega.py:234", "d"),
     "potrf_stream_f32": ("cholesky_tpu_torch/ops/kernels/csrc/"
                          "potrf_stream.cu",
                          "cholesky_tpu/ops/pallas/mega.py:364", "GP"),

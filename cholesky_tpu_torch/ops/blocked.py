@@ -138,13 +138,15 @@ class _KernelTiles:
     @staticmethod
     def potf2(A):
         """One whole-matrix kernel where _mega_ok takes the block
-        (potrf_block_f32 up to 1024, then potrf_stream_f32), the leaf
-        kernel potf2_f32 elsewhere (JAX ``_PallasTiles.potf2``)."""
+        (potrf_stream_f32 for the multiples of 128 from
+        POTRF_STREAM_MIN_N, potrf_block_f32 for the rest up to 1024), the
+        leaf kernel potf2_f32 elsewhere (JAX ``_PallasTiles.potf2``)."""
         n = A.shape[0]
         if not _mega_ok(n):
             return _k.potf2_f32(A)
-        kern = _k.potrf_block_f32 if n <= _mega.MAX_N else _k.potrf_stream_f32
-        return kern(A)
+        stream = n > _mega.MAX_N or (n % _mega.NB == 0
+                                     and n >= _mega.POTRF_STREAM_MIN_N)
+        return (_k.potrf_stream_f32 if stream else _k.potrf_block_f32)(A)
 
     @staticmethod
     def trti2(L, unit=False):

@@ -55,11 +55,9 @@ def _nvcc() -> str:
 
 
 def _tile_flags() -> list[str]:
-    mm = get_params("matmul_f32")
+    # gemm_f32 picks its tile per launch (kernels/gemm.py, launch_plan)
     sy = get_params("syrk_f32")
-    return [f"-DGEMM_BM={mm['bm']}", f"-DGEMM_BN={mm['bn']}",
-            f"-DGEMM_BK={mm['bk']}", f"-DSYRK_BN={sy['bn']}",
-            f"-DSYRK_BK={sy['bk']}"]
+    return [f"-DSYRK_BN={sy['bn']}", f"-DSYRK_BK={sy['bk']}"]
 
 
 def build() -> Build:
@@ -123,10 +121,10 @@ def library() -> ctypes.CDLL:
         # every entry point ends with (device index, stream)
         signatures = {
             "ct_gemm_f32": [P, LL, LL, P, LL, LL, P, LL, LL, P, LL, LL,
-                            I, I, I, F, F, I, P],
+                            I, I, I, F, F, I, I, I, I, I, P],
             "ct_syrk_lower_f32": [P, LL, LL, P, LL, LL, I, I, F, F, I, P],
             "ct_potrf_block_f32": [P, LL, I, P, I, I, P],
-            "ct_potrf_stream_f32": [P, LL, P, P, I, P, P, I, P],
+            "ct_potrf_stream_f32": [P, LL, P, P, P, I, P, P, I, P],
             "ct_trtri_block_f32": [P, LL, P, LL, I, P, I, P],
             "ct_trtri_stream_f32": [P, LL, P, LL, P, I, P, I, P],
             "ct_lauum_stream_f32": [P, LL, P, LL, I, I, P],

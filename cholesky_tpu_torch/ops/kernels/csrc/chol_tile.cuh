@@ -9,6 +9,14 @@
 // down the block, one thread per column), so that no thread runs a chain
 // longer than 32. A tile narrower than 128 (the last tile of a matrix of
 // n < 128) is padded with identity rows, which never fail and decouple.
+//
+// What bounds it is latency: one block on one SM, and the 128 pivots are
+// one chain. The trace of potrf_stream.cu put warp 0's 32 pivot steps at
+// 7 µs (220 ns a pivot, with IEEE sqrtf and __frcp_rn on the chain). Each
+// pivot step now scales its column by an rsqrtf refined by one Newton
+// step (within an ulp of 1/sqrt); the correctly rounded sqrtf of the
+// stored diagonal runs beside the chain. The trailing update of each step
+// covers only the rows still below it.
 #pragma once
 
 #include "sgemm_tile.cuh"
@@ -21,6 +29,44 @@ constexpr int LDT = NB + 1;    // shared row stride of the tile
 constexpr int DB = 32;         // step of the tile's own factor and inverse
 constexpr int NT = 256;        // threads of the block
 constexpr int SMEM = NB * LDT * static_cast<int>(sizeof(float));
+
+// 1/sqrt(x) for x > 0 within about an ulp: the hardware estimate and one
+// Newton step, three dependent operations after it.
+__device__ __forceinline__ float rsqrt_nr(float x) {
+  const float r = rsqrtf(x);
+  const float h = 0.5f * x;
+  return r * fmaf(-h * r, r, 1.5f);
+}
+
+// T[i][j] -= Σ_m T[i][c + m]·T[j][c + m] over the lower triangle of rows
+// and columns [c + DB, NB): thread (tid / 16, tid % 16) owns rows
+// c + DB + tid / 16 + 16a and columns c + DB + tid % 16 + 16b, a, b < G,
+// G = (NB - c - DB) / 16.
+template <int G>
+__device__ __forceinline__ void trailing_update(float* T, int c) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const int m0 = c + DB;
+  float acc[G][G] = {};
+#pragma unroll 4
+  for (int m = 0; m < DB; ++m) {
+    float ra[G], cb[G];
+#pragma unroll
+    for (int a = 0; a < G; ++a) ra[a] = T[(m0 + tr + 16 * a) * LDT + c + m];
+#pragma unroll
+    for (int b = 0; b < G; ++b) cb[b] = T[(m0 + tc + 16 * b) * LDT + c + m];
+#pragma unroll
+    for (int a = 0; a < G; ++a)
+#pragma unroll
+      for (int b = 0; b < G; ++b) acc[a][b] = fmaf(ra[a], cb[b], acc[a][b]);
+  }
+#pragma unroll
+  for (int a = 0; a < G; ++a)
+#pragma unroll
+    for (int b = 0; b < G; ++b) {
+      const int i = m0 + tr + 16 * a, j = m0 + tc + 16 * b;
+      if (j <= i) T[i * LDT + j] -= acc[a][b];
+    }
+}
 
 // Factor the diagonal tile A[c0:c0+pw, c0:c0+pw] (lower part only, pw <=
 // NB), store the factor back (lower part only) and, if want_inv and no
@@ -46,40 +92,45 @@ static __device__ void factor_tile(float* A, long long lda, int c0, int pw,
 
   // ---- the factor, right-looking over DB-wide steps
   int fail = 0;
-  const int tr = tid / 16, tc = tid % 16;
   for (int c = 0; c < NB; c += DB) {
     // (a) warp 0 factors the DB x DB diagonal block, lane l holding row
-    // c + l in registers; column k reaches the other lanes by shuffles
+    // c + l in registers, column k reaching the other lanes by shuffles.
+    // The chain per pivot is one shuffle, the scale (rsqrt_nr) and one
+    // update; the correctly rounded sqrtf of each diagonal is taken after
+    // the chain. Every update is unconditional, its coefficient selected
+    // (zero where a lane must not change), so that the shuffles of one
+    // pivot issue back to back: predicated updates made ptxas pass them
+    // all through one register, each waiting out the last. Past a failed
+    // pivot the block is frozen, every later coefficient zero.
     if (tid < 32) {
       const int l = tid;
       float row[DB];
 #pragma unroll
       for (int j = 0; j < DB; ++j) row[j] = T[(c + l) * LDT + c + j];
       int f = 0;
+      float piv = 1.f;             // this lane's pivot, once factored
 #pragma unroll
       for (int k = 0; k < DB; ++k) {
         const float d2 = __shfl_sync(0xffffffffu, row[k], k);
-        if (!(d2 > 0.f)) {         // NaN-safe; the same for every lane
-          f = c0 + c + k + 1;
-          break;
-        }
-        const float d = sqrtf(d2), rd = __frcp_rn(d);
-        if (l == k) {
-          row[k] = d;
-          dinv[c + k] = rd;        // W's diagonal, and the solves' scale
-        } else if (l > k) {
-          row[k] *= rd;
-        }
-        const float lk = row[k];
+        f = (f == 0 && !(d2 > 0.f)) ? c0 + c + k + 1 : f;   // NaN-safe
+        const bool live = f == 0;                           // every lane
+        const float rd = rsqrt_nr(live ? d2 : 1.f);
+        if (live && l == k) dinv[c + k] = rd;   // W's diagonal, the scale
+        piv = live && l == k ? d2 : piv;
+        row[k] *= live && l > k ? rd : 1.f;
+        const float nlk = live ? -row[k] : 0.f;
 #pragma unroll
         for (int j = k + 1; j < DB; ++j) {
           const float ljk = __shfl_sync(0xffffffffu, row[k], j);
-          if (l >= j) row[j] = fmaf(-lk, ljk, row[j]);
+          row[j] = fmaf(l >= j ? nlk : 0.f, ljk, row[j]);
         }
       }
+      const float d = sqrtf(piv);
+      const bool factored = f == 0 || c0 + c + l + 1 < f;
 #pragma unroll
       for (int j = 0; j < DB; ++j)
-        if (j <= l) T[(c + l) * LDT + c + j] = row[j];
+        if (j <= l)
+          T[(c + l) * LDT + c + j] = j == l && factored ? d : row[j];
       if (l == 0) *s_fail = f;
     }
     __syncthreads();
@@ -101,39 +152,11 @@ static __device__ void factor_tile(float* A, long long lda, int c0, int pw,
       for (int k = 0; k < DB; ++k) xr[k] = x[k];
     }
     __syncthreads();
-    // (c) the rest of the tile's lower triangle -= X·Xᵀ (k = DB); thread
-    // (tr, tc) owns rows m0 + tr + 16a and columns m0 + tc + 16b
-    const int m0 = c + DB;
-    if (m0 < NB) {
-      constexpr int G = (NB - DB) / 16;
-      float acc[G][G] = {};
-#pragma unroll 4
-      for (int m = 0; m < DB; ++m) {
-        float ra[G], cb[G];
-#pragma unroll
-        for (int a = 0; a < G; ++a) {
-          const int i = m0 + tr + 16 * a;
-          ra[a] = (i < NB) ? T[i * LDT + c + m] : 0.f;
-        }
-#pragma unroll
-        for (int b = 0; b < G; ++b) {
-          const int j = m0 + tc + 16 * b;
-          cb[b] = (j < NB) ? T[j * LDT + c + m] : 0.f;
-        }
-#pragma unroll
-        for (int a = 0; a < G; ++a)
-#pragma unroll
-          for (int b = 0; b < G; ++b)
-            acc[a][b] = fmaf(ra[a], cb[b], acc[a][b]);
-      }
-#pragma unroll
-      for (int a = 0; a < G; ++a)
-#pragma unroll
-        for (int b = 0; b < G; ++b) {
-          const int i = m0 + tr + 16 * a, j = m0 + tc + 16 * b;
-          if (i < NB && j <= i) T[i * LDT + j] -= acc[a][b];
-        }
-    }
+    // (c) the rest of the tile's lower triangle -= X·Xᵀ (k = DB), over
+    // the rows below the step only
+    if (c == 0) trailing_update<(NB - DB) / 16>(T, c);
+    else if (c == DB) trailing_update<(NB - 2 * DB) / 16>(T, c);
+    else if (c == 2 * DB) trailing_update<(NB - 3 * DB) / 16>(T, c);
     __syncthreads();
   }
 

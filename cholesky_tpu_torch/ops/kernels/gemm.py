@@ -27,6 +27,47 @@ def gemm_plain(A, B, C=None, *, alpha=1.0, beta=0.0, out=None):
     return out
 
 
+#: from this many 128 x 128 output tiles a launch takes the 128 x 128 tile,
+#: below it the 64 x 64 one, whose grid is four times as wide: about three
+#: quarters of a wave on the H100's 132 SMs. The A/B of chip_smoke.py's
+#: phase 3 on the paths' shapes: at 64 tiles the 64 x 64 launch is 3-10 %
+#: faster, at 96 and 128 the 128 x 128 one 20-25 %.
+GEMM128_MIN_TILES = 96
+
+
+def _k_fast(s_r, s_k):
+    """Is the operand with element (r, k) at r·s_r + k·s_k staged along k
+    (k-fast) rather than along r? Its unit-stride axis, else the one of
+    the smaller stride."""
+    if s_k == 1 or s_r == 1:
+        return s_k == 1
+    return abs(s_k) <= abs(s_r)
+
+
+def _on_grid(ptr, s_r, s_k, k_fast):
+    """Can the operand be staged by 16-byte copies: unit stride on its
+    fast axis, the other stride a multiple of 4 floats, a 16-byte aligned
+    base?"""
+    unit, lead = (s_k, s_r) if k_fast else (s_r, s_k)
+    return unit == 1 and lead % 4 == 0 and ptr % 16 == 0
+
+
+def launch_plan(m, n, a_strides, a_ptr, b_strides, b_ptr):
+    """The launch of gemm_f32 for an (m x k)·(k x n) product of f32
+    operands with these strides (in elements) and base addresses: (tile
+    edge, A k-fast, Bᵀ k-fast, 16-byte staging). The tile is 128 where
+    the grid has GEMM128_MIN_TILES tiles of 128 or more, else 64; the rest
+    only matters to the 128 tile, which stages A as (r, k) = (row, col) and
+    Bᵀ as (r, k) = (col, row)."""
+    tiles = -(-m // 128) * -(-n // 128)
+    tile = 128 if tiles >= GEMM128_MIN_TILES else 64
+    a_kf = _k_fast(a_strides[0], a_strides[1])
+    b_kf = _k_fast(b_strides[1], b_strides[0])
+    vec = (_on_grid(a_ptr, a_strides[0], a_strides[1], a_kf)
+           and _on_grid(b_ptr, b_strides[1], b_strides[0], b_kf))
+    return tile, a_kf, b_kf, vec
+
+
 def gemm_f32(A, B, C=None, *, alpha=1.0, beta=0.0, out=None):
     """D = alpha·A·B + beta·C for f32 matrices, A (m, k), B (k, n), C and
     ``out`` (m, n). C is read only when beta != 0. ``out`` is allocated
@@ -55,12 +96,15 @@ def gemm_f32(A, B, C=None, *, alpha=1.0, beta=0.0, out=None):
     if m == 0 or n == 0:
         return out
     Cp = C if C is not None else out
+    plan = launch_plan(m, n, A.stride(), A.data_ptr(), B.stride(),
+                       B.data_ptr())
     err = _build.library().ct_gemm_f32(
         A.data_ptr(), A.stride(0), A.stride(1),
         B.data_ptr(), B.stride(0), B.stride(1),
         Cp.data_ptr(), Cp.stride(0), Cp.stride(1),
         out.data_ptr(), out.stride(0), out.stride(1),
-        m, n, k, float(alpha), float(beta), *_build.device_args(out))
+        m, n, k, float(alpha), float(beta), *(int(v) for v in plan),
+        *_build.device_args(out))
     _build.check_launch(err, "gemm_f32")
     gemm_f32.launches += 1
     return out

@@ -28,6 +28,10 @@ MAX_N = 1024        # one thread block holds a 32-wide panel of this height
 #: thread blocks, below it on one (the A/B of chip_smoke.py's phase 3)
 POTRF_BLOCK_MULTI_MIN_N = 256
 STREAM_MAX_N = 8192  # the JAX package's {POTRF,TRTRI,LAUUM}_HBM_MAX_N
+#: from this n a multiple of NB is factored by potrf_stream_f32 rather than
+#: by potrf_block_f32 (the A/B of chip_smoke.py's phase 3: even at 256,
+#: the stream kernel ahead from 512)
+POTRF_STREAM_MIN_N = 512
 
 
 def _check_block(A, name, max_n=MAX_N, multiple=1):
@@ -139,7 +143,7 @@ def potrf_stream_f32(A, *, trace=None):
     STREAM_MAX_N, unit-stride rows, in place, as :func:`potrf_block_f32`
     does: only the lower triangle is read, the strict upper is zeroed, and
     info (0-d int32) is the first pivot with !(d > 0), the factor frozen
-    there. The launch also takes (n + NB)·NB floats of scratch on the
+    there. The launch also takes (2n + NB)·NB floats of scratch on the
     card, freed on return. ``trace``, for measurement on the card only: a
     zeroed int64 tensor of (n / NB, STREAM_TRACE_SLOTS) into which the
     launch writes the card's nanosecond clock at each phase boundary."""
@@ -152,11 +156,14 @@ def potrf_stream_f32(A, *, trace=None):
               f"({n // NB}, {STREAM_TRACE_SLOTS}) tensor beside A on the card")
     if A.device.type == "cpu":
         return potrf_stream_plain(A)
-    P = torch.empty((n + NB, NB), dtype=A.dtype, device=A.device)
+    # the solved panel rows, the tile inverse below them, and the rows
+    # transposed
+    P = torch.empty((2 * n + NB, NB), dtype=A.dtype, device=A.device)
     info = torch.empty((), dtype=torch.int32, device=A.device)
     err = _build.library().ct_potrf_stream_f32(
-        A.data_ptr(), A.stride(0), P.data_ptr(), P[n:].data_ptr(), n,
-        info.data_ptr(), trace.data_ptr() if trace is not None else None,
+        A.data_ptr(), A.stride(0), P.data_ptr(), P[n:].data_ptr(),
+        P[n + NB:].data_ptr(), n, info.data_ptr(),
+        trace.data_ptr() if trace is not None else None,
         *_build.device_args(A))
     _build.check_launch(err, "potrf_stream_f32")
     potrf_stream_f32.launches += 1

@@ -96,6 +96,22 @@ def test_kernel_tiles_through_the_recursion_on_cpu():
                  "kernel tiles on cpu")
 
 
+@pytest.mark.parametrize("n,kernel", [(100, "potrf_block_f32"),
+                                      (384, "potrf_block_f32"),
+                                      (512, "potrf_stream_f32"),
+                                      (768, "potrf_stream_f32"),
+                                      (1152, "potrf_stream_f32")])
+def test_kernel_tiles_potf2_routing(n, kernel, monkeypatch):
+    # the multiples of 128 from POTRF_STREAM_MIN_N to the stream kernel,
+    # the smaller blocks to the block kernel (the card's A/B)
+    seen = []
+    for name in ("potrf_block_f32", "potrf_stream_f32"):
+        monkeypatch.setattr(tblocked._k, name,
+                            lambda A, name=name: seen.append(name))
+    tblocked._KernelTiles().potf2(torch.eye(n))
+    assert seen == [kernel]
+
+
 def test_kernel_tiles_refuse_blocks_the_kernels_do_not_take():
     # no whole-matrix kernel takes 200 and the leaf kernel potf2_f32 takes
     # n <= 128 or a multiple of 128 only, as the Pallas leaf asserts

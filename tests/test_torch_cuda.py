@@ -27,13 +27,18 @@ from cholesky_tpu_torch.rng import (latmc, latmc_pair, uniform_device,
 from cholesky_tpu_torch.rng import device as rdev
 
 # the blocked recursion's kernels, which potrf runs with a block size
-POTRF_PATH = ("gemm_f32", "syrk_lower_f32", "potrf_block_f32",
+POTRF_PATH = ("gemm_f32", "syrk_lower_f32", "potrf_stream_f32",
               "trtri_block_f32")
 # the d tier's kernels, which dpotrf runs on the card
 D_PATH = ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
           "trtri_block_f32")
 
 EPS32 = float(np.finfo(np.float32).eps)
+#: the dense gates: the error against f64 at most this many times an f32
+#: yardstick's (the twin, or torch.matmul), and for a factor that limit
+#: below 1 % of the RMS of the f64 factor's strict lower, which a dropped
+#: or misplaced update tile moves by about itself
+F32_GATE = 8.0
 
 
 def assert_close(got, ref, fpe, what):
@@ -72,6 +77,44 @@ def multi(request, monkeypatch):
     monkeypatch.setattr(mega, "POTRF_BLOCK_MULTI_MIN_N",
                         1 if request.param else mega.MAX_N + 1)
     return request.param
+
+
+@pytest.fixture(params=[128, 64], ids=["tile128", "tile64"])
+def gemm_tile(request, monkeypatch):
+    """gemm_f32 on the 128 or the 64 tile whatever the shape: the threshold
+    GEMM128_MIN_TILES is the only selector."""
+    monkeypatch.setattr(gemm, "GEMM128_MIN_TILES",
+                        1 if request.param == 128 else 1 << 30)
+    return request.param
+
+
+def view(rows, cols, transposed, off, odd, seed):
+    """A (rows x cols) f32 view of a wider buffer on the card, row- or
+    column-major, ``off`` elements past an aligned base, the leading
+    stride a multiple of 4 or (``odd``) odd."""
+    inner, outer = (rows, cols) if transposed else (cols, rows)
+    width = inner + off + 1
+    width += (width % 2 == 0) if odd else -width % 4
+    v = rand((outer, width), seed).cuda()[:, off:off + inner]
+    return v.T if transposed else v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_t", [False, True], ids=["AN", "AT"])
+@pytest.mark.parametrize("b_t", [False, True], ids=["BN", "BT"])
+@pytest.mark.parametrize("off,odd", [(0, False), (1, False), (0, True)],
+                         ids=["grid", "off", "odd"])
+def test_gemm_layouts_vs_f64(cuda, gemm_tile, a_t, b_t, off, odd):
+    # ragged m, n, k; the four layouts; on and off the 16-byte grid
+    m, n, k = 1000, 777, 515
+    A, B = view(m, k, a_t, off, odd, 1), view(k, n, b_t, off, odd, 2)
+    plan = gemm.launch_plan(m, n, A.stride(), A.data_ptr(), B.stride(),
+                            B.data_ptr())
+    assert plan[0] == gemm_tile and plan[3] == (off == 0 and not odd)
+    ref = A.double() @ B.double()
+    err = float((kernels.gemm_f32(A, B) - ref).abs().max())
+    yard = float((torch.matmul(A, B) - ref).abs().max())
+    assert err <= F32_GATE * yard, (err, yard)
 
 
 @pytest.mark.cuda
@@ -178,43 +221,96 @@ def test_trtri_block_vs_twin(cuda, n):
     assert int(info) == 10 and bool(torch.isfinite(W).all())
 
 
+def gated(what, got, ref64, twin):
+    """got against the f64 ``ref64`` within F32_GATE times the f32 ``twin``'s
+    error (at least an ulp of max|ref|); the limit below 1 % of the RMS of
+    ref64's strict lower."""
+    ref64 = ref64.cpu()
+    err = float((got.cpu().double() - ref64).abs().max())
+    twin_err = float((twin.cpu().double() - ref64).abs().max())
+    lim = F32_GATE * max(twin_err, EPS32 * float(ref64.abs().max()))
+    low = torch.tril(ref64, -1)
+    n = ref64.shape[0]
+    rms = float(low.square().sum().div(max(1, n * (n - 1) // 2)).sqrt())
+    assert err <= lim, f"{what}: err {err:.3e} > {lim:.3e}"
+    assert lim <= 1e-2 * rms, f"{what}: limit {lim:.3e}, RMS {rms:.3e}"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1152, 2048])
+@pytest.mark.parametrize("n", [1152, 2048, 4096, 8192])
 def test_potrf_stream_vs_twin(cuda, n):
-    A = spd(n).to(cuda)
+    # a dense input, the caller's strict upper NaN: only the lower is read
+    A = spd(n, seed=n).to(cuda)
     want = A.clone()
     i_ref = mega.potrf_stream_plain(want)
+    L64 = torch.linalg.cholesky(A.double())
     A[torch.ones_like(A, dtype=torch.bool).triu(1)] = float("nan")
     info = kernels.potrf_stream_f32(A)
     assert int(info) == int(i_ref) == 0
     assert bool((torch.triu(A, 1) == 0).all())
-    assert_close(A, want, 8 * n, f"potrf_stream n={n}")
+    gated(f"potrf_stream n={n}", A, L64, want)
 
 
 @pytest.mark.cuda
-def test_potrf_stream_failed_pivots(cuda):
-    A = spd(1152, cond=10.0).to(cuda)
-    A[300, 300] = -1.0
-    assert int(kernels.potrf_stream_f32(A)) == 301
-    assert bool(torch.isfinite(A).all())
-    A = spd(1152, cond=10.0).to(cuda)
-    A[7, 7] = float("nan")
-    assert int(kernels.potrf_stream_f32(A)) == 8
+def test_potrf_stream_on_a_view_off_the_grid(cuda):
+    # base one column into a buffer of odd row length: neither the base nor
+    # the leading stride on the 16-byte grid; nothing outside written
+    n = 2048
+    A = spd(n, seed=3).to(cuda)
+    want = A.clone()
+    mega.potrf_stream_plain(want)
+    buf = torch.full((n, n + 3), 7.0, device=cuda)
+    v = buf[:, 1:1 + n]
+    v.copy_(A)
+    assert int(kernels.potrf_stream_f32(v)) == 0
+    gated("potrf_stream view", v, torch.linalg.cholesky(A.double()), want)
+    assert bool((buf[:, 0] == 7.0).all() and (buf[:, 1 + n:] == 7.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,value", [(5, -1.0), (1000, -1.0), (2040, -1.0),
+                                     (7, "nan")])
+def test_potrf_stream_failed_pivots(cuda, k, value):
+    # the first, a middle and the last panel, and a NaN pivot: info, frozen
+    # and finite but an input NaN at its place, the leading block gated
+    A = spd(2048, cond=10.0, seed=k).to(cuda)
+    A[k, k] = float(value)
+    want = A.clone()
+    i_ref = mega.potrf_stream_plain(want)
+    L64 = torch.linalg.cholesky(A[:k, :k].double())
+    assert int(kernels.potrf_stream_f32(A)) == int(i_ref) == k + 1
     bad = (~torch.isfinite(A)).nonzero().tolist()
-    assert all(ix == [7, 7] for ix in bad), bad
+    assert all(ix == [k, k] for ix in bad), bad[:5]
+    gated(f"potrf_stream leading block k={k}", torch.tril(A[:k, :k]), L64,
+          torch.tril(want[:k, :k]))
+
+
+@pytest.mark.cuda
+def test_potrf_stream_trace(cuda):
+    # the trace: block 0's stamps of each panel in order, the grid size
+    n = 1024
+    tr = torch.zeros(n // mega.NB, mega.STREAM_TRACE_SLOTS,
+                     dtype=torch.int64, device=cuda)
+    assert int(kernels.potrf_stream_f32(spd(n).to(cuda), trace=tr)) == 0
+    t = tr.cpu()
+    assert int(t[0, 1]) >= 1
+    order = t[1:, [0, 2, 3, 4, 5, 7]]
+    assert bool((order[:, 1:] >= order[:, :-1]).all())
+    assert bool((t[2:, 0] >= t[1:-1, 7]).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,uplo", [(1000, "L"), (1536, "U"), (2048, "L")])
 def test_potrf_main_path(cuda, n, uplo):
-    # one whole-matrix kernel: potrf_block_f32 up to 1024, potrf_stream_f32
-    # above it
+    # one whole-matrix kernel on the block padded to a multiple of 128
+    # (1000 to 1024): potrf_stream_f32 from 512, potrf_block_f32 below
     A = spd(n)
     kernels.reset_launch_counts()
     F, info = ct.potrf(uplo, A.to(cuda))
     assert int(info) == 0
     counts = kernels.launch_counts()
-    assert counts["potrf_block_f32" if n <= 1024 else "potrf_stream_f32"] == 1
+    stream = -(-n // 128) * 128 >= mega.POTRF_STREAM_MIN_N
+    assert counts["potrf_stream_f32" if stream else "potrf_block_f32"] == 1
     ref = torch.linalg.cholesky(A.double())
     got = torch.tril(F) if uplo == "L" else torch.triu(F).T
     assert_close(got, ref, 8 * n, f"potrf n={n} {uplo}")

@@ -20,6 +20,7 @@ from cholesky_tpu.ops.pallas import syrk as psyrk
 from cholesky_tpu_torch.ops.kernels import (gemm_f32, potrf_block_f32,
                                             potrf_stream_f32, syrk_lower_f32,
                                             trtri_block_f32)
+from cholesky_tpu_torch.ops.kernels import gemm as kgemm
 from tests.util import assert_close
 
 F32 = np.float32
@@ -74,6 +75,42 @@ def test_gemm_twin_vs_pallas(case):
         got = gemm_f32(At, Bt, alpha=alpha)
         ref = pgemm.matmul_f32(jnp.asarray(A), jnp.asarray(B), alpha=alpha)
     assert_close(got.numpy(), np.asarray(ref), F32, 2 * k + 3, f"gemm {case}")
+
+
+#: gemm_f32's launch rule: (m, n, A strides, A address, B strides, B
+#: address) -> (tile, A k-fast, Bᵀ k-fast, 16-byte staging)
+LAUNCH_CASES = {
+    # potri's trtri recursion at 8192: 4096² views of one row-major buffer
+    "views_of_one_buffer": ((4096, 4096, (8192, 1), 4096 * 4, (8192, 1),
+                             8192 * 4096 * 4), (128, True, False, True)),
+    # the panel solve's X·Tᵀ: Tᵀ a transposed view, so Bᵀ = T is k-fast
+    "transposed_B": ((2048, 2048, (2048, 1), 0, (1, 2048), 0),
+                     (128, True, True, True)),
+    "transposed_A": ((2048, 2048, (1, 2048), 0, (2048, 1), 0),
+                     (128, False, False, True)),
+    "base_one_column_off": ((2048, 2048, (2048, 1), 4, (2048, 1), 0),
+                            (128, True, False, False)),
+    "odd_leading_stride": ((2048, 2048, (2049, 1), 0, (2048, 1), 0),
+                           (128, True, False, False)),
+    "no_unit_stride": ((2048, 2048, (4096, 2), 0, (2048, 1), 0),
+                       (128, True, False, False)),
+    "small_grid": ((1000, 777, (516, 1), 0, (780, 1), 0),
+                   (64, True, False, True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_CASES))
+def test_gemm_launch_plan(case):
+    args, want = LAUNCH_CASES[case]
+    assert kgemm.launch_plan(*args) == want
+
+
+@pytest.mark.parametrize("extra,tile", [(-1, 64), (0, 128)])
+def test_gemm_launch_plan_tile_threshold(extra, tile):
+    # the 128 tile from GEMM128_MIN_TILES output tiles of 128 on
+    tiles = kgemm.GEMM128_MIN_TILES + extra
+    plan = kgemm.launch_plan(128 * tiles, 100, (512, 1), 0, (128, 1), 0)
+    assert plan == (tile, True, False, True)
 
 
 def test_gemm_rejects_bad_arguments():
@@ -245,6 +282,13 @@ def test_potrf_stream_on_a_view():
     assert_close(buf[:, 64:320].numpy(), np.asarray(L), F32, 8 * 256,
                  "potrf_stream view")
     assert torch.all(buf[:, :64] == 0) and torch.all(buf[:, 320:] == 0)
+
+
+def test_potrf_stream_trace_needs_the_card():
+    # the trace buffer is the card's clock: a CPU call with one raises
+    A = torch.from_numpy(spd_np(256))
+    with pytest.raises(ValueError):
+        potrf_stream_f32(A, trace=torch.zeros(2, 8, dtype=torch.int64))
 
 
 def test_potrf_stream_rejects_what_the_kernel_does_not_take():
