@@ -30,8 +30,8 @@ def gemm_plain(A, B, C=None, *, alpha=1.0, beta=0.0, out=None):
 #: from this many 128 x 128 output tiles a launch takes the 128 x 128 tile,
 #: below it the 64 x 64 one, whose grid is four times as wide: about three
 #: quarters of a wave on the H100's 132 SMs. The A/B of chip_smoke.py's
-#: phase 3 on the paths' shapes: at 64 tiles the 64 x 64 launch is 3-10 %
-#: faster, at 96 and 128 the 128 x 128 one 20-25 %.
+#: phase 3 on the paths' shapes: at 64 tiles the two within 10 % either
+#: way, from 96 on the 128 x 128 launch 28-54 % faster.
 GEMM128_MIN_TILES = 96
 
 

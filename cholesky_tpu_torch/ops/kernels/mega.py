@@ -29,8 +29,8 @@ MAX_N = 1024        # one thread block holds a 32-wide panel of this height
 POTRF_BLOCK_MULTI_MIN_N = 256
 STREAM_MAX_N = 8192  # the JAX package's {POTRF,TRTRI,LAUUM}_HBM_MAX_N
 #: from this n a multiple of NB is factored by potrf_stream_f32 rather than
-#: by potrf_block_f32 (the A/B of chip_smoke.py's phase 3: even at 256,
-#: the stream kernel ahead from 512)
+#: by potrf_block_f32 (the A/B of chip_smoke.py's phase 3: even at 256 and
+#: 512, the stream kernel 6-9 % ahead at 768 and 1024)
 POTRF_STREAM_MIN_N = 512
 
 

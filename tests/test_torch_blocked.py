@@ -103,7 +103,7 @@ def test_kernel_tiles_through_the_recursion_on_cpu():
                                       (1152, "potrf_stream_f32")])
 def test_kernel_tiles_potf2_routing(n, kernel, monkeypatch):
     # the multiples of 128 from POTRF_STREAM_MIN_N to the stream kernel,
-    # the smaller blocks to the block kernel (the card's A/B)
+    # the smaller blocks to the block kernel
     seen = []
     for name in ("potrf_block_f32", "potrf_stream_f32"):
         monkeypatch.setattr(tblocked._k, name,
