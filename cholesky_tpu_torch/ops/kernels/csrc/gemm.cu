@@ -15,13 +15,14 @@
 // Design: one block per output tile, of one of two kinds chosen per launch
 // by the wrapper (ops/kernels/gemm.py, launch_plan):
 //   128 x 128 (sgemm128.cuh): 256 threads with 8 x 8 register micro-tiles
-//     fed by 16-byte (or 8-byte) shared loads, a 3-stage cp.async ring of
-//     16-deep k-steps, one barrier per k-step. Each operand is staged
-//     along its own unit-stride axis (four kernels, one per layout pair),
-//     by 16-byte copies where its base and leading stride sit on the
-//     16-byte grid and by 4-byte copies elsewhere. Blocks walk the output
-//     in groups of eight row tiles, so those in flight share A's rows and
-//     B's columns in L2;
+//     fed by 16-byte shared loads, the next k's ahead, from a 3-stage
+//     cp.async ring of 16-deep k-steps. Each operand is staged along its
+//     own unit-stride axis (a kernel per layout pair; a k-fast stage is
+//     copied k-major in shared memory before the product), by 16-byte
+//     copies where its base and leading stride sit on the 16-byte grid
+//     and by 4-byte copies elsewhere. Blocks walk the output in groups of
+//     eight row tiles, so those in flight share A's rows and B's columns
+//     in L2; about 41 TF/s at 4096³ (H100, 700 W);
 //   64 x 64 (sgemm_tile.cuh): 256 threads with 4 x 4 micro-tiles, for
 //     grids too small to fill the card with the large tile.
 // Row and column strides for every operand, so transposed views and

@@ -20,9 +20,9 @@ _TABLES_DIR = Path(__file__).parent / "tables"
 
 #: shipped defaults, used when no table matches the device
 DEFAULTS = {
-    # the JAX package's SGEMM tile, kept so the key set matches; the CUDA
-    # gemm_f32 picks its tile per launch (ops/kernels/gemm.py, launch_plan)
-    # and reads nothing here
+    # kept so the key set matches the JAX package's; the CUDA gemm_f32
+    # picks its tile per launch (ops/kernels/gemm.py, launch_plan) and
+    # reads nothing here
     "matmul_f32": {"bm": 64, "bn": 64, "bk": 16},
     # the lower-triangle SYRK reuses the SGEMM tile: bn x bn, k-step bk
     "syrk_f32": {"bn": 64, "bk": 16},
