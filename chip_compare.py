@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Time the port's leaf kernels and the GP step of one checkout on the card.
+
+    python3 chip_compare.py [--tree DIR] [TAG]
+
+Imports ``cholesky_tpu_torch`` from DIR (default: this script's checkout),
+so that two trees, for example a change and its parent unpacked with
+``git archive``, can be timed in one call in turns (parent, change,
+change, parent) on the same card. It measures what ``chip_smoke.py``
+does not measure in an older tree: ``trtri_block_f32`` at n = 128, 512
+and 1024 (one call between CUDA events, and its kernels' device time
+under torch.profiler) beside ``torch.linalg.solve_triangular(L, I)``,
+``potf2_f32`` at 4096, 8192 and 16384 beside ``torch.linalg.cholesky_ex``,
+and one GP train step at n = 8192, d = 8 (as in ``chip_smoke.py`` phase
+5) with the ``trtri_block_f32`` launches it makes and their device time.
+Prints the card's name and power limit, then one JSON line. Needs one
+CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    tree = os.path.dirname(os.path.abspath(__file__))
+    if args[:1] == ["--tree"]:
+        tree, args = os.path.abspath(args[1]), args[2:]
+    sys.path.insert(0, tree)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA device", file=sys.stderr)
+        return 1
+    import cholesky_tpu_torch  # noqa: F401  (TF32 off)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cholesky_tpu_torch.models import gp
+    from cholesky_tpu_torch.ops.kernels import potf2_f32, trtri_block_f32
+    from cholesky_tpu_torch.utils.benchlib import bench_op
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def dense_spd(n):
+        G = torch.randn(n, n, device="cuda", generator=g)
+        A = torch.matmul(G, G.T).div_(n)
+        A.diagonal().add_(4.0 / 99.0)
+        return 0.5 * (A + A.T)
+
+    def ms_inplace(fn, A, reps):
+        copies = [A.clone() for _ in range(reps + 1)]
+        fn(copies.pop())
+        times = []
+        for X in copies:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(X)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
+
+    def trtri_device_ms(fn):
+        """fn() under torch.profiler: its trtri_block_f32 kernels' device
+        ms and the launches it made."""
+        torch.cuda.synchronize()
+        before = trtri_block_f32.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum((e.time_range.end - e.time_range.start) / 1e3
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "trtri_block" in e.name), \
+            trtri_block_f32.launches - before
+
+    out = {"tree": tree, "tag": args[0] if args else ""}
+    for n in (128, 512, 1024):
+        L = torch.linalg.cholesky(dense_spd(n)).contiguous()
+        eye = torch.eye(n, device="cuda")
+        out[f"trtri_block_f32 {n}"] = bench_op(
+            lambda x: trtri_block_f32(x), L, reps=50) * 1e3
+        ms, calls = trtri_device_ms(
+            lambda: [trtri_block_f32(L) for _ in range(20)])
+        out[f"trtri_block_f32 {n} device"] = ms / calls
+        out[f"solve_triangular {n}"] = bench_op(
+            lambda x: torch.linalg.solve_triangular(x, eye, upper=False), L,
+            reps=50) * 1e3
+    for n in (4096, 8192, 16384):
+        A = dense_spd(n)
+        out[f"potf2_f32 {n}"] = ms_inplace(potf2_f32, A, 3)
+        out[f"cholesky_ex {n}"] = ms_inplace(torch.linalg.cholesky_ex, A, 3)
+        del A
+
+    # the GP train step of chip_smoke.py phase 5
+    n, d = 8192, 8
+    gg = torch.Generator(device="cuda").manual_seed(1)
+    X = torch.rand(n, d, device="cuda", generator=gg) * 2.0 - 1.0
+    w = torch.randn(d, device="cuda", generator=gg)
+    y = torch.sin(3.0 * X @ w / math.sqrt(d)) + 0.1 * torch.randn(
+        n, device="cuda", generator=gg)
+    p0 = gp.GPParams.init(device="cuda")
+    _, g0, _ = gp.gp_nll_and_grads(p0, X, y)
+    lr = 0.05 / max(abs(float(v)) for v in g0)
+
+    def step():
+        gp.gp_train_step(p0, X, y, lr=lr)
+
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["GP step"] = sorted(times)[2]
+    ms, calls = trtri_device_ms(step)
+    out["GP trtri_block_f32 launches"] = calls
+    out["GP trtri_block_f32 device ms"] = ms
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

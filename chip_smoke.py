@@ -45,13 +45,16 @@ show that the path went through each of its kernels:
 Phase 3 also runs the A/B of ``gemm_f32``'s two tiles at the paths'
 shapes, of ``potrf_block_f32``'s two launches (one thread block, or one
 cooperative launch over many) and of ``potrf_stream_f32`` at the
-multiples of 128 that sets its crossover, and prints the trace of
+multiples of 128 that sets its crossover, of ``trtri_block_f32``'s two
+launches (one cooperative launch, or one per phase) and of
+``potf2_f32``'s strip width at 16384, and prints the trace of
 ``potrf_stream_f32``'s panel loop at n = 1024, 4096 and 8192 (per phase
 the sum over panels, F's mean, the first panel whose F is not hidden
 behind the trailing update). Phase 5 counts every ``gemm_f32`` launch of
 one GP train step by shape and layout, with the tile the launch rule
-chose and its device time, and phase 6 every ``mm_groups_f32pair``
-launch of the profiled ``dpotrf``.
+chose and its device time, and its ``trtri_block_f32`` launches with
+their device time; phase 6 every ``mm_groups_f32pair`` launch of the
+profiled ``dpotrf``.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
@@ -76,12 +79,13 @@ import torch
 import cholesky_tpu_torch as ct
 from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import kernels, ozaki
-from cholesky_tpu_torch.ops.kernels import _build, mega
+from cholesky_tpu_torch.ops.kernels import _build, leaf, mega
 from cholesky_tpu_torch.ops.kernels import gemm as kgemm
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32, gemm_plain
 from cholesky_tpu_torch.ops.kernels.leaf import (lauu2_f32, lauu2_plain,
                                                  potf2_f32, potf2_plain,
-                                                 trti2_f32, trti2_plain)
+                                                 trti2_f32, trti2_plain,
+                                                 unit_inverse)
 from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
                                                  lauum_stream_plain,
                                                  potrf_block_f32,
@@ -658,39 +662,112 @@ def trace_potrf_stream(gen, on, sizes=(1024, 4096, 8192)):
     return out
 
 
+def trtri_gated(what, W, L, rms=None):
+    """W against the f64 inverse of tril(L), gated on the f32
+    solve_triangular(L, I)'s error (for n = 1, whose strict lower is
+    empty, within the gate's multiple of an ulp only)."""
+    n = L.shape[0]
+    eye = torch.eye(n, device="cuda")
+    W64 = torch.linalg.solve_triangular(torch.tril(L).double(), eye.double(),
+                                        upper=False)
+    yard = max_err(torch.linalg.solve_triangular(torch.tril(L), eye,
+                                                 upper=False), W64)
+    if n == 1:
+        err = max_err(W, W64)
+        lim = F32_GATE * max(yard, EPS32 * float(W64.abs().max()))
+        require(err <= lim, f"{what}: err {err:.3e} > {lim:.3e}")
+        return err, lim, 0.0, yard
+    return (*gated(what, W, W64, yard, rms), yard)
+
+
 def check_trtri_block(gen, rec, on):
-    for n in (128, 512):
-        L = spd(gen, n)
-        require(int(potrf_block_f32(L)) == 0, "trtri input factor")
-        W, info = trtri_block_f32(L)
-        want, i_ref = trtri_block_plain(L)
-        require(int(info) == 0 == int(i_ref), f"trtri n={n}: info")
-        err = max_err(W, want)
-        b = bound(60 * n, float(want.abs().max()))
-        require(err <= b, f"trtri_block_f32 n={n}: err {err} > {b}")
-        require(bool((torch.triu(W, 1) == 0).all()), "trtri strict upper")
-        ms = bench_op(lambda x: trtri_block_f32(x), L) * 1e3
+    """The block recursion against an f64 inverse of a dense factor, gated
+    on solve_triangular's f32 error, at ragged n (split points at
+    multiples of 128, the last block short) with a NaN strict upper; zero
+    diagonals, the unit route and a view with a longer row; the A/B of its
+    two launches (one cooperative launch, or one per phase); the times at
+    128, 512 and 1024 beside solve_triangular(L, I)."""
+    for n in (1, 31, 32, 33, 100, 128, 500, 512, 1000, 1024):
+        L = torch.linalg.cholesky(dense_spd(gen, n)).contiguous()
+        X = L.clone()
+        X[torch.ones_like(X, dtype=torch.bool).triu(1)] = math.nan
+        W, info = trtri_block_f32(X)
+        what = f"trtri_block_f32 n={n}"
+        require(int(info) == 0 and bool((torch.triu(W, 1) == 0).all()),
+                f"{what}: info {int(info)} or strict upper not zero")
+        err, lim, rms, yard = trtri_gated(what, W, L)
+        print(f"{what} (dense factor, NaN strict upper): max err vs f64 "
+              f"{err:.3e}, solve_triangular's {yard:.3e} (limit {lim:.3e}"
+              + (f", 1/{rms / lim:.0f} of the strict lower's RMS "
+                 f"{rms:.3e})" if rms else ")"))
+        if n == 512:
+            err_512 = err
+    # zero diagonals: info the smallest, read as 1, finite, as the twin
+    L = torch.linalg.cholesky(dense_spd(gen, 256)).contiguous()
+    L[9, 9] = 0.0
+    L[100, 100] = 0.0
+    W, info = trtri_block_f32(L)
+    want, i_ref = trtri_block_plain(L)
+    require(int(info) == 10 == int(i_ref) and bool(torch.isfinite(W).all()),
+            f"trtri_block_f32 zero diagonal: info {int(info)}")
+    e_z = max_err(W, want)
+    require(e_z <= bound(60 * 256, float(want.abs().max())),
+            f"trtri_block_f32 zero diagonal: err vs twin {e_z:.3e}")
+    # the unit route, and a view with a longer row
+    n = 500
+    L = torch.linalg.cholesky(dense_spd(gen, n)).contiguous()
+    U = unit_form(L)
+    W, info = unit_inverse(trtri_block_f32, U)
+    require(int(info) == 0 and torch.equal(torch.diagonal(W),
+                                           torch.diagonal(U)),
+            "trtri_block_f32 unit: info or the diagonal")
+    W64 = inverse64(U, unit=True)
+    e_u, l_u, _ = gated("trtri_block_f32 unit", torch.tril(W, -1),
+                        torch.tril(W64, -1),
+                        max_err(torch.tril(unit_inverse(
+                            trtri_stream_plain, U)[0], -1),
+                            torch.tril(W64, -1)))
+    buf = torch.full((n, n + 37), 7.0, device="cuda")
+    v = buf[:, 5:5 + n]
+    v.copy_(L)
+    W, info = trtri_block_f32(v)
+    require(int(info) == 0, "trtri_block_f32 view: info")
+    e_v, l_v, _, _ = trtri_gated("trtri_block_f32 view", W, L)
+    print(f"trtri_block_f32 zero diagonals L[9,9] = L[100,100] = 0 (n=256): "
+          f"info 10, finite, err vs twin {e_z:.3e}; unit route n={n}: "
+          f"max err vs f64 {e_u:.3e} (limit {l_u:.3e}), diagonal passed "
+          f"through; view of leading stride {n + 37}: {e_v:.3e} (limit "
+          f"{l_v:.3e})")
+    # the A/B of the launches, in turns, and the times
+    for n in (128, 512, 1024):
+        L = torch.linalg.cholesky(dense_spd(gen, n)).contiguous()
+        t = {}
+        for coop in (False, True, True, False):
+            keep = mega.TRTRI_BLOCK_COOP
+            mega.TRTRI_BLOCK_COOP = coop
+            try:
+                t.setdefault(coop, []).append(
+                    bench_op(lambda x: trtri_block_f32(x), L, reps=50) * 1e3)
+            finally:
+                mega.TRTRI_BLOCK_COOP = keep
+        ms = bench_op(lambda x: trtri_block_f32(x), L, reps=50) * 1e3
         plain_ms = bench_op(lambda x: trtri_block_plain(x), L, warmup=1,
                             reps=3) * 1e3
-        print(f"trtri_block_f32 n={n}: max err {err:.3e} (bound {b:.3e}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {on}")
+        eye = torch.eye(n, device="cuda")
+        lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
+            x, eye, upper=False), L, reps=50) * 1e3
+        rl = roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n))
+        print(f"trtri_block_f32 n={n}: kernel {ms:.4f} ms (A/B: a launch "
+              f"per phase {t[False][0]:.4f}/{t[False][1]:.4f}, one "
+              f"cooperative launch {t[True][0]:.4f}/{t[True][1]:.4f}; the "
+              f"default {'cooperative' if mega.TRTRI_BLOCK_COOP else 'per phase'}"
+              f"), plain {plain_ms:.4f} ms, "
+              f"torch.linalg.solve_triangular(L, I) {lib_ms:.4f} ms, bound "
+              f"{rl['bound_ms']:.4f} ms ({rl['bound_by']}) on {on}")
         if n == 512:
-            eye = torch.eye(n, device="cuda")
-            lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
-                x, eye, upper=False), L) * 1e3
-            print(f"  torch.linalg.solve_triangular(L, I) n={n}: "
-                  f"{lib_ms:.4f} ms")
             rec["trtri_block_f32"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
-    # zero diagonal: info 10, treated as 1, output finite
-    L = torch.tril(torch.rand(256, 256, device="cuda", generator=gen)) / 256
-    L.diagonal().fill_(1.0)
-    L[9, 9] = 0.0
-    W, info = trtri_block_f32(L)
-    require(int(info) == 10 and bool(torch.isfinite(W).all()),
-            f"zero diagonal: info {int(info)}")
-    print("trtri_block_f32 zero diagonal L[9,9]=0: info 10, finite")
+                max_abs_err=err_512, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **rl)
 
 
 def check_trtri_stream(gen, rec, on):
@@ -799,10 +876,13 @@ def check_lauu2(gen, rec, on):
 
 
 def check_potf2(gen, rec, on):
-    """The leaf Cholesky against an f64 factor of a dense SPD input, gated
-    on its twin's error (a Python loop over 128-wide panels) at n = 100,
-    256, 2048 and the path's 16384, then timed at 16384."""
-    for n in (100, 256, 2048, 16384):
+    """The leaf Cholesky (strips of leaf.POTF2_KB columns) against an f64
+    factor of a dense SPD input, gated on its twin's error (the same walk in
+    torch), at n = 100 to the path's 16384 with a NaN strict upper; failed
+    pivots in the first, a middle and the last strip and a NaN pivot; a
+    view off the 16-byte grid; the A/B of the strip width at 16384; the
+    times at 4096, 8192 and 16384 beside cholesky_ex."""
+    for n in (100, 128, 256, 1024, 2048, 4096, 16384):
         A = dense_spd(gen, n)
         F = A.clone()
         F[torch.ones_like(F, dtype=torch.bool).triu(1)] = float("nan")
@@ -827,18 +907,38 @@ def check_potf2(gen, rec, on):
               f"{rms:.3e}), NaN strict upper unread")
         del F, want, L64
     plain_ms = t0.elapsed_time(t1)
-    ms = ms_inplace(potf2_f32, A, reps=3)
-    lib_ms = bench_op(lambda a: torch.linalg.cholesky_ex(a), A, reps=3) * 1e3
-    print(f"potf2_f32 n={n}: kernel {ms:.4f} ms (copies made before the "
-          f"clock), plain {plain_ms:.4f} ms (one run), "
-          f"torch.linalg.cholesky_ex {lib_ms:.4f} ms on {on}")
+    # the strip width's A/B at 16384, in turns
+    t = {}
+    for kb in (256, 512, 1024, 1024, 512, 256):
+        keep = leaf.POTF2_KB
+        leaf.POTF2_KB = kb
+        try:
+            t.setdefault(kb, []).append(ms_inplace(potf2_f32, A, reps=1))
+        finally:
+            leaf.POTF2_KB = keep
+    print(f"potf2_f32 n={n} strip width A/B: "
+          + ", ".join(f"{kb} {v[0]:.3f}/{v[1]:.3f} ms"
+                      for kb, v in sorted(t.items()))
+          + f" (the default {leaf.POTF2_KB}) on {on}")
+    for m in (4096, 8192, n):
+        B = A if m == n else dense_spd(gen, m)
+        ms = ms_inplace(potf2_f32, B, reps=3)
+        lib_ms = ms_inplace(torch.linalg.cholesky_ex, B, reps=3)
+        rl = roofline(m ** 3 / 3, "f32", 2 * tri_bytes(m))
+        print(f"potf2_f32 n={m}: kernel {ms:.4f} ms (copies made before the "
+              f"clock), torch.linalg.cholesky_ex {lib_ms:.4f} ms, bound "
+              f"{rl['bound_ms']:.4f} ms ({rl['bound_by']})"
+              + (f", plain {plain_ms:.4f} ms (one run)" if m == n else "")
+              + f" on {on}")
+        del B
     rec["potf2_f32"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=lib_ms,
-                            **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
+                            library_ms=lib_ms, **rl)
     del A
-    # failed pivots: info, frozen and finite but an input NaN pivot, the
+    # failed pivots in the first, a middle and the last strip of 512 and a
+    # NaN pivot: info, frozen and finite but an input NaN pivot, the
     # leading block against its f64 factor, gated on the twin's
-    for n, k, v in ((2048, 1000, -1.0), (256, 7, float("nan"))):
+    for n, k, v in ((2048, 5, -1.0), (2048, 1000, -1.0), (2048, 2040, -1.0),
+                    (2048, 1100, float("nan")), (256, 7, float("nan"))):
         A = dense_spd(gen, n, 10.0)
         A[k, k] = v
         L64 = torch.linalg.cholesky(A[:k, :k].double())
@@ -852,9 +952,27 @@ def check_potf2(gen, rec, on):
                 f"{bad[:5]}")
         gated(f"potf2_f32 A[{k},{k}]={v}: leading block", A[:k, :k], L64,
               max_err(want[:k, :k], L64))
-    print("potf2_f32 non-PD A[1000,1000]=-1 at n=2048: info 1001, finite; "
-          "NaN pivot A[7,7] at n=256: info 8, nothing but (7,7) non-finite; "
-          "each leading block within the gate")
+    # a view one column into a buffer of odd row length: nothing outside
+    # the view written
+    n = 2048
+    A = dense_spd(gen, n)
+    want = A.clone()
+    potf2_plain(want)
+    buf = torch.full((n, n + 3), 7.0, device="cuda")
+    v = buf[:, 1:1 + n]
+    v.copy_(A)
+    require(int(potf2_f32(v)) == 0, "potf2_f32 view: info")
+    L64 = torch.linalg.cholesky(A.double())
+    e_v, l_v, _ = gated(f"potf2_f32 n={n} view", v, L64, max_err(want, L64))
+    require(bool((buf[:, 0] == 7.0).all() and (buf[:, 1 + n:] == 7.0).all()),
+            "potf2_f32 wrote outside the view")
+    print("potf2_f32 failed pivots A[5,5], A[1000,1000], A[2040,2040]=-1 "
+          "(n=2048: the first, a middle and the last strip) and NaN pivots "
+          "A[1100,1100] (n=2048) and A[7,7] (n=256): info k+1, nothing but "
+          "an input NaN pivot non-finite, each leading block within the "
+          f"gate; a view off the 16-byte grid (leading stride {n + 3}): max "
+          f"err vs f64 {e_v:.3e} (limit {l_v:.3e}), nothing outside it "
+          "written")
 
 
 def unit_form(L):
@@ -1391,6 +1509,28 @@ def print_gemm_census(census, on, top=6):
               f"{lib_ms:.4f} ms on {on}")
 
 
+def trtri_census(fn, on):
+    """The trtri_block_f32 launches of one call of fn (its launch counter)
+    and their device time (torch.profiler's kernels of that name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    before = trtri_block_f32.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = trtri_block_f32.launches - before
+    runs = [(e.time_range.end - e.time_range.start) / 1e3
+            for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "trtri_block" in e.name]
+    require(launches > 0 and runs, "trtri census: no trtri_block_f32 launch")
+    print(f"trtri_block_f32 census of one GP train step: {launches} launches "
+          f"({len(runs)} kernels in the trace), {sum(runs):.3f} ms of device "
+          f"time, {sum(runs) / launches:.4f} ms a launch on {on}")
+    return launches, sum(runs)
+
+
 def gp_path(name_power, dev="cuda"):
     g = torch.Generator(device=dev).manual_seed(1)
     X = torch.rand(GP_N, GP_D, device=dev, generator=g) * 2.0 - 1.0
@@ -1512,6 +1652,7 @@ def gp_path(name_power, dev="cuda"):
 
     print_gemm_census(gemm_census(lambda: gp.gp_train_step(p0, X, y, lr=lr)),
                       name_power)
+    trtri_census(lambda: gp.gp_train_step(p0, X, y, lr=lr), name_power)
 
     # times, beside torch.linalg yardsticks (never the port)
     step_ms = wall_ms(lambda: gp.gp_train_step(p0, X, y, lr=lr))

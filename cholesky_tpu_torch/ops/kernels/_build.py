@@ -125,11 +125,11 @@ def library() -> ctypes.CDLL:
             "ct_syrk_lower_f32": [P, LL, LL, P, LL, LL, I, I, F, F, I, P],
             "ct_potrf_block_f32": [P, LL, I, P, I, I, P],
             "ct_potrf_stream_f32": [P, LL, P, P, P, I, P, P, I, P],
-            "ct_trtri_block_f32": [P, LL, P, LL, I, P, I, P],
+            "ct_trtri_block_f32": [P, LL, P, LL, P, I, P, I, I, P],
             "ct_trtri_stream_f32": [P, LL, P, LL, P, I, P, I, P],
             "ct_lauum_stream_f32": [P, LL, P, LL, I, I, P],
             "ct_lauu2_f32": [P, LL, P, LL, I, I, P],
-            "ct_potf2_f32": [P, LL, P, I, P, I, P],
+            "ct_potf2_f32": [P, LL, P, P, I, I, I, P, I, P],
             "ct_trti2_f32": [P, LL, P, LL, I, I, P, I, P],
             "ct_trmm_lln_f32": [P, LL, LL, P, LL, LL, P, LL, I, I, F, I, I,
                                 P],

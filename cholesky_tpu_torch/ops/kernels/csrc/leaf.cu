@@ -11,9 +11,11 @@
 //   potf2   in place; only the lower triangle is read and the strict upper
 //           is written zero; info is the 1-based index of the first pivot
 //           with !(d > 0), NaN-safe; the factor freezes at a failed pivot:
-//           its 128-wide tile is stored as far as it got, and nothing
-//           after it is solved or updated, so every stored value stays
-//           finite but an input NaN at its own position.
+//           its 128-wide tile is stored as far as it got, nothing after it
+//           is solved, and no later strip is updated (the trailing update
+//           of the strip before it, which runs beside the failing strip's
+//           panels, may stop part way), so every stored value stays finite
+//           but an input NaN at its own position.
 //   trti2   W = tril(L)⁻¹ into a separate buffer with a zero strict upper;
 //           only the lower triangle of L is read. A zero diagonal is read
 //           as 1 and does not stop the sweep; info is the 1-based index of
@@ -22,21 +24,37 @@
 //           and W's diagonal is L's, passed through as in xtrti2.
 //
 // What bounds them on the H100: n^3/3 FFMA each (0.73 T for potf2 at
-// n = 16384), at best the 67 TFLOP/s f32 vector rate; in this simple form
-// the SGEMM tile of sgemm_tile.cuh (about 18 TFLOP/s on the 4096^3 gemm)
-// and the one-block diagonal steps in between come first.
+// n = 16384), at best the 67 TFLOP/s f32 vector rate (21.9 ms for potf2
+// at 16384), and for potf2 the chain of n/128 diagonal tiles, each
+// factored on one thread block (60-80 µs a tile).
 //
 // Design: the TPU kernels held the whole block in VMEM and swept 128-wide
 // panels in one dispatch. Here the block stays in device memory and ONE C
-// entry point enqueues a short kernel per step on the caller's stream, so
-// any n fits; no host code reads info: every later kernel reads the info
-// word on the device and returns at once past a failure.
-//   potf2, right-looking over 128-wide panels c0:
+// entry point enqueues a short kernel per step, so any n fits; no host
+// code reads info: every later kernel reads the info word on the device
+// and returns at once past a failure.
+//   potf2, two levels: strips of KB columns (POTF2_KB in leaf.py, 512),
+//   and 128-wide panels inside a strip, right-looking:
 //     F(c0)  one block factors and inverts the diagonal tile
 //            (chol_tile.cuh, as potrf_stream.cu does);
-//     S(c0)  the rows below it, 64 per block: A_panel := A_panel · W⁻ᵀ;
-//     U(c0)  every lower 64 x 64 tile of the trailing matrix, one per
-//            block: A22 -= P·Pᵀ (k = 128).
+//     S(c0)  the rows below it, 64 per block: A_panel := A_panel · W⁻ᵀ,
+//            also stored transposed into PT (one row a panel column);
+//     U(c0)  the strip's own columns right of the panel, k = 128;
+//   then the trailing matrix takes ONE A22 -= P·Pᵀ of depth KB from the
+//   strip's PT rows. Each update is a trapezoid of lower tiles on
+//   sgemm128.cuh's 128 x 128 cp.async tile with both operands row-fast
+//   (the 64 x 64 tile where fewer than GEMM128_MIN_TILES tiles of 128
+//   exist). Depth KB amortises each tile's read-modify-write of A and its
+//   pipeline fill over KB/16 k-steps instead of 8. Lookahead: the next
+//   strip's columns are updated first; that strip's F/S/U chain then runs
+//   on a second stream of the highest priority while the rest of the
+//   trailing matrix is updated on the caller's stream, which waits for
+//   the chain at the end of each strip, so F is hidden behind the bulk
+//   update except near the end. The two strips in flight use the two
+//   halves of PT. The version before this one ran 128-wide panels with a
+//   64 x 64-tile update of depth 128 and every F exposed: 87.4-87.6 ms at
+//   16384 against cholesky_ex's 45.1; this one 43.8-44.1 (KB 256 and
+//   1024 within 1-2 %; H100 80GB HBM3, 700 W).
 //   trti2, right-looking over 128-wide panels from the last one up. W
 //   starts at zero and its strict lower part below-left of the panel
 //   accumulates the fold of the panels already inverted:
@@ -52,6 +70,7 @@
 #include <algorithm>
 
 #include "chol_tile.cuh"
+#include "sgemm128.cuh"
 
 namespace {
 
@@ -87,42 +106,77 @@ potf2_factor(float* A, long long lda, int c0, int pw, int want_inv,
                         &s_fail);
 }
 
-// S: the m rows below the tile at c0, 64 per block, times Winvᵀ in place.
-// Winv is lower, so output column tile lc needs k < (lc + 1)·BT only.
+// S: the m rows below the tile at c0, 64 per block, times Winvᵀ in place,
+// and transposed into PT (row k of PT the panel's column k, element r at
+// PT[k·n + r], r the row of A), whose rows the trailing updates read along
+// their unit stride. Winv is lower, so output column tile lc needs
+// k < (lc + 1)·BT only.
 __global__ void __launch_bounds__(NT)
 potf2_solve(float* A, long long lda, int c0, int m, const float* Winv,
-            const int* info) {
+            float* PT, int n, const int* info) {
   __shared__ float Xs[BK][BT + 1];
   __shared__ float Ys[BK][BT + 1];
+  __shared__ float St[BT][BT + 1];
   if (*info != 0) return;
   float* const P = A + (long long)(c0 + NB) * lda + c0;
   const int lr = blockIdx.x;
-  float acc0[ct::TM][ct::TN] = {}, acc1[ct::TM][ct::TN] = {};
+  float acc[2][ct::TM][ct::TN] = {};
   ct::tile_xyt<BT, BT, BK>(P, lda, 1, lr * BT, m, Winv, NB, 1, 0, NB, BT,
-                           Xs, Ys, acc0);
+                           Xs, Ys, acc[0]);
   ct::tile_xyt<BT, BT, BK>(P, lda, 1, lr * BT, m, Winv, NB, 1, BT, NB, NB,
-                           Xs, Ys, acc1);
+                           Xs, Ys, acc[1]);
   // every thread of the block has read its rows (tile_xyt ends with a
   // barrier): they may be overwritten
-  ct::store_tile<BT, BT>(P, lda, lr * BT, 0, 1.f, acc0);
-  ct::store_tile<BT, BT>(P, lda, lr * BT, BT, 1.f, acc1);
+  const int tx = threadIdx.x % (BT / ct::TN);
+  const int ty = threadIdx.x / (BT / ct::TN);
+  const long long r0 = c0 + NB + lr * BT;     // the tile's first row of A
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    ct::store_tile<BT, BT>(P, lda, lr * BT, h * BT, 1.f, acc[h]);
+#pragma unroll
+    for (int i = 0; i < ct::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < ct::TN; ++j)
+        St[tx + j * (BT / ct::TN)][ty + i * (BT / ct::TM)] = acc[h][i][j];
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < BT * BT; idx += NT) {
+      const int k = idx / BT, r = idx % BT;
+      PT[static_cast<long long>(h * BT + k) * n + r0 + r] = St[k][r];
+    }
+    __syncthreads();
+  }
 }
 
-// U: one lower 64 x 64 tile of A22 = A[b:, b:], b = c0 + NB, per block:
-// A22 -= P·Pᵀ with P = A[b:, c0:c0+NB] the solved panel.
+// The trailing updates run on a trapezoid of A: rows [b, n), columns
+// [b, b + w), lower part only, A[r][c] -= Σ_k P[r][k]·P[c][k] over K
+// solved panel columns, read from their transposed copy: P[r][k] at
+// PT[k·n + r]. Its tiles are walked column by column: column tile tj holds
+// row tiles tj .. mt - 1.
+__host__ __device__ inline long long trap_tiles(int mt, int wt) {
+  return static_cast<long long>(wt) * mt - static_cast<long long>(wt) *
+                                               (wt - 1) / 2;
+}
+
+__device__ __forceinline__ void trap_tile(int t, int mt, int& ti, int& tj) {
+  tj = 0;
+  while (t >= mt - tj) t -= mt - tj++;
+  ti = tj + t;
+}
+
+// U on 64 x 64 tiles, one per block (grids too small for the 128 tile).
 __global__ void __launch_bounds__(NT)
-potf2_update(float* A, long long lda, int c0, int m, const int* info) {
+potf2_update64(float* A, long long lda, const float* PT, int K, int b, int n,
+               const int* info) {
   __shared__ float Xs[BK][BT + 1];
   __shared__ float Ys[BK][BT + 1];
   if (*info != 0) return;
+  const int m = n - b;
   int ti, tj;
-  ct::tri_tile(blockIdx.x, ti, tj);
-  const long long b = c0 + NB;
-  const float* const P = A + b * lda + c0;
+  trap_tile(blockIdx.x, m / BT, ti, tj);
   float acc[ct::TM][ct::TN] = {};
-  ct::tile_xyt<BT, BT, BK>(P, lda, 1, ti * BT, m, P, lda, 1, tj * BT, m, NB,
-                           Xs, Ys, acc);
-  float* const A22 = A + b * lda + b;
+  ct::tile_xyt<BT, BT, BK>(PT + b, 1, n, ti * BT, m, PT + b, 1, n, tj * BT,
+                           m, K, Xs, Ys, acc);
+  float* const At = A + static_cast<long long>(b) * lda + b;
   const int tx = threadIdx.x % (BT / ct::TN);
   const int ty = threadIdx.x / (BT / ct::TN);
 #pragma unroll
@@ -131,7 +185,54 @@ potf2_update(float* A, long long lda, int c0, int m, const int* info) {
 #pragma unroll
     for (int j = 0; j < ct::TN; ++j) {
       const int c = tj * BT + tx + j * (BT / ct::TN);
-      if (c <= r) A22[(long long)r * lda + c] -= acc[i][j];
+      if (c <= r) At[static_cast<long long>(r) * lda + c] -= acc[i][j];
+    }
+  }
+}
+
+// U on sgemm128.cuh's 128 x 128 tile, one per block, both operands
+// row-fast rows of PT (on the 16-byte grid: n % 128 == 0). The
+// accumulators are subtracted from A a micro-tile row at a time, four
+// columns at once off the diagonal where A and lda are on the 16-byte
+// grid (VEC).
+constexpr int SMEM128 =
+    ct::t128::smem_floats<false, false>() * static_cast<int>(sizeof(float));
+
+template <bool VEC>
+__global__ void __launch_bounds__(ct::t128::NT, 2)
+potf2_update128(float* A, long long lda, const float* PT, int K, int b,
+                int n, const int* info) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int BM = ct::t128::BM;
+  if (*info != 0) return;
+  const int m = n - b;
+  int ti, tj;
+  trap_tile(blockIdx.x, m / BM, ti, tj);
+  float acc[8][8] = {};
+  ct::t128::tile_xyt<false, false, true>(PT + b, 1, n, ti * BM, m, PT + b, 1,
+                                         n, tj * BM, m, K, smem, acc);
+  float* const At = A + static_cast<long long>(b + ti * BM) * lda + b +
+                    tj * BM;
+  const bool diag = ti == tj;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = ct::t128::row_of(i);
+    float* const row = At + static_cast<long long>(r) * lda;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = ct::t128::col_of(4 * h);
+      if (VEC && !diag) {
+        float4 v = *reinterpret_cast<float4*>(row + c);
+        v.x -= acc[i][4 * h];
+        v.y -= acc[i][4 * h + 1];
+        v.z -= acc[i][4 * h + 2];
+        v.w -= acc[i][4 * h + 3];
+        *reinterpret_cast<float4*>(row + c) = v;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!diag || c + e <= r) row[c + e] -= acc[i][4 * h + e];
+      }
     }
   }
 }
@@ -248,30 +349,101 @@ bool leaf_size(int n) { return n >= 1 && (n <= NB || n % NB == 0); }
 
 }  // namespace
 
-CT_EXPORT int ct_potf2_f32(float* A, long long lda, float* Winv, int n,
-                           int* info, int device, void* stream) {
-  if (!leaf_size(n) || lda < n) return static_cast<int>(cudaErrorInvalidValue);
+CT_EXPORT int ct_potf2_f32(float* A, long long lda, float* Winv, float* PT,
+                           int n, int kb, int min_tiles128, int* info,
+                           int device, void* stream) {
+  if (!leaf_size(n) || lda < n || kb < NB || kb % NB != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = reinterpret_cast<unsigned long long>(A) % 16 == 0 &&
+                   lda % 4 == 0;
   err = cudaFuncSetAttribute(potf2_factor,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              ct::tile::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(
+      vec ? potf2_update128<true> : potf2_update128<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM128);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
   potf2_init<<<std::min(n, 4096), 256, 0, s>>>(A, lda, n, info);
-  for (int c0 = 0; c0 < n; c0 += NB) {
-    const int pw = std::min(NB, n - c0), m = n - c0 - pw;
-    potf2_factor<<<1, NT, ct::tile::SMEM, s>>>(A, lda, c0, pw, m > 0, Winv,
-                                               info);
-    if (m > 0) {
-      const int mt = m / BT;
-      potf2_solve<<<mt, NT, 0, s>>>(A, lda, c0, m, Winv, info);
-      potf2_update<<<mt * (mt + 1) / 2, NT, 0, s>>>(A, lda, c0, m, info);
+
+  // U of the trapezoid at b, w columns wide, from K panel columns whose
+  // transposed copy is Pt: the 128 tile where the grid has min_tiles128 of
+  // them, else the 64 tile
+  auto update = [&](cudaStream_t st, const float* Pt, int K, int b, int w) {
+    if (w <= 0) return;
+    const int m = n - b;
+    const auto t128 = static_cast<unsigned>(trap_tiles(m / 128, w / 128));
+    if (t128 >= static_cast<unsigned>(min_tiles128)) {
+      if (vec)
+        potf2_update128<true><<<t128, ct::t128::NT, SMEM128, st>>>(
+            A, lda, Pt, K, b, n, info);
+      else
+        potf2_update128<false><<<t128, ct::t128::NT, SMEM128, st>>>(
+            A, lda, Pt, K, b, n, info);
+    } else {
+      potf2_update64<<<static_cast<unsigned>(trap_tiles(m / BT, w / BT)), NT,
+                       0, st>>>(
+          A, lda, Pt, K, b, n, info);
     }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  };
+  // the strip [j0, j1): F, S and the strip's own columns of U, panel by
+  // panel; its solved columns go transposed into PT's buffer Pt, one of
+  // two, so that a strip's panels may run while the last one's trailing
+  // update reads the other
+  auto Pt = [&](int j0) {
+    return PT + (j0 / kb % 2) * static_cast<long long>(kb) * n;
+  };
+  auto strip = [&](cudaStream_t st, int j0, int j1) {
+    for (int c0 = j0; c0 < j1; c0 += NB) {
+      const int pw = std::min(NB, n - c0), m = n - c0 - pw;
+      potf2_factor<<<1, NT, ct::tile::SMEM, st>>>(A, lda, c0, pw, m > 0,
+                                                   Winv, info);
+      if (m > 0) {
+        float* const Pc = Pt(j0) + static_cast<long long>(c0 - j0) * n;
+        potf2_solve<<<m / BT, NT, 0, st>>>(A, lda, c0, m, Winv, Pc, n, info);
+        update(st, Pc, NB, c0 + NB, j1 - c0 - NB);
+      }
+    }
+  };
+
+  strip(s, 0, std::min(kb, n));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || kb >= n) return static_cast<int>(err);
+  // Lookahead: the next strip's columns are updated first; then its
+  // panels run on a second stream of the highest priority while the rest
+  // of the trailing matrix is updated, which they do not touch.
+  int least = 0, greatest = 0;
+  cudaStream_t side = nullptr;
+  cudaEvent_t ready = nullptr, done = nullptr;
+  err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+  if (err == cudaSuccess)
+    err = cudaStreamCreateWithPriority(&side, cudaStreamNonBlocking,
+                                       greatest);
+  if (err == cudaSuccess)
+    err = cudaEventCreateWithFlags(&ready, cudaEventDisableTiming);
+  if (err == cudaSuccess)
+    err = cudaEventCreateWithFlags(&done, cudaEventDisableTiming);
+  for (int j0 = 0; err == cudaSuccess && j0 + kb < n; j0 += kb) {
+    const int j1 = j0 + kb, j2 = std::min(j1 + kb, n);
+    update(s, Pt(j0), kb, j1, j2 - j1);
+    err = cudaEventRecord(ready, s);
+    if (err == cudaSuccess) err = cudaStreamWaitEvent(side, ready, 0);
+    if (err != cudaSuccess) break;
+    strip(side, j1, j2);
+    err = cudaEventRecord(done, side);
+    if (err != cudaSuccess) break;
+    update(s, Pt(j0), kb, j2, n - j2);
+    err = cudaStreamWaitEvent(s, done, 0);   // the caller's stream last
+    if (err == cudaSuccess) err = cudaGetLastError();
   }
-  return static_cast<int>(cudaGetLastError());
+  // released once their work is done
+  if (done) cudaEventDestroy(done);
+  if (ready) cudaEventDestroy(ready);
+  if (side) cudaStreamDestroy(side);
+  return static_cast<int>(err);
 }
 
 CT_EXPORT int ct_trti2_f32(const float* L, long long ldl, float* W,

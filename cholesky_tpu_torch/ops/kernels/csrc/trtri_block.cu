@@ -2,8 +2,9 @@
 //
 // Replaces cholesky_tpu/ops/pallas/mega.py:trtri_vmem_f32
 // (_trtri_vmem_kernel with _utri_diag_info and _newton_uinv). On the main
-// path it inverts each 512 leaf of the potrf panel solve, whose product
-// with the panel (gemm.cu) then replaces a triangular solve.
+// path it inverts each 512 leaf of the blocked triangular solves and of the
+// potrf panel solve, whose product with the panel (gemm.cu) then replaces
+// a triangular solve: 48 launches in each GP train step at n = 8192.
 //
 // Contract: only the lower triangle of L is read; the output is a separate
 // buffer whose strict upper is zero. A zero diagonal entry is treated as
@@ -11,104 +12,403 @@
 // the 1-based index of the first (smallest) zero diagonal, as LAPACK's
 // strtri reports it.
 //
-// What bounds it on the H100: n^3/6 FFMA with a sequential dependency down
-// each column. The TPU kernel turned the substitutions into Newton
-// iterations to feed its MXU; here the columns are independent, so blocks
-// of 32 columns run on as many SMs, and the longest column stripe (the
-// first) sets the time.
+// What bounds it on the H100: not its n^3/6 FFMA (22 M at n = 512, under a
+// microsecond at the 67 TFLOP/s f32 rate) but the length of its chain of
+// dependent steps. The design before this one solved 32-column stripes by
+// forward substitution, one row per block-wide barrier: about 750 barriers
+// in a row on the longest stripe, 0.26-0.30 ms at n = 512 against
+// solve_triangular's 0.17-0.18 (NVIDIA H100 80GB HBM3, 700 W). The TPU
+// kernel avoided substitution with Newton tile inverses and block
+// products.
 //
-// Design: block b solves L·w_j = e_j for the 32 columns j of its stripe
-// by blocked forward substitution over 32-row chunks. Thread (r, c) of the
-// 32 x 32 block owns row r of the chunk and column c: it accumulates the
-// product of the chunk's rows of L (staged in shared memory, 32 columns
-// at a time, read from L2) with the rows already solved (kept in shared
-// memory, at most 1024 x 32 f32 = 128 KB), then the chunk's own 32 x 32
-// triangle is eliminated one row per barrier, column-oriented.
+// Design: the 2 x 2 block identity
+//     inv([[A, 0], [B, C]]) = [[A⁻¹, 0], [−C⁻¹·B·A⁻¹, C⁻¹]]
+// applied bottom-up, so the chain is O(log n) phases:
+//   leaf   every 128-wide diagonal tile at once, one block each, in shared
+//          memory: four warps invert its 32-wide diagonal blocks by
+//          column-oriented substitution in registers (lane j owns column
+//          j, no barrier in the chain), then the block joins them with the
+//          identity at 64 and at 128 (16-byte shared loads); the last tile
+//          may be short (identity padding decouples). Block 0 also
+//          computes info. About 10 µs a tile: the 64-wide join alone is
+//          0.5 M FFMA on one SM.
+//   level  for s = 128, 256, 512 < n, each pair (A at a0, C at a0 + s, C
+//          short at the end) of inverted s-blocks: X = B·A⁻¹ into the
+//          scratch S (and the mirror tile of W's strict upper zero), then
+//          W21 = −C⁻¹·X, each a set of 32 x 32 output tiles spread over the
+//          blocks. A⁻¹ and C⁻¹ are lower, so a tile's depth is only where
+//          the triangles are live; the depth is split over four groups of
+//          64 threads (4 x 4 micro-tiles, 32-deep k-major chunks, the next
+//          chunk's loads and the next k's fragments ahead), whose sums
+//          meet in shared memory. 5-7 µs a phase.
+// By default one cooperative launch runs the phases with a grid sync
+// between them (2·log2(n/128) + 1 phases: 5 at n = 512), on one block an
+// SM at most; TRTRI_BLOCK_COOP in mega.py selects one launch per phase
+// instead (the A/B of chip_smoke.py's phase 3). n <= 128 is one block, one
+// phase. Device time 11.6 / 32.7 / 67.3 µs at n = 128 / 512 / 1024 (NVIDIA
+// H100 80GB HBM3, 700 W, torch.profiler). Every read of data written in
+// the launch bypasses L1 (__ldcg).
+#include <cooperative_groups.h>
+
+#include <algorithm>
+
+#include "sgemm128.cuh"
 #include "sgemm_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int G = 32;          // columns per block
-constexpr int R = 32;          // rows per chunk
-constexpr int NT = G * R;      // thread (r, c) = (tid / G, tid % G)
+constexpr int LW = 128;            // leaf tile
+constexpr int TW = 32;             // product tile edge
+constexpr int NT = 256;            // threads of a block
+constexpr int GT = 64;             // threads of a product group (4 x 4 each)
+constexpr int NG = NT / GT;        // groups: a tile's depth split four ways
+constexpr int KC = 32;             // k-depth of a staged chunk
+constexpr int LDS = TW + 4;        // row stride of a staged chunk (16-byte)
+constexpr int LDT = LW + 4;        // row stride of the leaf's tiles (16-byte)
+constexpr int LDX = LW / 2 + 4;    // row stride of the leaf's join product
 constexpr int MAX_N = 1024;
+// shared floats: the leaf's tile of L, its inverse and one join product;
+// a product's two chunks of both operands for each group
+constexpr int LEAF_FLOATS = 2 * LW * LDT + (LW / 2) * LDX + LW;
+constexpr int TILE_FLOATS = NG * 2 * 2 * KC * LDS;
+constexpr int LEAF_SMEM = LEAF_FLOATS * sizeof(float);
+constexpr int TILE_SMEM = TILE_FLOATS * sizeof(float);
+constexpr int SMEM = std::max(LEAF_SMEM, TILE_SMEM);
 
-__global__ void __launch_bounds__(NT)
-trtri_block_f32_kernel(const float* __restrict__ L, long long ldl,
-                       float* __restrict__ Wout, long long ldw, int n,
-                       int* info) {
-  // Wp[(i - j0) * G + c] = W[i][j0 + c] for the rows i >= j0 solved so far
-  extern __shared__ float Wp[];
-  __shared__ float Lt[R][R + 1];
+// The leaf's join of the pairs of inverted S-blocks of its tile: for each
+// pair (A at a0, C at a0 + S) V21 = −C⁻¹·(B·A⁻¹), B from the tile of L,
+// through X; RM x 4 outputs a thread, its operands read as 16-byte loads
+// (four k of a row, or four columns of a k).
+template <int S, int RM>
+__device__ __forceinline__ void join(const float* T, float* V, float* X) {
+  constexpr int PAIRS = LW / (2 * S), PER = NT / PAIRS;
+  static_assert(PER == (S / RM) * (S / 4), "one micro-tile a thread");
+  const int p = threadIdx.x / PER, q = threadIdx.x % PER;
+  const int ty = q / (S / 4), tx = q % (S / 4);
+  const int a0 = 2 * S * p, c0 = a0 + S;
+  // acc[a][b] += Σ_k P[(RM·ty + a)·ldp + k]·Q[k·ldq + 4tx + b]
+  auto product = [&](const float* P, int ldp, const float* Q, int ldq,
+                     float (&acc)[RM][4]) {
+#pragma unroll 2
+    for (int k = 0; k < S; k += 4) {
+      float4 pv[RM];
+#pragma unroll
+      for (int a = 0; a < RM; ++a)
+        pv[a] = *reinterpret_cast<const float4*>(P + (RM * ty + a) * ldp + k);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(Q + (k + kk) * ldq + 4 * tx);
+        const float qs[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+        for (int a = 0; a < RM; ++a) {
+          const float pa = kk == 0 ? pv[a].x : kk == 1 ? pv[a].y
+                                             : kk == 2 ? pv[a].z : pv[a].w;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(pa, qs[b], acc[a][b]);
+        }
+      }
+    }
+  };
+  float acc[RM][4] = {};
+  product(T + c0 * LDT + a0, LDT, V + a0 * LDT + a0, LDT, acc);
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    *reinterpret_cast<float4*>(X + (S * p + RM * ty + a) * LDX + 4 * tx) =
+        make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  }
+  __syncthreads();
+  product(V + c0 * LDT + c0, LDT, X + S * p * LDX, LDX, acc);
+#pragma unroll
+  for (int a = 0; a < RM; ++a)
+    *reinterpret_cast<float4*>(V + (c0 + RM * ty + a) * LDT + a0 + 4 * tx) =
+        make_float4(-acc[a][0], -acc[a][1], -acc[a][2], -acc[a][3]);
+  __syncthreads();
+}
+
+// Invert the leaf tile at rows/columns [128·tile, 128·tile + 128) ∩ [0, n)
+// into W, its strict upper zero.
+__device__ void leaf(const float* __restrict__ L, long long ldl, float* W,
+                     long long ldw, int n, int tile, float* sm, int* info) {
+  float* const T = sm;             // L's tile, T[i·LDT + k]
+  float* const V = sm + LW * LDT;  // its inverse
+  float* const X = sm + 2 * LW * LDT;
+  float* const dinv = X + (LW / 2) * LDX;
   __shared__ int s_first;
   const int tid = threadIdx.x;
-  const int r = tid / G, c = tid % G;
-  const int j0 = blockIdx.x * G;
+  const int r0 = tile * LW, w = min(LW, n - r0);
+  constexpr int U = LW * LW / NT;  // elements a thread: rows i0 + 2u
+  const int k = tid % LW, i0 = tid / LW;
 
-  if (blockIdx.x == 0) {               // info: the first zero diagonal
+  if (tile == 0) {                 // info: the first zero diagonal
     if (tid == 0) s_first = n;
     __syncthreads();
-    for (int i = tid; i < n; i += NT)
-      if (L[i * ldl + i] == 0.f) atomicMin(&s_first, i);
+    float d[MAX_N / NT];
+#pragma unroll
+    for (int u = 0; u < MAX_N / NT; ++u)
+      d[u] = tid + u * NT < n ? L[(tid + u * NT) * (ldl + 1)] : 1.f;
+#pragma unroll
+    for (int u = 0; u < MAX_N / NT; ++u)
+      if (d[u] == 0.f) atomicMin(&s_first, tid + u * NT);
     __syncthreads();
     if (tid == 0) *info = (s_first < n) ? s_first + 1 : 0;
   }
-
-  for (int r0 = j0; r0 < n; r0 += R) {
-    const int q = r0 - j0;             // panel row of the chunk's first row
-    // right-hand side of row r0 + r: e_j - L[r0 + r, j0:r0]·W[j0:r0, j]
-    float x = (r0 + r == j0 + c) ? 1.f : 0.f;
-    for (int m0 = j0; m0 < r0; m0 += R) {
-      Lt[r][c] = (r0 + r < n) ? L[(r0 + r) * ldl + m0 + c] : 0.f;
-      __syncthreads();
-#pragma unroll 8
-      for (int mm = 0; mm < R; ++mm)
-        x = fmaf(-Lt[r][mm], Wp[(m0 - j0 + mm) * G + c], x);
-      __syncthreads();
+  {
+    // the tile's lower part by 4-byte cp.async, every copy in flight at
+    // once; the rest of T zero-filled by the copies themselves
+    const float* const Lk = L + (r0 + i0) * ldl + r0 + k;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 2 * u;
+      const bool live = i < w && k <= i;
+      ct::t128::cp_async4(T + i * LDT + k, live ? Lk + 2 * u * ldl : L,
+                          live ? 4 : 0);
     }
-    // the chunk's diagonal triangle; a zero pivot and rows past n read 1
-    float v = (c == r) ? 1.f : 0.f;
-    if (r0 + r < n && c <= r) v = L[(r0 + r) * ldl + r0 + c];
-    if (c == r && v == 0.f) v = 1.f;
-    Lt[r][c] = v;
+    ct::t128::cp_commit();
+    // the joins read whole blocks of V: the two 32 x 32 blocks above the
+    // diagonal blocks that no step writes, zero
+    for (int idx = tid; idx < 2 * TW * TW; idx += NT) {
+      const int b = 2 * TW * (idx / (TW * TW)), e = idx % (TW * TW);
+      V[(b + e / TW) * LDT + b + TW + e % TW] = 0.f;
+    }
+    ct::t128::cp_wait<0>();
+  }
+  __syncthreads();
+  if (tid < LW) {                  // a zero pivot and rows past n read 1
+    float& d = T[tid * LDT + tid];
+    if (tid >= w || d == 0.f) d = 1.f;
+    dinv[tid] = 1.f / d;
+  }
+  __syncthreads();
+  if (tid < LW) {
+    // the four 32-wide diagonal blocks, warp q the one at o = 32q: lane j
+    // solves for column j, x_k final once the columns left of it are
+    // applied; no barrier in the chain
+    const int o = (tid / 32) * TW, j = tid % 32;
+    float x[TW];
+#pragma unroll
+    for (int i = 0; i < TW; ++i) x[i] = (i == j) ? 1.f : 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TW; ++kk) {
+      x[kk] *= dinv[o + kk];
+#pragma unroll
+      for (int i = kk + 1; i < TW; ++i)
+        x[i] = fmaf(-T[(o + i) * LDT + o + kk], x[kk], x[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < TW; ++i) V[(o + i) * LDT + o + j] = x[i];
+  }
+  __syncthreads();
+  join<32, 2>(T, V, X);
+  join<64, 4>(T, V, X);
+  // the tile, zero above its diagonal: four columns a thread, by 16-byte
+  // stores where W's rows allow
+  const int c4 = 4 * (tid % (LW / 4)), q0 = tid / (LW / 4);
+  const bool vec = ldw % 4 == 0 && w == LW;
+#pragma unroll 4
+  for (int i = q0; i < w; i += NT / (LW / 4)) {
+    const float4 v = *reinterpret_cast<const float4*>(V + i * LDT + c4);
+    const float e[4] = {c4 <= i ? v.x : 0.f, c4 + 1 <= i ? v.y : 0.f,
+                        c4 + 2 <= i ? v.z : 0.f, c4 + 3 <= i ? v.w : 0.f};
+    float* const out = W + (r0 + i) * ldw + r0 + c4;
+    if (vec)
+      *reinterpret_cast<float4*>(out) = make_float4(e[0], e[1], e[2], e[3]);
+    else
+      for (int b = 0; b < 4 && c4 + b < w; ++b) out[b] = e[b];
+  }
+  __syncthreads();                 // sm is the next tile's
+}
+
+// acc += X·Yᵀ over k in [0, K) for a 32 x 32 tile, group g of the block
+// taking the chunks g, g + 4, ...: X k-fast (row r at X + r·ldx, rows >= xr
+// read as zero), Y row-fast (column c at Y[k·ldy + c], all 32 columns
+// live). Each group's partial sums are left in its acc; ends with a
+// barrier.
+__device__ void product(const float* X, long long ldx, int xr,
+                        const float* Y, long long ldy, int K, float* sm,
+                        float (&acc)[4][4]) {
+  const int g = threadIdx.x / GT, t = threadIdx.x % GT;
+  auto Xs = reinterpret_cast<float (*)[KC][LDS]>(sm + g * 4 * KC * LDS);
+  auto Ys = reinterpret_cast<float (*)[KC][LDS]>(sm + g * 4 * KC * LDS +
+                                                 2 * KC * LDS);
+  constexpr int U = TW * KC / GT;  // 16 elements of each operand a thread
+  const int ty = t / 8, tx = t % 8;
+  const int lr = t / KC, lk = t % KC;   // X: row lr + 2u, k lk
+  const int rounds = ((K + KC - 1) / KC + NG - 1) / NG;
+  float xv[U], yv[U];
+  auto fetch = [&](int r) {
+    const int k0 = (r * NG + g) * KC;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = lr + 2 * u, k = k0 + lk;
+      xv[u] = (row < xr && k < K) ? __ldcg(X + row * ldx + k) : 0.f;
+      const int ky = k0 + lr + 2 * u;   // Y: k row ky, column lk
+      yv[u] = ky < K ? __ldcg(Y + ky * ldy + lk) : 0.f;
+    }
+  };
+  fetch(0);
+  for (int r = 0; r < rounds; ++r) {
+    const int b = r & 1;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      Xs[b][lk][lr + 2 * u] = xv[u];
+      Ys[b][lr + 2 * u][lk] = yv[u];
+    }
     __syncthreads();
-    // column-oriented elimination: row rr is final once rows < rr are
-    for (int rr = 0; rr < R; ++rr) {
-      if (r == rr) {
-        x /= Lt[rr][rr];
-        Wp[(q + rr) * G + c] = x;
+    if (r + 1 < rounds) fetch(r + 1);
+    if ((r * NG + g) * KC < K) {
+      float4 a[2], c[2];
+      a[0] = *reinterpret_cast<const float4*>(&Xs[b][0][4 * ty]);
+      c[0] = *reinterpret_cast<const float4*>(&Ys[b][0][4 * tx]);
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        if (k + 1 < KC) {          // the next k's fragments first
+          a[~k & 1] = *reinterpret_cast<const float4*>(&Xs[b][k + 1][4 * ty]);
+          c[~k & 1] = *reinterpret_cast<const float4*>(&Ys[b][k + 1][4 * tx]);
+        }
+        const float av[4] = {a[k & 1].x, a[k & 1].y, a[k & 1].z, a[k & 1].w};
+        const float cv[4] = {c[k & 1].x, c[k & 1].y, c[k & 1].z, c[k & 1].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(av[i], cv[j], acc[i][j]);
       }
-      __syncthreads();
-      if (r > rr) x = fmaf(-Lt[r][rr], Wp[(q + rr) * G + c], x);
     }
   }
+  __syncthreads();
+}
 
-  // store the stripe: zeros above row j0, the solved rows below
-  const int ncols = min(G, n - j0);
-  for (int idx = tid; idx < n * G; idx += NT) {
-    const int i = idx / G, cc = idx % G;
-    if (cc < ncols)
-      Wout[i * ldw + j0 + cc] = (i < j0) ? 0.f : Wp[(i - j0) * G + cc];
+// Pairs of s-blocks whose second block starts inside the matrix.
+__host__ __device__ inline int pairs(int n, int s) {
+  return (n - s + 2 * s - 1) / (2 * s);
+}
+
+// One 32 x 32 output tile t of level s: X = B·A⁻¹ into S, and the mirror
+// tile of the strict upper of W zero (second = false); or W21 = −C⁻¹·X
+// into W (second = true). The four groups' partial sums meet in shared
+// memory, and each thread stores four of the tile's elements.
+__device__ void level_tile(const float* __restrict__ L, long long ldl,
+                           float* W, long long ldw, float* S, int n, int s,
+                           int t, bool second, float* sm) {
+  const int per = s / TW;
+  const int p = t / (per * per), loc = t % (per * per);
+  const int i = loc / per, j = loc % per;
+  const long long a0 = 2LL * p * s, c0 = a0 + s;
+  const int sc = min(s, n - static_cast<int>(c0));   // C's rows
+  if (TW * i >= sc) return;        // past the short last block
+  const long long r = c0 + TW * i, c = a0 + TW * j;
+  float acc[4][4] = {};
+  if (!second) {                   // A⁻¹ is lower: k from 32j on
+    const int k0 = TW * j;
+    product(L + r * ldl + a0 + k0, ldl, sc - TW * i, W + (a0 + k0) * ldw + c,
+            ldw, s - k0, sm, acc);
+  } else {                         // C⁻¹ is lower: k up to 32(i + 1)
+    product(W + r * ldw + c0, ldw, sc - TW * i, S + c0 * n + c, n,
+            min(TW * (i + 1), sc), sm, acc);
+  }
+  auto R = reinterpret_cast<float (*)[TW][TW + 1]>(sm);   // [group][r][c]
+  const int g = threadIdx.x / GT, q = threadIdx.x % GT;
+  const int ty = q / 8, tx = q % 8;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) R[g][4 * ty + a][4 * tx + b] = acc[a][b];
+  __syncthreads();
+  float* const D = second ? W : S;
+  const long long ldd = second ? ldw : n;
+  const int cc = threadIdx.x % TW;
+  for (int rr = threadIdx.x / TW; rr < TW; rr += NT / TW) {
+    if (TW * i + rr < sc) {
+      const float v = (R[0][rr][cc] + R[1][rr][cc]) +
+                      (R[2][rr][cc] + R[3][rr][cc]);
+      D[(r + rr) * ldd + c + cc] = second ? -v : v;
+    }
+    // the mirror: W[c + rr][r + cc], above the diagonal, outside C
+    if (!second && TW * i + cc < sc) W[(c + rr) * ldw + r + cc] = 0.f;
+  }
+  __syncthreads();                 // sm is the next tile's
+}
+
+// Phase `only` of the inversion (0 the leaves, 1 + 2·l + h half h of
+// level l), or with only < 0 every phase, a grid sync between them (a
+// cooperative launch, or one block).
+__global__ void __launch_bounds__(NT)
+trtri_block_f32_kernel(const float* __restrict__ L, long long ldl, float* W,
+                       long long ldw, float* S, int n, int* info, int only) {
+  extern __shared__ __align__(16) float sm[];
+  const int nleaf = (n + LW - 1) / LW;
+  if (only <= 0)
+    for (int t = blockIdx.x; t < nleaf; t += gridDim.x)
+      leaf(L, ldl, W, ldw, n, t, sm, info);
+  int phase = 1;
+  for (int s = LW; s < n; s *= 2) {
+    const int tiles = pairs(n, s) * (s / TW) * (s / TW);
+    for (int second = 0; second < 2; ++second, ++phase) {
+      if (only >= 0 && only != phase) continue;
+      if (only < 0) {
+        if (gridDim.x == 1)
+          __syncthreads();
+        else
+          cg::this_grid().sync();
+      }
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+        level_tile(L, ldl, W, ldw, S, n, s, t, second != 0, sm);
+    }
   }
 }
 
 }  // namespace
 
 CT_EXPORT int ct_trtri_block_f32(const float* L, long long ldl, float* W,
-                                 long long ldw, int n, int* info,
-                                 int device, void* stream) {
+                                 long long ldw, float* S, int n, int* info,
+                                 int coop, int device, void* stream) {
   if (n < 1 || n > MAX_N || ldl < n || ldw < n)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem =
-      static_cast<int>(sizeof(float)) * ((n + R - 1) / R) * R * G;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(
-      trtri_block_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  err = cudaFuncSetAttribute(trtri_block_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  trtri_block_f32_kernel<<<(n + G - 1) / G, NT, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      L, ldl, W, ldw, n, info);
+  const auto st = static_cast<cudaStream_t>(stream);
+  int all = -1;
+  if (n <= LW) {                   // one leaf: one block, one phase
+    trtri_block_f32_kernel<<<1, NT, LEAF_SMEM, st>>>(L, ldl, W, ldw, S, n,
+                                                     info, all);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the tiles of each phase: the leaves, then both halves of each level
+  int tiles[2 * 3 + 1] = {(n + LW - 1) / LW}, phases = 1;
+  for (int s = LW; s < n; s *= 2, phases += 2)
+    tiles[phases] = tiles[phases + 1] = pairs(n, s) * (s / TW) * (s / TW);
+  if (!coop) {                     // one launch per phase
+    for (int p = 0; p < phases; ++p) {
+      trtri_block_f32_kernel<<<tiles[p], NT, p ? TILE_SMEM : LEAF_SMEM,
+                               st>>>(L, ldl, W, ldw, S, n, info, p);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return 0;
+  }
+  int has_coop = 0, nsm = 0;
+  err = cudaDeviceGetAttribute(&has_coop, cudaDevAttrCooperativeLaunch,
+                               device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!has_coop) return static_cast<int>(cudaErrorNotSupported);
+  // one block an SM at most, as many as the widest phase has tiles
+  const int grid = std::min(*std::max_element(tiles, tiles + phases), nsm);
+  void* args[] = {&L, &ldl, &W, &ldw, &S, &n, &info, &all};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(trtri_block_f32_kernel), dim3(grid), dim3(NT),
+      args, SMEM, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

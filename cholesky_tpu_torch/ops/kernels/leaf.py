@@ -17,9 +17,10 @@ from __future__ import annotations
 
 import torch
 
+from cholesky_tpu_torch.ops import lapack_ref
 from cholesky_tpu_torch.ops.kernels import _build
+from cholesky_tpu_torch.ops.kernels.gemm import GEMM128_MIN_TILES
 from cholesky_tpu_torch.ops.kernels.mega import (NB, _check_block,
-                                                 potrf_stream_plain,
                                                  trtri_stream_plain)
 from cholesky_tpu_torch.utils.errors import check
 
@@ -35,12 +36,44 @@ def _check_leaf(A, name):
     return n
 
 
+#: potf2_f32's strip width: the panels of a strip update only its own
+#: columns, and the trailing matrix takes one product of this depth a strip
+POTF2_KB = 512
+
+
+def potf2_strips(n, kb=None):
+    """potf2_f32's outer walk: the strips [j0, j1) of kb columns (default
+    POTF2_KB)."""
+    kb = kb or POTF2_KB
+    return [(j0, min(j0 + kb, n)) for j0 in range(0, n, kb)]
+
+
 def potf2_plain(A):
-    """The plain torch version, any real dtype and device: the kernel's
-    right-looking walk over NB-wide panels, in place, the strict upper
-    zeroed; returns info. Past a failed pivot nothing is solved or
-    updated (the walk of :func:`potrf_stream_plain`, which takes any n)."""
-    return potrf_stream_plain(A)
+    """The plain torch version, any real dtype and device, in the kernel's
+    order of work, in place, the strict upper zeroed; returns info. For
+    each strip of :func:`potf2_strips`, NB-wide panels right-looking
+    inside the strip (each diagonal tile by the oracle's potf2, the rows
+    below it by a triangular solve, the strip's own columns by a product),
+    then the trailing matrix by one product of the strip's depth. Past a
+    failed pivot nothing is solved or updated."""
+    n = A.shape[0]
+    info = torch.zeros((), dtype=torch.int32, device=A.device)
+    for j0, j1 in potf2_strips(n):
+        for c0 in range(j0, j1, NB):
+            c1 = min(c0 + NB, n)
+            F, i = lapack_ref.potf2("L", A[c0:c1, c0:c1])
+            A[c0:c1, c0:c1] = torch.tril(F)
+            if int(i):
+                A.copy_(torch.tril(A))
+                return (i + c0).to(torch.int32)
+            X = torch.linalg.solve_triangular(
+                A[c0:c1, c0:c1].T, A[c1:, c0:c1], upper=True, left=False)
+            A[c1:, c0:c1] = X
+            A[c1:, c1:j1] -= X @ X[:j1 - c1].T
+        P = A[j1:, j0:j1]
+        A[j1:, j1:] -= P @ P.T
+    A.copy_(torch.tril(A))
+    return info
 
 
 def potf2_f32(A):
@@ -50,15 +83,19 @@ def potf2_f32(A):
     device: the 1-based index of the first pivot with !(d > 0)
     (NaN-safe), 0 on success. The factor freezes at a failed pivot and
     every stored value stays finite, except an input NaN at its own
-    position. The launch takes NB² floats of scratch, freed on return."""
+    position. The launch takes NB² + 2·POTF2_KB·n floats of scratch (at
+    most n² + NB²), freed on return."""
     n = _check_leaf(A, "potf2_f32")
     if A.device.type == "cpu":
         return potf2_plain(A)
     Winv = torch.empty((NB, NB), dtype=A.dtype, device=A.device)
+    # the solved columns of a strip transposed: two strips' worth
+    PT = torch.empty((min(2 * POTF2_KB, n) if n > NB else 1, n),
+                     dtype=A.dtype, device=A.device)
     info = torch.empty((), dtype=torch.int32, device=A.device)
     err = _build.library().ct_potf2_f32(
-        A.data_ptr(), A.stride(0), Winv.data_ptr(), n, info.data_ptr(),
-        *_build.device_args(A))
+        A.data_ptr(), A.stride(0), Winv.data_ptr(), PT.data_ptr(), n,
+        POTF2_KB, GEMM128_MIN_TILES, info.data_ptr(), *_build.device_args(A))
     _build.check_launch(err, "potf2_f32")
     potf2_f32.launches += 1
     return info

@@ -57,14 +57,50 @@ def potrf_block_plain(A):
     return info
 
 
+#: trtri_block_f32's leaf tile: the diagonal tiles it inverts first, each
+#: on one thread block (csrc/trtri_block.cu, LW)
+TRTRI_LEAF = 128
+#: trtri_block_f32 above one leaf as one cooperative launch (a grid sync
+#: between its phases) rather than one launch per phase (the A/B of
+#: chip_smoke.py's phase 3: 32.7 against 35.8-37.7 µs of device time at
+#: n = 512)
+TRTRI_BLOCK_COOP = True
+
+
+def trtri_levels(n):
+    """trtri_block_f32's order of work after the leaves: for s =
+    TRTRI_LEAF, 2·TRTRI_LEAF, ... < n, the pairs (a0, c0, sc) of inverted
+    s-blocks it joins (A at rows a0:a0+s, C at c0 = a0 + s, sc rows, the
+    last one short)."""
+    levels = []
+    s = TRTRI_LEAF
+    while s < n:
+        levels.append((s, [(a0, a0 + s, min(s, n - a0 - s))
+                           for a0 in range(0, n - s, 2 * s)]))
+        s *= 2
+    return levels
+
+
 def trtri_block_plain(L):
-    """The plain torch version, any real dtype and device: returns
-    (inverse of tril(L) with the strict upper zero, info), info the first
-    zero diagonal."""
-    W, _ = lapack_ref.trti2("L", "N", L)
+    """The plain torch version, any dtype and device, in the kernel's order
+    of work: each TRTRI_LEAF diagonal tile inverted (the oracle's trti2,
+    a zero diagonal read as 1), then for each level of
+    :func:`trtri_levels` W21 = −C⁻¹·(B·A⁻¹). Returns (inverse of tril(L)
+    with the strict upper zero, info), info the first zero diagonal."""
+    n = L.shape[0]
+    T = torch.tril(L)
+    W = torch.zeros_like(T)
+    for r0 in range(0, n, TRTRI_LEAF):
+        r1 = min(r0 + TRTRI_LEAF, n)
+        W[r0:r1, r0:r1] = torch.tril(
+            lapack_ref.trti2("L", "N", T[r0:r1, r0:r1])[0])
+    for s, pairs in trtri_levels(n):
+        for a0, c0, sc in pairs:
+            X = T[c0:c0 + sc, a0:c0] @ W[a0:c0, a0:c0]
+            W[c0:c0 + sc, a0:c0] = -(W[c0:c0 + sc, c0:c0 + sc] @ X)
     zero = torch.diagonal(L) == 0
     info = torch.where(zero.any(), zero.int().argmax() + 1, 0).to(torch.int32)
-    return torch.tril(W), info
+    return W, info
 
 
 def potrf_block_f32(A):
@@ -94,15 +130,17 @@ def trtri_block_f32(L):
     unit-stride rows); only its lower triangle is read. Returns (W, info):
     W a new contiguous tensor with a zero strict upper, info (0-d int32)
     the 1-based index of the first zero diagonal, which is treated as 1
-    and does not stop the inversion."""
+    and does not stop the inversion. The launch also takes n² floats of
+    scratch on the card, freed on return."""
     n = _check_block(L, "trtri_block_f32")
     if L.device.type == "cpu":
         return trtri_block_plain(L)
     W = torch.empty((n, n), dtype=L.dtype, device=L.device)
+    S = torch.empty((n, n), dtype=L.dtype, device=L.device)   # B·A⁻¹
     info = torch.empty((), dtype=torch.int32, device=L.device)
     err = _build.library().ct_trtri_block_f32(
-        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), n,
-        info.data_ptr(), *_build.device_args(L))
+        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), S.data_ptr(),
+        n, info.data_ptr(), int(TRTRI_BLOCK_COOP), *_build.device_args(L))
     _build.check_launch(err, "trtri_block_f32")
     trtri_block_f32.launches += 1
     return W, info

@@ -687,6 +687,110 @@ def test_potf2_failed_pivots(cuda, n, k, value):
     assert_close(A[:k, :k], want[:k, :k], 8 * n, "potf2 leading block")
 
 
+@pytest.fixture(params=[128, 256, 512], ids=["kb128", "kb256", "kb512"])
+def potf2_kb(request, monkeypatch):
+    """potf2_f32's strip width, set for the test."""
+    monkeypatch.setattr(leaf, "POTF2_KB", request.param)
+    return request.param
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 256, 1024, 2048])
+def test_potf2_strips_vs_f64(cuda, n, potf2_kb):
+    # dense, the strict upper NaN; gated on the twin's error against f64
+    A = spd(n, seed=n + potf2_kb).to(cuda)
+    want = A.clone()
+    i_ref = leaf.potf2_plain(want)
+    L64 = torch.linalg.cholesky(A.double())
+    A[torch.ones_like(A, dtype=torch.bool).triu(1)] = float("nan")
+    info = kernels.potf2_f32(A)
+    assert int(info) == int(i_ref) == 0
+    assert bool((torch.triu(A, 1) == 0).all())
+    gated(f"potf2 n={n} kb={potf2_kb}", A, L64, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,value", [(5, -1.0), (600, -1.0), (1020, -1.0),
+                                     (300, "nan")])
+def test_potf2_strips_failed_pivots(cuda, k, value, potf2_kb):
+    # the first, a middle and the last strip, and a NaN pivot: info, finite
+    # but an input NaN at its place, the leading block gated
+    A = spd(1024, cond=10.0, seed=k).to(cuda)
+    A[k, k] = float(value)
+    want = A.clone()
+    i_ref = leaf.potf2_plain(want)
+    L64 = torch.linalg.cholesky(A[:k, :k].double())
+    assert int(kernels.potf2_f32(A)) == int(i_ref) == k + 1
+    bad = (~torch.isfinite(A)).nonzero().tolist()
+    assert all(ix == [k, k] for ix in bad), bad[:5]
+    gated(f"potf2 leading block k={k}", torch.tril(A[:k, :k]), L64,
+          torch.tril(want[:k, :k]))
+
+
+@pytest.mark.cuda
+def test_potf2_on_a_view_off_the_grid(cuda):
+    # the 128 tile's 4-byte staging: neither the base nor the leading
+    # stride on the 16-byte grid; nothing outside the view written
+    n = 2048
+    A = spd(n, seed=4).to(cuda)
+    want = A.clone()
+    leaf.potf2_plain(want)
+    buf = torch.full((n, n + 3), 7.0, device=cuda)
+    v = buf[:, 1:1 + n]
+    v.copy_(A)
+    assert int(kernels.potf2_f32(v)) == 0
+    gated("potf2 view", v, torch.linalg.cholesky(A.double()), want)
+    assert bool((buf[:, 0] == 7.0).all() and (buf[:, 1 + n:] == 7.0).all())
+
+
+@pytest.fixture(params=[True, False], ids=["coop", "phases"])
+def trtri_coop(request, monkeypatch):
+    """trtri_block_f32 above one leaf as one cooperative launch, or as one
+    launch per phase."""
+    monkeypatch.setattr(mega, "TRTRI_BLOCK_COOP", request.param)
+    return request.param
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 128, 500, 512, 1000,
+                               1024])
+def test_trtri_block_dense_vs_f64(cuda, n, trtri_coop):
+    # a dense factor, the strict upper NaN: the block recursion's ragged
+    # split points, gated on solve_triangular's f32 error against f64
+    L = factor(n, seed=n).contiguous().to(cuda)
+    X = L.clone()
+    X[torch.ones_like(X, dtype=torch.bool).triu(1)] = float("nan")
+    W, info = kernels.trtri_block_f32(X)
+    assert int(info) == 0 and bool((torch.triu(W, 1) == 0).all())
+    eye = torch.eye(n, device=cuda)
+    W64 = torch.linalg.solve_triangular(L.double(), eye.double(), upper=False)
+    yard = torch.linalg.solve_triangular(L, eye, upper=False)
+    if n > 1:
+        gated(f"trtri_block n={n}", W, W64, yard)
+    else:
+        assert_close(W, W64, 60, "trtri_block n=1")
+
+
+@pytest.mark.cuda
+def test_trtri_block_unit_and_view(cuda):
+    # the unit route (leaf.unit_inverse) and a view with a longer row
+    n = 500
+    L = factor(n, seed=7).contiguous().to(cuda)
+    U = L / torch.diagonal(L)[None, :] + torch.diag(torch.diagonal(L) - 1.0)
+    W, info = leaf.unit_inverse(kernels.trtri_block_f32, U)
+    want, _ = leaf.unit_inverse(mega.trtri_block_plain, U)
+    assert int(info) == 0
+    assert torch.equal(torch.diagonal(W), torch.diagonal(U))
+    assert_close(W, want, 60 * n, "trtri_block unit")
+    buf = torch.full((n, n + 37), 7.0, device=cuda)
+    v = buf[:, 5:5 + n]
+    v.copy_(L)
+    W, info = kernels.trtri_block_f32(v)
+    want, _ = mega.trtri_block_plain(L)
+    assert int(info) == 0
+    assert_close(W, want, 60 * n, "trtri_block view")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [8, 100, 256, 1152])
 @pytest.mark.parametrize("unit", [False, True])

@@ -20,7 +20,9 @@ from cholesky_tpu.ops.pallas import syrk as psyrk
 from cholesky_tpu_torch.ops.kernels import (gemm_f32, potrf_block_f32,
                                             potrf_stream_f32, syrk_lower_f32,
                                             trtri_block_f32)
+from cholesky_tpu_torch.ops import lapack_ref
 from cholesky_tpu_torch.ops.kernels import gemm as kgemm
+from cholesky_tpu_torch.ops.kernels import mega
 from tests.util import assert_close
 
 F32 = np.float32
@@ -334,3 +336,35 @@ def test_trtri_block_reads_only_lower():
     L[np.triu_indices(64, 1)] = np.nan
     W, info = trtri_block_f32(torch.from_numpy(L))
     assert int(info) == 0 and torch.isfinite(W).all()
+
+
+@pytest.mark.parametrize("n", [1, 33, 100, 300])
+def test_trtri_block_twin_ragged_vs_oracle(n):
+    # the block recursion's split points at multiples of the leaf, the last
+    # block short, against the oracle's column sweep
+    L = lower_factor(n, seed=3)
+    W, info = trtri_block_f32(torch.from_numpy(L))
+    ref, info_o = lapack_ref.trti2("L", "N", torch.from_numpy(L))
+    assert int(info) == int(info_o) == 0
+    assert np.all(np.triu(W.numpy(), 1) == 0.0)
+    assert_close(W.numpy(), ref.numpy(), F32, 60 * n,
+                 f"trtri_block n={n} vs oracle")
+
+
+TRTRI_LEVELS = {
+    # n: [(s, [(a0, c0, rows of C)])]
+    128: [],
+    129: [(128, [(0, 128, 1)])],
+    200: [(128, [(0, 128, 72)])],
+    512: [(128, [(0, 128, 128), (256, 384, 128)]),
+          (256, [(0, 256, 256)])],
+    1000: [(128, [(0, 128, 128), (256, 384, 128), (512, 640, 128),
+                  (768, 896, 104)]),
+           (256, [(0, 256, 256), (512, 768, 232)]),
+           (512, [(0, 512, 488)])],
+}
+
+
+@pytest.mark.parametrize("n", sorted(TRTRI_LEVELS))
+def test_trtri_block_levels(n):
+    assert mega.trtri_levels(n) == TRTRI_LEVELS[n]

@@ -19,7 +19,7 @@ from cholesky_tpu.ops import blocked as jblocked
 from cholesky_tpu.ops.pallas import leaf as pleaf
 from cholesky_tpu_torch.ops import blocked as tblocked
 from cholesky_tpu_torch.ops import kernels
-from cholesky_tpu_torch.ops.kernels import potf2_f32, trti2_f32
+from cholesky_tpu_torch.ops.kernels import leaf, potf2_f32, trti2_f32
 from tests.util import assert_close
 
 F32 = np.float32
@@ -92,6 +92,60 @@ def test_potf2_on_a_view():
     assert_close(buf[:, 64:320].numpy(), np.asarray(L), F32, 8 * 256,
                  "potf2 view")
     assert torch.all(buf[:, :64] == 0) and torch.all(buf[:, 320:] == 0)
+
+
+@pytest.mark.parametrize("n", [128, 256, 384])
+@pytest.mark.parametrize("kb", [128, 256])
+def test_potf2_strips_vs_pallas(n, kb, monkeypatch):
+    # the two-level walk: panels inside a strip of kb columns, then one
+    # trailing product of depth kb a strip
+    monkeypatch.setattr(leaf, "POTF2_KB", kb)
+    A = spd_np(n, seed=n + kb)
+    At = torch.from_numpy(A.copy())
+    At[np.triu_indices(n, 1)] = np.nan
+    info = potf2_f32(At)
+    L, info_j = pleaf.potf2_f32(jnp.asarray(A))
+    assert int(info) == int(info_j) == 0
+    assert np.all(np.triu(At.numpy(), 1) == 0.0)
+    assert_close(At.numpy(), np.asarray(L), F32, 8 * n,
+                 f"potf2 n={n} kb={kb}")
+
+
+@pytest.mark.parametrize("k,value", [(200, -1.0), (300, -1.0), (255, -2.0),
+                                     (130, np.nan)])
+def test_potf2_strips_failed_pivot(k, value, monkeypatch):
+    # n = 384 in strips of 256: a failure inside the first strip (k = 200,
+    # its second panel; k = 255, its last row), in the second (300), and a
+    # NaN pivot; info, finite but an input NaN, the leading block right.
+    # The JAX leaf smears a NaN pivot over its panel (ROADMAP Queue 3) and
+    # reports that panel's first pivot, so a NaN's info is held to k + 1.
+    monkeypatch.setattr(leaf, "POTF2_KB", 256)
+    n = 384
+    A = spd_np(n, cond=10.0, seed=5)
+    A[k, k] = value
+    At = torch.from_numpy(A.copy())
+    info = potf2_f32(At)
+    L, info_j = pleaf.potf2_f32(jnp.asarray(A))
+    assert int(info) == k + 1
+    assert np.isnan(value) or int(info_j) == k + 1
+    bad = {tuple(ix) for ix in np.argwhere(~np.isfinite(At.numpy()))}
+    assert bad <= {(k, k)}
+    lead = At.numpy()[:k, :k]
+    ref = np.linalg.cholesky(A[:k, :k].astype(np.float64))
+    assert_close(lead, ref, F32, 8 * n, "potf2 strips leading block")
+    if not np.isnan(value):
+        assert_close(lead, np.asarray(L)[:k, :k], F32, 8 * n,
+                     "potf2 strips leading block vs JAX")
+
+
+@pytest.mark.parametrize("n,kb,want", [
+    (100, 512, [(0, 100)]),
+    (512, 512, [(0, 512)]),
+    (1280, 512, [(0, 512), (512, 1024), (1024, 1280)]),
+    (16384, 1024, [(j, j + 1024) for j in range(0, 16384, 1024)]),
+])
+def test_potf2_strips_plan(n, kb, want):
+    assert leaf.potf2_strips(n, kb) == want
 
 
 # ---------------------------------------------------------------------------
