@@ -45,9 +45,8 @@ show that the path went through each of its kernels:
 Phase 3 also runs the A/B of ``gemm_f32``'s two tiles at the paths'
 shapes, of ``potrf_block_f32``'s two launches (one thread block, or one
 cooperative launch over many) and of ``potrf_stream_f32`` at the
-multiples of 128 that sets its crossover, of ``trtri_block_f32``'s two
-launches (one cooperative launch, or one per phase) and of
-``potf2_f32``'s strip width at 16384, and prints the trace of
+multiples of 128 that sets its crossover and of ``potf2_f32``'s strip
+width at 16384, and prints the trace of
 ``potrf_stream_f32``'s panel loop at n = 1024, 4096 and 8192 (per phase
 the sum over panels, F's mean, the first panel whose F is not hidden
 behind the trailing update). Phase 5 counts every ``gemm_f32`` launch of
@@ -684,8 +683,7 @@ def check_trtri_block(gen, rec, on):
     """The block recursion against an f64 inverse of a dense factor, gated
     on solve_triangular's f32 error, at ragged n (split points at
     multiples of 128, the last block short) with a NaN strict upper; zero
-    diagonals, the unit route and a view with a longer row; the A/B of its
-    two launches (one cooperative launch, or one per phase); the times at
+    diagonals, the unit route and a view with a longer row; the times at
     128, 512 and 1024 beside solve_triangular(L, I)."""
     for n in (1, 31, 32, 33, 100, 128, 500, 512, 1000, 1024):
         L = torch.linalg.cholesky(dense_spd(gen, n)).contiguous()
@@ -738,18 +736,9 @@ def check_trtri_block(gen, rec, on):
           f"max err vs f64 {e_u:.3e} (limit {l_u:.3e}), diagonal passed "
           f"through; view of leading stride {n + 37}: {e_v:.3e} (limit "
           f"{l_v:.3e})")
-    # the A/B of the launches, in turns, and the times
+    # the times
     for n in (128, 512, 1024):
         L = torch.linalg.cholesky(dense_spd(gen, n)).contiguous()
-        t = {}
-        for coop in (False, True, True, False):
-            keep = mega.TRTRI_BLOCK_COOP
-            mega.TRTRI_BLOCK_COOP = coop
-            try:
-                t.setdefault(coop, []).append(
-                    bench_op(lambda x: trtri_block_f32(x), L, reps=50) * 1e3)
-            finally:
-                mega.TRTRI_BLOCK_COOP = keep
         ms = bench_op(lambda x: trtri_block_f32(x), L, reps=50) * 1e3
         plain_ms = bench_op(lambda x: trtri_block_plain(x), L, warmup=1,
                             reps=3) * 1e3
@@ -757,11 +746,8 @@ def check_trtri_block(gen, rec, on):
         lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
             x, eye, upper=False), L, reps=50) * 1e3
         rl = roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n))
-        print(f"trtri_block_f32 n={n}: kernel {ms:.4f} ms (A/B: a launch "
-              f"per phase {t[False][0]:.4f}/{t[False][1]:.4f}, one "
-              f"cooperative launch {t[True][0]:.4f}/{t[True][1]:.4f}; the "
-              f"default {'cooperative' if mega.TRTRI_BLOCK_COOP else 'per phase'}"
-              f"), plain {plain_ms:.4f} ms, "
+        print(f"trtri_block_f32 n={n}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, "
               f"torch.linalg.solve_triangular(L, I) {lib_ms:.4f} ms, bound "
               f"{rl['bound_ms']:.4f} ms ({rl['bound_by']}) on {on}")
         if n == 512:

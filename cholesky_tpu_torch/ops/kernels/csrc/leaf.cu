@@ -52,9 +52,10 @@
 //   the chain at the end of each strip, so F is hidden behind the bulk
 //   update except near the end. The two strips in flight use the two
 //   halves of PT. The version before this one ran 128-wide panels with a
-//   64 x 64-tile update of depth 128 and every F exposed: 87.4-87.6 ms at
-//   16384 against cholesky_ex's 45.1; this one 43.8-44.1 (KB 256 and
-//   1024 within 1-2 %; H100 80GB HBM3, 700 W).
+//   64 x 64-tile update of depth 128 and every F exposed: 88.0 ms at
+//   16384 against cholesky_ex's 45.1-45.3; this one 44.3 (chip_compare.py),
+//   KB = 256 44.5-44.7 and 1024 45.2-45.4 against 512's 43.8-44.3
+//   (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W).
 //   trti2, right-looking over 128-wide panels from the last one up. W
 //   starts at zero and its strict lower part below-left of the panel
 //   accumulates the fold of the panels already inverted:

@@ -30,8 +30,8 @@
 //          j, no barrier in the chain), then the block joins them with the
 //          identity at 64 and at 128 (16-byte shared loads); the last tile
 //          may be short (identity padding decouples). Block 0 also
-//          computes info. About 10 µs a tile: the 64-wide join alone is
-//          0.5 M FFMA on one SM.
+//          computes info. The 64-wide join alone is 0.5 M FFMA on one
+//          SM, at least 2 µs.
 //   level  for s = 128, 256, 512 < n, each pair (A at a0, C at a0 + s, C
 //          short at the end) of inverted s-blocks: X = B·A⁻¹ into the
 //          scratch S (and the mirror tile of W's strict upper zero), then
@@ -40,14 +40,15 @@
 //          the triangles are live; the depth is split over four groups of
 //          64 threads (4 x 4 micro-tiles, 32-deep k-major chunks, the next
 //          chunk's loads and the next k's fragments ahead), whose sums
-//          meet in shared memory. 5-7 µs a phase.
-// By default one cooperative launch runs the phases with a grid sync
-// between them (2·log2(n/128) + 1 phases: 5 at n = 512), on one block an
-// SM at most; TRTRI_BLOCK_COOP in mega.py selects one launch per phase
-// instead (the A/B of chip_smoke.py's phase 3). n <= 128 is one block, one
-// phase. Device time 11.6 / 32.7 / 67.3 µs at n = 128 / 512 / 1024 (NVIDIA
-// H100 80GB HBM3, 700 W, torch.profiler). Every read of data written in
-// the launch bypasses L1 (__ldcg).
+//          meet in shared memory.
+// One cooperative launch runs the phases with a grid sync between them
+// (2·log2(n/128) + 1 phases: 5 at n = 512), on one block an SM at most;
+// n <= 128 is one block, one phase. One launch per phase instead took
+// 0.111-0.116 ms a call at n = 512 against 0.093-0.096 (chip_smoke.py's
+// A/B when this design was added). Device time 11.5 / 32.5 / 67.5 µs at
+// n = 128 / 512 / 1024, the design before this one 37.0 / 262.3 / 860.6
+// (chip_compare.py, NVIDIA H100 80GB HBM3, 700 W). Every read of data
+// written in the launch bypasses L1 (__ldcg).
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -334,28 +335,20 @@ __device__ void level_tile(const float* __restrict__ L, long long ldl,
   __syncthreads();                 // sm is the next tile's
 }
 
-// Phase `only` of the inversion (0 the leaves, 1 + 2·l + h half h of
-// level l), or with only < 0 every phase, a grid sync between them (a
-// cooperative launch, or one block).
+// The whole inversion: the leaves, then each level's two halves, a grid
+// sync between phases (a cooperative launch), or with one block, one leaf
+// and no sync.
 __global__ void __launch_bounds__(NT)
 trtri_block_f32_kernel(const float* __restrict__ L, long long ldl, float* W,
-                       long long ldw, float* S, int n, int* info, int only) {
+                       long long ldw, float* S, int n, int* info) {
   extern __shared__ __align__(16) float sm[];
   const int nleaf = (n + LW - 1) / LW;
-  if (only <= 0)
-    for (int t = blockIdx.x; t < nleaf; t += gridDim.x)
-      leaf(L, ldl, W, ldw, n, t, sm, info);
-  int phase = 1;
+  for (int t = blockIdx.x; t < nleaf; t += gridDim.x)
+    leaf(L, ldl, W, ldw, n, t, sm, info);
   for (int s = LW; s < n; s *= 2) {
     const int tiles = pairs(n, s) * (s / TW) * (s / TW);
-    for (int second = 0; second < 2; ++second, ++phase) {
-      if (only >= 0 && only != phase) continue;
-      if (only < 0) {
-        if (gridDim.x == 1)
-          __syncthreads();
-        else
-          cg::this_grid().sync();
-      }
+    for (int second = 0; second < 2; ++second) {
+      cg::this_grid().sync();
       for (int t = blockIdx.x; t < tiles; t += gridDim.x)
         level_tile(L, ldl, W, ldw, S, n, s, t, second != 0, sm);
     }
@@ -366,7 +359,7 @@ trtri_block_f32_kernel(const float* __restrict__ L, long long ldl, float* W,
 
 CT_EXPORT int ct_trtri_block_f32(const float* L, long long ldl, float* W,
                                  long long ldw, float* S, int n, int* info,
-                                 int coop, int device, void* stream) {
+                                 int device, void* stream) {
   if (n < 1 || n > MAX_N || ldl < n || ldw < n)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -376,24 +369,10 @@ CT_EXPORT int ct_trtri_block_f32(const float* L, long long ldl, float* W,
                              SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto st = static_cast<cudaStream_t>(stream);
-  int all = -1;
   if (n <= LW) {                   // one leaf: one block, one phase
     trtri_block_f32_kernel<<<1, NT, LEAF_SMEM, st>>>(L, ldl, W, ldw, S, n,
-                                                     info, all);
+                                                     info);
     return static_cast<int>(cudaGetLastError());
-  }
-  // the tiles of each phase: the leaves, then both halves of each level
-  int tiles[2 * 3 + 1] = {(n + LW - 1) / LW}, phases = 1;
-  for (int s = LW; s < n; s *= 2, phases += 2)
-    tiles[phases] = tiles[phases + 1] = pairs(n, s) * (s / TW) * (s / TW);
-  if (!coop) {                     // one launch per phase
-    for (int p = 0; p < phases; ++p) {
-      trtri_block_f32_kernel<<<tiles[p], NT, p ? TILE_SMEM : LEAF_SMEM,
-                               st>>>(L, ldl, W, ldw, S, n, info, p);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    return 0;
   }
   int has_coop = 0, nsm = 0;
   err = cudaDeviceGetAttribute(&has_coop, cudaDevAttrCooperativeLaunch,
@@ -403,9 +382,13 @@ CT_EXPORT int ct_trtri_block_f32(const float* L, long long ldl, float* W,
                                  device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!has_coop) return static_cast<int>(cudaErrorNotSupported);
-  // one block an SM at most, as many as the widest phase has tiles
-  const int grid = std::min(*std::max_element(tiles, tiles + phases), nsm);
-  void* args[] = {&L, &ldl, &W, &ldw, &S, &n, &info, &all};
+  // one block an SM at most, as many as the widest phase has tiles: the
+  // leaves, or the last level's
+  int widest = (n + LW - 1) / LW;
+  for (int s = LW; s < n; s *= 2)
+    widest = std::max(widest, pairs(n, s) * (s / TW) * (s / TW));
+  const int grid = std::min(widest, nsm);
+  void* args[] = {&L, &ldl, &W, &ldw, &S, &n, &info};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(trtri_block_f32_kernel), dim3(grid), dim3(NT),
       args, SMEM, st);

@@ -60,11 +60,6 @@ def potrf_block_plain(A):
 #: trtri_block_f32's leaf tile: the diagonal tiles it inverts first, each
 #: on one thread block (csrc/trtri_block.cu, LW)
 TRTRI_LEAF = 128
-#: trtri_block_f32 above one leaf as one cooperative launch (a grid sync
-#: between its phases) rather than one launch per phase (the A/B of
-#: chip_smoke.py's phase 3: 32.7 against 35.8-37.7 µs of device time at
-#: n = 512)
-TRTRI_BLOCK_COOP = True
 
 
 def trtri_levels(n):
@@ -140,7 +135,7 @@ def trtri_block_f32(L):
     info = torch.empty((), dtype=torch.int32, device=L.device)
     err = _build.library().ct_trtri_block_f32(
         L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), S.data_ptr(),
-        n, info.data_ptr(), int(TRTRI_BLOCK_COOP), *_build.device_args(L))
+        n, info.data_ptr(), *_build.device_args(L))
     _build.check_launch(err, "trtri_block_f32")
     trtri_block_f32.launches += 1
     return W, info

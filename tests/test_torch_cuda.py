@@ -743,18 +743,10 @@ def test_potf2_on_a_view_off_the_grid(cuda):
     assert bool((buf[:, 0] == 7.0).all() and (buf[:, 1 + n:] == 7.0).all())
 
 
-@pytest.fixture(params=[True, False], ids=["coop", "phases"])
-def trtri_coop(request, monkeypatch):
-    """trtri_block_f32 above one leaf as one cooperative launch, or as one
-    launch per phase."""
-    monkeypatch.setattr(mega, "TRTRI_BLOCK_COOP", request.param)
-    return request.param
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 100, 128, 500, 512, 1000,
                                1024])
-def test_trtri_block_dense_vs_f64(cuda, n, trtri_coop):
+def test_trtri_block_dense_vs_f64(cuda, n):
     # a dense factor, the strict upper NaN: the block recursion's ragged
     # split points, gated on solve_triangular's f32 error against f64
     L = factor(n, seed=n).contiguous().to(cuda)
