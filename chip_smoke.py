@@ -2358,6 +2358,21 @@ SOURCES = {
 }
 
 
+def short_name(mangled: str) -> str:
+    """The last name of an Itanium-mangled symbol, its template arguments
+    as mangled (``potf2_update128<Lb1>``), for ptxas' log."""
+    s, names = mangled.removeprefix("_ZN").removeprefix("_Z"), []
+    while s[:1].isdigit():
+        digits = len(s) - len(s.lstrip("0123456789"))
+        size = int(s[:digits])
+        names.append(s[digits:digits + size])
+        s = s[digits + size:]
+    if not names:
+        return mangled
+    args = s[1:s.find("EE") + 1].replace("E", "") if s[:1] == "I" else ""
+    return names[-1] + (f"<{args}>" if args else "")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2377,9 +2392,12 @@ def main() -> int:
     b = _build.build()
     print(f"build: nvcc {b.seconds:.1f} s -> {b.path} (on the host of "
           f"{name_power})")
+    fn = ""
     for line in b.log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+        if "Function properties for" in line:
+            fn = short_name(line.split()[-1])
+        elif "registers" in line or "spill" in line:
+            print(f"  ptxas: {fn}: {line.strip().removeprefix('ptxas info    : ')}")
 
     # 3. kernels against their twins
     gen = torch.Generator(device="cuda").manual_seed(0)
