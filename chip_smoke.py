@@ -2394,10 +2394,13 @@ def main() -> int:
           f"{name_power})")
     fn = ""
     for line in b.log.read_text().splitlines():
+        text = line.strip().removeprefix("ptxas info    : ")
         if "Function properties for" in line:
             fn = short_name(line.split()[-1])
+        elif text.startswith("Used ") or "bytes spill" in text:
+            print(f"  ptxas: {fn}: {text}")   # the function's own counts
         elif "registers" in line or "spill" in line:
-            print(f"  ptxas: {fn}: {line.strip().removeprefix('ptxas info    : ')}")
+            print(f"  ptxas: {text}")
 
     # 3. kernels against their twins
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -54,6 +54,33 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in out.stdout
 
 
+def test_chip_compare_fails_without_a_card():
+    # the comparison prints no numbers from a machine with no card
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    out = subprocess.run([sys.executable, "chip_compare.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "{" not in out.stdout
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN39_GLOBAL__N__8bf87cd6_7_leaf_cu_25769aae15potf2_update128ILb1EEEv"
+     "PfxPKfiiiPKi", "potf2_update128<Lb1>"),
+    ("_ZN47_GLOBAL__N__64f886f1_14_trtri_block_cu_66e7af1f22trtri_block_f32_"
+     "kernelEPKfxPfxS2_iPii", "trtri_block_f32_kernel"),
+    ("_ZN2ct4t1288tile_xytILb1ELb0ELb1EEEvPKfxx", "tile_xyt<Lb1Lb0Lb1>"),
+    ("ct_gemm_f32", "ct_gemm_f32"),
+])
+def test_chip_smoke_names_the_kernels_in_ptxas_log(mangled, name):
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    assert chip_smoke.short_name(mangled) == name
+
+
 def test_public_api():
     routines = ["potrf", "potf2", "logdet", "trtri", "trtri2", "trti2",
                 "lauum", "lauu2", "potri", "gemm", "syrk", "trmm", "trmm2",
