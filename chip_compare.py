@@ -7,12 +7,25 @@ Imports ``cholesky_tpu_torch`` from DIR (default: this script's checkout),
 so that two trees, for example a change and its parent unpacked with
 ``git archive``, can be timed in one call in turns (parent, change,
 change, parent) on the same card. It measures what ``chip_smoke.py``
-does not measure in an older tree: ``trtri_block_f32`` at n = 128, 512
-and 1024 (one call between CUDA events, and its kernels' device time
-under torch.profiler) beside ``torch.linalg.solve_triangular(L, I)``,
-``potf2_f32`` at 4096, 8192 and 16384 beside ``torch.linalg.cholesky_ex``,
-and one GP train step at n = 8192, d = 8 (as in ``chip_smoke.py`` phase
-5) with the ``trtri_block_f32`` launches it makes and their device time.
+does not measure in an older tree, each time beside one PyTorch call of
+the same function, and each kernel's device time under torch.profiler by
+CUDA kernel name, with its launches (names as the tree's sources give
+them, so two trees' splits can differ):
+
+- ``trtri_block_f32`` at n = 128, 512 and 1024 beside
+  ``torch.linalg.solve_triangular(L, I)``;
+- ``trti2_f32`` at n = 1024, 4096 and 8192, unit and not, beside
+  ``solve_triangular(L, I)`` (``unitriangular`` for the unit form);
+- ``syrk_lower_f32`` at n = k = 512, 1024, 2048 (the potrf recursion's
+  shapes) and 8192, A and C views of one buffer, beside ``torch.addmm``
+  on the whole square;
+- the device time of every ``syrk_lower_f32`` launch of
+  ``potrf(block_size=512)`` at 4096 and of ``lauum(block_size=512)`` at
+  2048;
+- ``potf2_f32`` at 4096, 8192 and 16384 beside ``torch.linalg.cholesky_ex``;
+- one GP train step at n = 8192, d = 8 (as in ``chip_smoke.py`` phase 5)
+  with the ``trtri_block_f32`` launches it makes and their device time.
+
 Prints the card's name and power limit, then one JSON line. Needs one
 CUDA card.
 """
@@ -25,6 +38,13 @@ import os
 import subprocess
 import sys
 import time
+
+
+def kernel_name(name: str) -> str:
+    """A CUDA kernel's name as the profiler shows it, without its return
+    type, namespaces and parameters (``potf2_update128<true>``)."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(", 1)[0].rsplit("::", 1)[-1]
 
 
 def main() -> int:
@@ -42,7 +62,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from cholesky_tpu_torch.models import gp
-    from cholesky_tpu_torch.ops.kernels import potf2_f32, trtri_block_f32
+    from cholesky_tpu_torch.ops.kernels import (potf2_f32, syrk_lower_f32,
+                                                trti2_f32, trtri_block_f32)
     from cholesky_tpu_torch.utils.benchlib import bench_op
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -70,20 +91,32 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return sorted(times)[len(times) // 2]
 
-    def trtri_device_ms(fn):
-        """fn() under torch.profiler: its trtri_block_f32 kernels' device
-        ms and the launches it made."""
+    def device_by_kernel(fn, match):
+        """fn() under torch.profiler: {kernel: [device ms, launches]} for
+        the CUDA kernels whose name holds ``match``."""
         torch.cuda.synchronize()
-        before = trtri_block_f32.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        return sum((e.time_range.end - e.time_range.start) / 1e3
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and "trtri_block" in e.name), \
+        split = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and match in e.name:
+                row = split.setdefault(kernel_name(e.name), [0.0, 0])
+                row[0] += (e.time_range.end - e.time_range.start) / 1e3
+                row[1] += 1
+        return split
+
+    def trtri_device_ms(fn):
+        """fn() under torch.profiler: its trtri_block_f32 kernels' device
+        ms and the launches it made."""
+        before = trtri_block_f32.launches
+        split = device_by_kernel(fn, "trtri_block")
+        return sum(ms for ms, _ in split.values()), \
             trtri_block_f32.launches - before
+
+    def per_call(split, calls):
+        return {k: [ms / calls, c / calls] for k, (ms, c) in split.items()}
 
     out = {"tree": tree, "tag": args[0] if args else ""}
     for n in (128, 512, 1024):
@@ -97,6 +130,48 @@ def main() -> int:
         out[f"solve_triangular {n}"] = bench_op(
             lambda x: torch.linalg.solve_triangular(x, eye, upper=False), L,
             reps=50) * 1e3
+    for n in (1024, 4096, 8192):
+        L = torch.linalg.cholesky(dense_spd(n)).contiguous()
+        eye = torch.eye(n, device="cuda")
+        reps = 20 if n < 8192 else 5
+        for unit in (False, True):
+            tag = f"trti2_f32 {n}{' unit' if unit else ''}"
+            out[tag] = bench_op(lambda x: trti2_f32(x, unit=unit), L,
+                                reps=reps) * 1e3
+            out[f"{tag} device"] = per_call(device_by_kernel(
+                lambda: [trti2_f32(L, unit=unit) for _ in range(3)],
+                "trti2"), 3)
+            out[f"solve_triangular {n}{' unit' if unit else ''}"] = \
+                bench_op(lambda x: torch.linalg.solve_triangular(
+                    x, eye, upper=False, unitriangular=unit), L,
+                    reps=reps) * 1e3
+        del L, eye
+    for n in (512, 1024, 2048, 8192):
+        # A and C views of one buffer, as L21 and A22 of the recursion
+        buf = torch.randn(n, 2 * n, device="cuda", generator=g)
+        A, C = buf[:, :n], buf[:, n:]
+        reps = 20 if n < 8192 else 5
+        out[f"syrk_lower_f32 {n}"] = bench_op(
+            lambda c: syrk_lower_f32(-1e-3, A, 1.0, c), C, reps=reps) * 1e3
+        out[f"syrk_lower_f32 {n} device"] = per_call(device_by_kernel(
+            lambda: [syrk_lower_f32(-1e-3, A, 1.0, C) for _ in range(5)],
+            "syrk"), 5)
+        out[f"addmm {n}"] = bench_op(lambda c: torch.addmm(
+            c, A, A.T, beta=1.0, alpha=-1e-3), C, reps=reps) * 1e3
+        del buf, A, C
+    for what, n, call in (("potrf", 4096, cholesky_tpu_torch.potrf),
+                          ("lauum", 2048, cholesky_tpu_torch.lauum)):
+        A = dense_spd(n)
+        if what == "lauum":
+            A = torch.linalg.cholesky(A)
+        call("L", A, block_size=512)
+        before = syrk_lower_f32.launches
+        split = device_by_kernel(lambda: call("L", A, block_size=512),
+                                 "syrk")
+        out[f"{what} {n} block_size=512 syrk device"] = {
+            "launches": syrk_lower_f32.launches - before,
+            "ms": sum(ms for ms, _ in split.values()), "kernels": split}
+        del A
     for n in (4096, 8192, 16384):
         A = dense_spd(n)
         out[f"potf2_f32 {n}"] = ms_inplace(potf2_f32, A, 3)
