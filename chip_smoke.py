@@ -67,6 +67,7 @@ call computing the same function where there is one) and the result
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -80,6 +81,7 @@ from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import _build, leaf, mega
 from cholesky_tpu_torch.ops.kernels import gemm as kgemm
+from cholesky_tpu_torch.ops.kernels import syrk as ksyrk
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32, gemm_plain
 from cholesky_tpu_torch.ops.kernels.leaf import (lauu2_f32, lauu2_plain,
                                                  potf2_f32, potf2_plain,
@@ -373,32 +375,133 @@ def check_gemm(gen, rec, on):
     del L, X, D
 
 
+def syrk_plan_on(**plan):
+    """The syrk_lower_f32 launch rule moved so that every launch takes this
+    tile and a uniform split or a number of blocks (``launch_plan``'s
+    overrides): launch_plan, its only selector, wrapped for a while.
+    Returns the rule to put back."""
+    keep = ksyrk.launch_plan
+    ksyrk.launch_plan = functools.partial(keep, **plan)
+    return keep
+
+
+def plan_name(plan):
+    return "/".join(f"{k} {v}" for k, v in plan.items())
+
+
+def syrk_case(gen, n, k, row_fast, off=0, odd=False, plan=None):
+    """syrk_lower_f32(-1, A, 1, C) on A (n x k) from ``operand`` (row-fast:
+    a transposed view) and C a view one column into a wider buffer, under
+    the launch rule or a forced plan (``syrk_plan_on``): against f64, gated
+    on the twin's f32 error; the strict upper of C and everything outside
+    the view unchanged bit for bit, and a second call equal bit for bit.
+    Returns (err, limit, the plan the launch took)."""
+    A = operand(gen, n, k, row_fast, off, odd)
+    buf = torch.randn(n, n + 3, device="cuda", generator=gen)
+    C = buf[:, 1:1 + n]
+    keep_buf = buf.clone()
+    ref = torch.tril(keep_buf[:, 1:1 + n].double() - A.double() @ A.double().T)
+    yard = torch.tril(syrk_lower_plain(-1.0, A, 1.0,
+                                       keep_buf[:, 1:1 + n].clone()))
+    keep = syrk_plan_on(**plan) if plan else None
+    try:
+        took = ksyrk.launch_plan(n, k, A.stride(), A.data_ptr())
+        syrk_lower_f32(-1.0, A, 1.0, C)
+        again = keep_buf.clone()
+        syrk_lower_f32(-1.0, A, 1.0, again[:, 1:1 + n])
+    finally:
+        if keep:
+            ksyrk.launch_plan = keep
+    what = (f"syrk_lower_f32 n={n} k={k} {'row' if row_fast else 'k'}-fast"
+            f" off {off} odd {odd} plan (tile, q, blocks) {took[:3]}")
+    require(torch.equal(buf, again), f"{what}: a second call differs")
+    low = torch.ones(n, n, dtype=torch.bool, device="cuda").tril_()
+    require(torch.equal(C[~low], keep_buf[:, 1:1 + n][~low])
+            and torch.equal(buf[:, 0], keep_buf[:, 0])
+            and torch.equal(buf[:, 1 + n:], keep_buf[:, 1 + n:]),
+            f"{what}: wrote the strict upper or outside the view")
+    err, lim, _ = gated(what, torch.tril(C), ref, max_err(yard, ref))
+    return err, lim, took
+
+
 def check_syrk(gen, rec, on):
-    # A and C are views of one buffer, as L21 and A22 of the recursion
-    buf = torch.randn(2048, 4096, device="cuda", generator=gen)
-    A, C = buf[:, :2048], buf[:, 2048:]
-    C0 = C.clone()
-    want = syrk_lower_plain(-1.0, A, 1.0, C.clone())
-    syrk_lower_f32(-1.0, A, 1.0, C)
-    low = torch.ones(2048, 2048, dtype=torch.bool, device="cuda").tril_()
-    err = max_err(torch.where(low, C, 0.0), torch.where(low, want, 0.0))
-    b = bound(2 * 2048 + 3, float(want.abs().max()))
-    require(err <= b, f"syrk_lower_f32: err {err} > {b}")
-    require(torch.equal(torch.where(low, 0.0, C), torch.where(low, 0.0, C0)),
-            "syrk_lower_f32 changed the strict upper of C")
-    ms = bench_op(lambda c: syrk_lower_f32(-1e-3, A, 1.0, c), C) * 1e3
-    plain_ms = bench_op(lambda c: syrk_lower_plain(-1e-3, A, 1.0, c), C) * 1e3
-    # the library call computes the whole square, twice the work
-    lib_ms = bench_op(lambda c: torch.addmm(c, A, A.T, beta=1.0, alpha=-1e-3),
-                      C) * 1e3
-    print(f"syrk_lower_f32 n=2048 k=2048: max err {err:.3e} (bound "
-          f"{b:.3e}), strict upper unchanged bit for bit; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.addmm (whole "
-          f"square) {lib_ms:.4f} ms on {on}")
-    rec["syrk_lower_f32"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **roofline(2048 * 2049 * 2048, "f32",
-                   2048 * 2048 * 4 + 2 * tri_bytes(2048)))
+    """The lower-triangle update against f64, each case within F32_GATE
+    times the twin's f32 error, on k-fast and row-fast operands: the
+    recursion's n = k = 512, 1024, 2048 and the public 8192 under the
+    launch rule; ragged n (600, 1000), a view off the 16-byte grid and one
+    of odd leading stride, k < 16; every split on both tiles at a ragged
+    size. Each call leaves the strict upper and everything outside C as it
+    was, and repeats bit for bit. Then the A/B of the tiles and splits at
+    the recursion's shapes and the times beside torch.addmm (whole
+    square)."""
+    worst = 0.0
+    plans = set()
+    cases = [(n, n, rf, 0, False, None) for n in (512, 1024, 2048, 8192)
+             for rf in (False, True)]
+    cases += [(n, k, rf, off, odd, None)
+              for n, k in ((600, 600), (1000, 1000), (1000, 515), (300, 7))
+              for rf in (False, True)
+              for off, odd in ((0, False), (1, False), (0, True))]
+    cases += [(1000, 777, rf, 1, False, dict(tile=tile, **cut))
+              for rf in (False, True) for tile in (128, 64)
+              for cut in (dict(split=1), dict(split=2), dict(split=3),
+                          dict(split=8), dict(blocks=97),
+                          dict(blocks=264))]
+    for n, k, rf, off, odd, plan in cases:
+        err, lim, took = syrk_case(gen, n, k, rf, off, odd, plan)
+        worst = max(worst, err / lim)
+        plans.add(took[:3])
+        if n == k == 2048 and not rf:
+            err_2048 = err
+    print(f"syrk_lower_f32, {len(cases)} cases (n = k = 512 to 8192, ragged "
+          f"n, k < 16, views off the 16-byte grid or of odd leading stride, "
+          f"k-fast and row-fast A, plans (tile, q, blocks) {sorted(plans)}):"
+          f" the worst error "
+          f"{worst:.3f} of the limit, {F32_GATE:g}x the twin's f32 error "
+          "against f64; strict upper and the rest of the buffer unchanged, "
+          "every call repeated bit for bit")
+    # the A/B of tiles and splits at the recursion's shapes, in turns
+    ab = [dict(tile=tile, **cut) for tile in (128, 64)
+          for cut in (dict(split=1), dict(split=2), dict(split=4),
+                      dict(blocks=132), dict(blocks=264), dict(blocks=528))]
+    for n in (512, 1024, 2048):
+        buf = torch.randn(n, 2 * n, device="cuda", generator=gen)
+        A, C = buf[:, :n], buf[:, n:]
+        t = {}
+        for plan in ab + ab[::-1]:
+            keep = syrk_plan_on(**plan)
+            try:
+                t.setdefault(plan_name(plan), []).append(bench_op(
+                    lambda c: syrk_lower_f32(-1e-3, A, 1.0, c), C,
+                    reps=20) * 1e3)
+            finally:
+                ksyrk.launch_plan = keep
+        rule = ksyrk.launch_plan(n, n, A.stride(), A.data_ptr())
+        print(f"syrk_lower_f32 A/B n=k={n}: "
+              + ", ".join(f"{p} {v[0]:.4f}/{v[1]:.4f}" for p, v in t.items())
+              + f" ms; the rule takes (tile, q, blocks) {rule[:3]} on {on}")
+    for n in (512, 1024, 2048, 8192):
+        buf = torch.randn(n, 2 * n, device="cuda", generator=gen)
+        A, C = buf[:, :n], buf[:, n:]
+        reps = 20 if n < 8192 else 3
+        ms = bench_op(lambda c: syrk_lower_f32(-1e-3, A, 1.0, c), C,
+                      reps=reps) * 1e3
+        plain_ms = bench_op(lambda c: syrk_lower_plain(-1e-3, A, 1.0, c), C,
+                            reps=reps) * 1e3
+        # the library call computes the whole square, twice the work
+        lib_ms = bench_op(lambda c: torch.addmm(c, A, A.T, beta=1.0,
+                                                alpha=-1e-3), C,
+                          reps=reps) * 1e3
+        rl = roofline(n * (n + 1) * n, "f32", n * n * 4 + 2 * tri_bytes(n))
+        print(f"syrk_lower_f32 n=k={n}: kernel {ms:.4f} ms "
+              f"({n * (n + 1) * n / ms / 1e9:.1f} TF/s on the triangle), "
+              f"plain {plain_ms:.4f} ms, torch.addmm (whole square) "
+              f"{lib_ms:.4f} ms, bound {rl['bound_ms']:.4f} ms on {on}")
+        if n == 2048:
+            rec["syrk_lower_f32"] = dict(max_abs_err=err_2048, ms=ms,
+                                         plain_ms=plain_ms,
+                                         library_ms=lib_ms, **rl)
+        del buf, A, C
 
 
 def potrf_block_on(A, many: bool):
@@ -982,54 +1085,91 @@ def inverse64(L, unit=False):
 
 
 def check_trti2(gen, rec, on):
-    """The leaf inverse against an f64 inverse of a dense factor, gated on
-    the twin's error (a triangular solve against I), non-unit and unit."""
-    for n in (1024, 8192):
+    """The leaf inverse (leaves, then the levels of mega.trtri_levels)
+    against an f64 inverse of a dense factor, gated on its twin's error
+    (the same order of work in torch), non-unit and unit, with a NaN strict
+    upper, at n = 100 (one short leaf), 384 and 1280 (an unpaired block at
+    a level, a short last pair), 1024 and 8192; zero diagonals (info the
+    smallest, past the first 1024 at 8192; with unit, info 0 and the zero
+    passed through); the times at 1024 and 8192 beside solve_triangular(L,
+    I), and beside trtri_stream_f32 at 2048, 4096 and 8192."""
+    for n in (100, 384, 1280, 1024, 8192):
         F, info = ct.potrf("L", dense_spd(gen, n))
         require(int(info) == 0, f"trti2 input factor n={n}")
         L = torch.tril(F)
+        del F
         for unit in (False, True):
             Lu = unit_form(L) if unit else L
             X = Lu.clone()
             X[torch.ones_like(X, dtype=torch.bool).triu(1)] = float("nan")
             W, info = trti2_f32(X, unit=unit)
             want, i_ref = trti2_plain(Lu, unit)
-            require(int(info) == 0 == int(i_ref),
-                    f"trti2_f32 n={n} unit={unit}: info {int(info)}")
+            what = f"trti2_f32 n={n} unit={unit}"
+            require(int(info) == 0 == int(i_ref), f"{what}: info {int(info)}")
             require(bool((torch.triu(W, 1) == 0).all()),
-                    f"trti2_f32 n={n}: strict upper not zero")
+                    f"{what}: strict upper not zero")
             if unit:
                 require(torch.equal(torch.diagonal(W), torch.diagonal(Lu)),
-                        "trti2_f32 unit: the diagonal was not passed through")
+                        f"{what}: the diagonal was not passed through")
             W64 = inverse64(Lu, unit)
-            err, lim, rms = gated(f"trti2_f32 n={n} unit={unit}", W, W64,
-                                  max_err(want, W64))
-            print(f"trti2_f32 n={n} unit={unit} (dense factor): max err vs "
-                  f"f64 {err:.3e}, the twin's {max_err(want, W64):.3e} "
-                  f"(limit {lim:.3e}, 1/{rms / lim:.0f} of the strict "
-                  f"lower's RMS {rms:.3e}), NaN strict upper unread")
+            err, lim, rms = gated(what, W, W64, max_err(want, W64))
+            print(f"{what} (dense factor): max err vs f64 {err:.3e}, the "
+                  f"twin's {max_err(want, W64):.3e} (limit {lim:.3e}, "
+                  f"1/{rms / lim:.0f} of the strict lower's RMS {rms:.3e}), "
+                  "NaN strict upper unread")
             if n == 8192 and not unit:
                 err8 = err
-            del W, want, W64
-        if n == 1024:
-            Z = L.clone()
-            Z[9, 9] = 0.0
+            del W, want, W64, X
+        Z = L.clone()
+        zeros = (9, 700, 1200) if n == 1280 else (5000, 7000) if n == 8192 \
+            else ()
+        for z in zeros:
+            Z[z, z] = 0.0
+        if zeros:
             W, info = trti2_f32(Z)
-            require(int(info) == 10 and bool(torch.isfinite(W).all()),
-                    f"trti2_f32 zero diagonal: info {int(info)}")
-            print("trti2_f32 zero diagonal L[9,9]=0 at n=1024: info 10, "
-                  "finite")
-    ms = bench_op(lambda x: trti2_f32(x), L, reps=5) * 1e3
-    plain_ms = bench_op(lambda x: trti2_plain(x), L, reps=5) * 1e3
+            first = int(info)
+            require(first == zeros[0] + 1 and bool(torch.isfinite(W).all()),
+                    f"trti2_f32 zero diagonals {zeros}: info {first}")
+            if n == 1280:
+                want, i_ref = trti2_plain(Z)
+                e_z = max_err(W, want)
+                require(int(i_ref) == 10
+                        and e_z <= bound(60 * n, float(want.abs().max())),
+                        f"trti2_f32 zero diagonals: err vs twin {e_z:.3e}")
+                W, info = trti2_f32(unit_form(L).index_put_(
+                    (torch.tensor(zeros, device="cuda"),) * 2,
+                    torch.zeros(3, device="cuda")), unit=True)
+                require(int(info) == 0 and all(float(W[z, z]) == 0.0
+                                               for z in zeros),
+                        "trti2_f32 unit with zero diagonals: info "
+                        f"{int(info)} or the zeros not passed through")
+            print(f"trti2_f32 n={n} zero diagonals at {zeros}: info "
+                  f"{first}, finite"
+                  + (f", err vs twin {e_z:.3e}; unit: info 0, the zeros "
+                     "passed through" if n == 1280 else ""))
+            del W, Z
+        if n == 1024:
+            L1024 = L
     eye = torch.eye(n, device="cuda")
-    lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
-        x, eye, upper=False), L, reps=5) * 1e3
-    print(f"trti2_f32 n={n}: kernel {ms:.4f} ms, plain (solve_triangular) "
-          f"{plain_ms:.4f} ms, torch.linalg.solve_triangular(L, I) "
-          f"{lib_ms:.4f} ms on {on}")
+    for m, Lm in ((1024, L1024), (n, L)):
+        ms = bench_op(lambda x: trti2_f32(x), Lm, reps=5) * 1e3
+        plain_ms = bench_op(lambda x: trti2_plain(x), Lm, reps=3) * 1e3
+        lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
+            x, eye[:m, :m], upper=False), Lm, reps=5) * 1e3
+        rl = roofline(m ** 3 / 3, "f32", 2 * tri_bytes(m))
+        print(f"trti2_f32 n={m}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, torch.linalg.solve_triangular(L, I) {lib_ms:.4f} ms, "
+              f"bound {rl['bound_ms']:.4f} ms ({rl['bound_by']}) on {on}")
     rec["trti2_f32"] = dict(max_abs_err=err8, ms=ms, plain_ms=plain_ms,
-                            library_ms=lib_ms,
-                            **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
+                            library_ms=lib_ms, **rl)
+    # beside trtri_stream_f32, which _KernelTiles.trti2 takes up to its cap
+    for m in (2048, 4096, 8192):
+        Lm = L[:m, :m].contiguous()
+        t = [bench_op(fn, Lm, reps=5) * 1e3
+             for fn in (trti2_f32, trtri_stream_f32, trtri_stream_f32,
+                        trti2_f32)]
+        print(f"trti2_f32 / trtri_stream_f32 n={m}: {t[0]:.4f}/{t[3]:.4f} "
+              f"against {t[1]:.4f}/{t[2]:.4f} ms on {on}")
 
 
 def rms_of(R) -> float:

@@ -118,11 +118,7 @@ class _TorchTiles:
     # the oracle's: a Hermitian product has an exactly real diagonal
     lauu2 = staticmethod(functools.partial(lapack_ref.lauu2, Uplo.LOWER))
 
-    @staticmethod
-    def trti2(L, unit=False):
-        if unit:
-            return _leaf.unit_inverse(_mega.trtri_block_plain, L)
-        return _mega.trtri_block_plain(L)
+    trti2 = staticmethod(_leaf.trti2_plain)
 
 
 class _KernelTiles:

@@ -4,7 +4,7 @@ Each of ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all
 at once, and the objects are linked into ONE shared library with a plain C
 interface, loaded with ``ctypes``. The library goes into ``build/`` beside
 this file (listed in ``.gitignore``), named by a hash of the sources and
-the flags, so an edit or a new tile shape rebuilds and an unchanged tree
+the flags, so an edit rebuilds and an unchanged tree
 reuses the last build. The build runs on the first kernel launch, never at
 import. A failed build raises with nvcc's output; nothing falls back.
 """
@@ -22,7 +22,6 @@ from pathlib import Path
 
 import torch
 
-from cholesky_tpu_torch.tuning import get_params
 from cholesky_tpu_torch.utils.errors import report_error
 
 _HERE = Path(__file__).parent
@@ -54,17 +53,11 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _tile_flags() -> list[str]:
-    # gemm_f32 picks its tile per launch (kernels/gemm.py, launch_plan)
-    sy = get_params("syrk_f32")
-    return [f"-DSYRK_BN={sy['bn']}", f"-DSYRK_BK={sy['bk']}"]
-
-
 def build() -> Build:
     """Compile the kernels if this source tree and these flags have not
     been built yet; returns where the library is."""
     sources = sorted(CSRC.glob("*.cu"))
-    flags = NVCC_FLAGS + _tile_flags()
+    flags = NVCC_FLAGS
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
@@ -122,7 +115,8 @@ def library() -> ctypes.CDLL:
         signatures = {
             "ct_gemm_f32": [P, LL, LL, P, LL, LL, P, LL, LL, P, LL, LL,
                             I, I, I, F, F, I, I, I, I, I, P],
-            "ct_syrk_lower_f32": [P, LL, LL, P, LL, LL, I, I, F, F, I, P],
+            "ct_syrk_lower_f32": [P, LL, LL, P, LL, LL, I, I, F, F, I, I, I, I,
+                                  I, P, I, P],
             "ct_potrf_block_f32": [P, LL, I, P, I, I, P],
             "ct_potrf_stream_f32": [P, LL, P, P, P, I, P, P, I, P],
             "ct_trtri_block_f32": [P, LL, P, LL, P, I, P, I, P],
@@ -130,7 +124,7 @@ def library() -> ctypes.CDLL:
             "ct_lauum_stream_f32": [P, LL, P, LL, I, I, P],
             "ct_lauu2_f32": [P, LL, P, LL, I, I, P],
             "ct_potf2_f32": [P, LL, P, P, I, I, I, P, I, P],
-            "ct_trti2_f32": [P, LL, P, LL, I, I, P, I, P],
+            "ct_trti2_f32": [P, LL, P, LL, I, I, I, P, I, P],
             "ct_trmm_lln_f32": [P, LL, LL, P, LL, LL, P, LL, I, I, F, I, I,
                                 P],
             "ct_peel_f32pair": [P, LL, LL, P, LL, LL, P, LL, LL, I, I, I, I,

@@ -56,22 +56,41 @@
 //   16384 against cholesky_ex's 45.1-45.3; this one 44.3 (chip_compare.py),
 //   KB = 256 44.5-44.7 and 1024 45.2-45.4 against 512's 43.8-44.3
 //   (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W).
-//   trti2, right-looking over 128-wide panels from the last one up. W
-//   starts at zero and its strict lower part below-left of the panel
-//   accumulates the fold of the panels already inverted:
-//     sweep(b)  W[i, b:b+128] for every row i >= b, one thread per row
-//               (the rows are independent; the 128 x 128 tile of L sits
-//               in shared memory, read by broadcast), columns descending:
-//               W[i][j] = −(acc[i][j] + Σ_{j<k<b+128} W[i][k]·L[k][j])/d_j;
-//     fold(b)   W[b:, :b] += W[b:, b:b+128] · L[b:b+128, :b], 64 x 64
-//               tiles with k = 128.
-//   The same arithmetic as the TPU's left-looking fold (T2 = W·L per
-//   panel), with each product done once the panel it needs is final, so
-//   every launch is a wide set of equal tiles.
+//   trti2, the 2 x 2 block identity inv([[A, 0], [B, C]]) = [[A⁻¹, 0],
+//   [−C⁻¹·B·A⁻¹, C⁻¹]] applied bottom-up, trtri_block_f32's order of work
+//   (mega.trtri_levels) as a short series of wide launches, so no cap on n
+//   and no cooperative launch:
+//     leaves  every 128-wide diagonal tile inverted at once, one block
+//             each (trtri_leaf.cuh, shared with trtri_block.cu); block 0
+//             writes info;
+//     levels  for s = 128, 256, ... < n, each pair (A at a0, C at a0 + s,
+//             C short at the end) of inverted s-blocks, in two launches
+//             over the output tiles of every pair of the level:
+//               Xᵀ = (B·A⁻¹)ᵀ = A⁻ᵀ·Bᵀ into W's strict upper, the mirror
+//                 W[a0:c0, c0:c0+sc] of the block it is computed for;
+//               W[c0:c0+sc, a0:c0] = −C⁻¹·X, X read back from the mirror;
+//             on sgemm128.cuh's 128 x 128 tile where the level has
+//             GEMM128_MIN_TILES tiles of 128 (the count passed from
+//             leaf.py), on sgemm_tile.cuh's 64 x 64 below. A⁻¹ and C⁻¹
+//             are lower, so a tile's depth runs only where they are live
+//             (n³/6 FFMA in all), and the deepest tiles are launched
+//             first. A⁻¹ is read from its diagonal tile on (its upper part
+//             there is the leaf's zero) and C⁻¹ up to its diagonal tile,
+//             so no launch reads a mirror but the one its level wrote;
+//     finish  W's strict upper outside the leaves written zero (the
+//             mirrors), and with unit, L's diagonal put on W's.
+//   1 + 2·log2(n/128) + 1 launches: 14 at 8192. The design before this
+//   one ran 64 panels in sequence at 8192, each a per-row sweep (one
+//   thread a row through a chain of up to 128 dependent FFMAs) and a
+//   fold of depth 128 on the 64 x 64 tile that read and wrote all of
+//   W[b:, :b] again: 18.65 ms at 8192 (sweeps 8.57, folds 9.62 of device
+//   time) against solve_triangular(L, I)'s 17.48; 1.107 ms at 1024
+//   (chip_compare.py, NVIDIA H100 80GB HBM3, 700 W).
 #include <algorithm>
 
 #include "chol_tile.cuh"
 #include "sgemm128.cuh"
+#include "trtri_leaf.cuh"
 
 namespace {
 
@@ -80,10 +99,7 @@ constexpr int BT = 64;             // GEMM tile edge
 constexpr int BK = 16;             // k-step of the GEMM tiles
 constexpr int NT = (BT / ct::TM) * (BT / ct::TN);   // 256 threads
 static_assert(NT == ct::tile::NT, "factor_tile runs on the whole block");
-constexpr int RB = 64;             // rows (threads) per block of the sweep
-constexpr int LDW = RB + 1;        // shared stride of the sweep's rows
-constexpr int SWEEP_SMEM =
-    (NB * ct::tile::LDT + NB * LDW + NB) * static_cast<int>(sizeof(float));
+static_assert(NT == ct::tleaf::NT && NB == ct::tleaf::LW, "trti2's leaves");
 
 // ---- potf2 ---------------------------------------------------------------
 
@@ -240,109 +256,122 @@ potf2_update128(float* A, long long lda, const float* PT, int K, int b,
 
 // ---- trti2 ---------------------------------------------------------------
 
-// W written zero (the fold accumulates into it) and info from L's diagonal.
-__global__ void trti2_init(const float* L, long long ldl, float* W,
-                           long long ldw, int n, int unit, int* info) {
-  __shared__ int s_first;
-  if (blockIdx.x == 0) {
-    if (threadIdx.x == 0) s_first = n;
-    __syncthreads();
-    if (!unit)
-      for (int i = threadIdx.x; i < n; i += blockDim.x)
-        if (L[(long long)i * ldl + i] == 0.f) atomicMin(&s_first, i);
-    __syncthreads();
-    if (threadIdx.x == 0) *info = (s_first < n) ? s_first + 1 : 0;
-  }
-  for (int r = blockIdx.x; r < n; r += gridDim.x)
-    for (int c = threadIdx.x; c < n; c += blockDim.x)
-      W[(long long)r * ldw + c] = 0.f;
-}
-
-// The sweep of the panel at columns [b, b + pw) for rows [r0, r0 + RB),
-// r0 = b + blockIdx.x·RB, one thread per row, columns descending.
-__global__ void __launch_bounds__(RB)
-trti2_sweep(const float* L, long long ldl, float* W, long long ldw, int n,
-            int b, int pw, int unit) {
-  extern __shared__ float sm[];
-  float* const Lt = sm;                        // Lt[k·LDT + c] = L[b+k][b+c]
-  float* const Ws = sm + NB * ct::tile::LDT;   // Ws[c·LDW + t] = W[r0+t][b+c]
-  float* const dinv = Ws + NB * LDW;
-  constexpr int LDT = ct::tile::LDT;
-  const int tid = threadIdx.x;
-  const int r0 = b + blockIdx.x * RB;
-  const int rows = min(RB, n - r0);
-  for (int idx = tid; idx < pw * pw; idx += RB) {
-    const int k = idx / pw, c = idx % pw;
-    Lt[k * LDT + c] = (c <= k) ? L[(long long)(b + k) * ldl + b + c] : 0.f;
-  }
-  for (int idx = tid; idx < RB * pw; idx += RB) {
-    const int t = idx / pw, c = idx % pw;
-    Ws[c * LDW + t] = (t < rows) ? W[(long long)(r0 + t) * ldw + b + c] : 0.f;
-  }
-  __syncthreads();
-  for (int c = tid; c < pw; c += RB) {
-    const float d = Lt[c * LDT + c];
-    dinv[c] = (unit || d == 0.f) ? 1.f : 1.f / d;
-  }
-  __syncthreads();
-  const int i = r0 - b + tid;      // the row, relative to the panel
-  if (tid < rows) {
-    for (int c = pw - 1; c >= 0; --c) {
-      float v;
-      if (i < c) {
-        v = 0.f;
-      } else if (i == c) {
-        v = dinv[c];
-      } else {                     // W[i][k] = 0 for k > i: the sum is exact
-        float s0 = Ws[c * LDW + tid], s1 = 0.f;
-        int k = c + 1;
-        for (; k + 1 < pw; k += 2) {
-          s0 = fmaf(Ws[k * LDW + tid], Lt[k * LDT + c], s0);
-          s1 = fmaf(Ws[(k + 1) * LDW + tid], Lt[(k + 1) * LDT + c], s1);
-        }
-        if (k < pw) s0 = fmaf(Ws[k * LDW + tid], Lt[k * LDT + c], s0);
-        v = -(s0 + s1) * dinv[c];
-      }
-      Ws[c * LDW + tid] = v;
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < RB * pw; idx += RB) {
-    const int t = idx / pw, c = idx % pw;
-    if (t < rows) W[(long long)(r0 + t) * ldw + b + c] = Ws[c * LDW + t];
-  }
-  // the last sweep puts a unit diagonal back: L's own, as LAPACK leaves it
-  // (no launch reads W's diagonal after this one)
-  if (unit && b == 0) {
-    __syncthreads();
-    if (tid < rows) {
-      const long long r = r0 + tid;
-      W[r * ldw + r] = L[r * ldl + r];
-    }
-  }
-}
-
-// The fold of the panel at b: W[b:, :b] += W[b:, b:b+NB] · L[b:b+NB, :b],
-// one 64 x 64 tile per block, m = n - b rows.
+template <bool UNIT>
 __global__ void __launch_bounds__(NT)
-trti2_fold(const float* L, long long ldl, float* W, long long ldw, int b,
-           int m) {
+trti2_leaf(const float* __restrict__ L, long long ldl, float* W,
+           long long ldw, int n, int* info) {
+  extern __shared__ __align__(16) float sm[];
+  ct::tleaf::leaf<UNIT>(L, ldl, W, ldw, n, blockIdx.x, sm, info);
+}
+
+// Pairs of s-blocks whose second block starts inside the matrix.
+__host__ __device__ inline int pairs(int n, int s) {
+  return (n - s + 2 * s - 1) / (2 * s);
+}
+
+// Output tile t of a level's launch on E x E tiles, t = (a·pairs + p)·per
+// + b, per = s / E: pair p (A at a0, C at c0 = a0 + s, sc rows of C), and
+// the tile (ti, tj) of Xᵀ (s x sc; second = false) or of W21 (sc x s),
+// ordered so that a, the slowest index, runs from the deepest tiles down.
+// live: the tile lies inside the pair's short C.
+struct LevelTile {
+  long long a0, c0;
+  int sc, ti, tj;
+  bool live;
+};
+
+__device__ __forceinline__ LevelTile level_tile(int t, int n, int s, int E,
+                                                bool second) {
+  const int per = s / E, np = pairs(n, s);
+  const int a = t / (np * per), p = t % (np * per) / per, b = t % per;
+  LevelTile q;
+  q.a0 = 2LL * p * s;
+  q.c0 = q.a0 + s;
+  q.sc = min(s, n - static_cast<int>(q.c0));
+  q.ti = second ? per - 1 - a : a;   // Xᵀ: depth s − a·E; W21: (ti + 1)·E
+  q.tj = b;
+  q.live = (second ? q.ti : q.tj) * E < q.sc;
+  return q;
+}
+
+// One level's launch on the 128 tile (a multiple of 128 rows: every tile
+// is whole). First (SECOND = false): Xᵀ[r][c] = Σ_{k >= r} A⁻¹[k][r]·B[c][k]
+// into the mirror, A⁻¹ row-fast from W, B k-fast from L (VEC: L on the
+// 16-byte grid). Second: W21[i][j] = −Σ_{k <= i} C⁻¹[i][k]·Xᵀ[j][k], both
+// k-fast from W.
+constexpr int SMEM_X =
+    ct::t128::smem_floats<false, true>() * static_cast<int>(sizeof(float));
+constexpr int SMEM_W =
+    ct::t128::smem_floats<true, true>() * static_cast<int>(sizeof(float));
+
+template <bool SECOND, bool VEC>
+__global__ void __launch_bounds__(ct::t128::NT, 2)
+trti2_level128(const float* __restrict__ L, long long ldl, float* W,
+               long long ldw, int n, int s) {
+  constexpr int E = ct::t128::BM;
+  extern __shared__ __align__(16) float smem[];
+  const LevelTile q = level_tile(blockIdx.x, n, s, E, SECOND);
+  if (!q.live) return;
+  const int r0 = q.ti * E, c0 = q.tj * E;
+  float acc[8][8] = {};
+  float* D;
+  if (!SECOND) {
+    ct::t128::tile_xyt<false, true, VEC>(
+        W + (q.a0 + r0) * ldw + q.a0, 1, ldw, r0, s,
+        L + q.c0 * ldl + q.a0 + r0, ldl, 1, c0, q.sc, s - r0, smem, acc);
+    D = W + q.a0 * ldw + q.c0;
+  } else {
+    ct::t128::tile_xyt<true, true, true>(
+        W + q.c0 * ldw + q.c0, ldw, 1, r0, q.sc, W + q.a0 * ldw + q.c0, ldw,
+        1, c0, s, min(r0 + E, q.sc), smem, acc);
+    D = W + q.c0 * ldw + q.a0;
+  }
+  const float sign = SECOND ? -1.f : 1.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(D + (r0 + ct::t128::row_of(i)) * ldw + c0 +
+                                 ct::t128::col_of(4 * h)) =
+          make_float4(sign * acc[i][4 * h], sign * acc[i][4 * h + 1],
+                      sign * acc[i][4 * h + 2], sign * acc[i][4 * h + 3]);
+}
+
+// The same on the 64 x 64 tile, for levels with few tiles of 128.
+template <bool SECOND>
+__global__ void __launch_bounds__(NT)
+trti2_level64(const float* __restrict__ L, long long ldl, float* W,
+              long long ldw, int n, int s) {
   __shared__ float Xs[BK][BT + 1];
   __shared__ float Ys[BK][BT + 1];
-  const int lr = blockIdx.y, lc = blockIdx.x;
+  const LevelTile q = level_tile(blockIdx.x, n, s, BT, SECOND);
+  if (!q.live) return;
+  const int r0 = q.ti * BT, c0 = q.tj * BT;
   float acc[ct::TM][ct::TN] = {};
-  // X(r, k) = W[b + r][b + k]; Y(c, k) = L[b + k][c]
-  ct::tile_xyt<BT, BT, BK>(W + (long long)b * ldw + b, ldw, 1, lr * BT, m,
-                           L + (long long)b * ldl, 1, ldl, lc * BT, b, NB,
-                           Xs, Ys, acc);
-  const int tx = threadIdx.x % (BT / ct::TN);
-  const int ty = threadIdx.x / (BT / ct::TN);
-#pragma unroll
-  for (int i = 0; i < ct::TM; ++i) {
-    const long long r = b + lr * BT + ty + i * (BT / ct::TM);
-#pragma unroll
-    for (int j = 0; j < ct::TN; ++j)
-      W[r * ldw + lc * BT + tx + j * (BT / ct::TN)] += acc[i][j];
+  if (!SECOND) {
+    ct::tile_xyt<BT, BT, BK>(W + (q.a0 + r0) * ldw + q.a0, 1, ldw, r0, s,
+                             L + q.c0 * ldl + q.a0 + r0, ldl, 1, c0, q.sc,
+                             s - r0, Xs, Ys, acc);
+    ct::store_tile<BT, BT>(W + q.a0 * ldw + q.c0, ldw, r0, c0, 1.f, acc);
+  } else {
+    ct::tile_xyt<BT, BT, BK>(W + q.c0 * ldw + q.c0, ldw, 1, r0, q.sc,
+                             W + q.a0 * ldw + q.c0, ldw, 1, c0, s,
+                             min(r0 + BT, q.sc), Xs, Ys, acc);
+    ct::store_tile<BT, BT>(W + q.c0 * ldw + q.a0, ldw, r0, c0, -1.f, acc);
+  }
+}
+
+// W's strict upper right of each row's leaf written zero (the mirrors of
+// every level), and with unit, L's diagonal put on W's, as xtrti2 leaves
+// it (no launch reads W's diagonal after this one).
+__global__ void trti2_finish(const float* __restrict__ L, long long ldl,
+                             float* W, long long ldw, int n, int unit) {
+  for (int r = blockIdx.x; r < n; r += gridDim.x) {
+    float* const row = W + r * ldw;
+    for (int c = (r / NB + 1) * NB + 4 * threadIdx.x; c < n;
+         c += 4 * blockDim.x)
+      *reinterpret_cast<float4*>(row + c) = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (unit && threadIdx.x == 0) row[r] = L[r * ldl + r];
   }
 }
 
@@ -448,26 +477,53 @@ CT_EXPORT int ct_potf2_f32(float* A, long long lda, float* Winv, float* PT,
 }
 
 CT_EXPORT int ct_trti2_f32(const float* L, long long ldl, float* W,
-                           long long ldw, int n, int unit, int* info,
-                           int device, void* stream) {
-  if (!leaf_size(n) || ldl < n || ldw < n)
+                           long long ldw, int n, int unit, int min_tiles128,
+                           int* info, int device, void* stream) {
+  // W is the wrapper's own n x n buffer: on the 16-byte grid from n > 128
+  if (!leaf_size(n) || ldl < n || ldw < n ||
+      (n > NB && (ldw % 4 != 0 ||
+                  reinterpret_cast<unsigned long long>(W) % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(trti2_sweep,
+  const bool vec = reinterpret_cast<unsigned long long>(L) % 16 == 0 &&
+                   ldl % 4 == 0;
+  const auto leaf_k = unit ? trti2_leaf<true> : trti2_leaf<false>;
+  const auto x128 = vec ? trti2_level128<false, true>
+                        : trti2_level128<false, false>;
+  const auto w128 = trti2_level128<true, true>;
+  err = cudaFuncSetAttribute(leaf_k,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SWEEP_SMEM);
+                             ct::tleaf::LEAF_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        x128, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_X);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        w128, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_W);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto s = static_cast<cudaStream_t>(stream);
-  trti2_init<<<std::min(n, 4096), 256, 0, s>>>(L, ldl, W, ldw, n, unit, info);
-  for (int b = (n - 1) / NB * NB; b >= 0; b -= NB) {
-    const int pw = std::min(NB, n - b), m = n - b;
-    trti2_sweep<<<(m + RB - 1) / RB, RB, SWEEP_SMEM, s>>>(L, ldl, W, ldw, n, b,
-                                                          pw, unit);
-    if (b > 0)
-      trti2_fold<<<dim3(b / BT, m / BT), NT, 0, s>>>(L, ldl, W, ldw, b, m);
+  const auto st = static_cast<cudaStream_t>(stream);
+  leaf_k<<<(n + NB - 1) / NB, NT, ct::tleaf::LEAF_SMEM, st>>>(L, ldl, W, ldw,
+                                                              n, info);
+  for (int s = NB; s < n; s *= 2) {
+    // the level's live tiles of 128: every pair's s/128 x sc/128
+    const int np = pairs(n, s);
+    const int last = n - (2 * (np - 1) * s + s);   // the last pair's sc
+    const long long t128 =
+        static_cast<long long>(s / 128) *
+        ((np - 1) * (s / 128) + (std::min(s, last) + 127) / 128);
+    if (t128 >= min_tiles128) {
+      const unsigned grid = np * (s / 128) * (s / 128);
+      x128<<<grid, ct::t128::NT, SMEM_X, st>>>(L, ldl, W, ldw, n, s);
+      w128<<<grid, ct::t128::NT, SMEM_W, st>>>(L, ldl, W, ldw, n, s);
+    } else {
+      const unsigned grid = np * (s / BT) * (s / BT);
+      trti2_level64<false><<<grid, NT, 0, st>>>(L, ldl, W, ldw, n, s);
+      trti2_level64<true><<<grid, NT, 0, st>>>(L, ldl, W, ldw, n, s);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  trti2_finish<<<std::min(n, 4096), 256, 0, st>>>(L, ldl, W, ldw, n, unit);
   return static_cast<int>(cudaGetLastError());
 }

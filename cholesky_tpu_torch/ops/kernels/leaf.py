@@ -21,7 +21,7 @@ from cholesky_tpu_torch.ops import lapack_ref
 from cholesky_tpu_torch.ops.kernels import _build
 from cholesky_tpu_torch.ops.kernels.gemm import GEMM128_MIN_TILES
 from cholesky_tpu_torch.ops.kernels.mega import (NB, _check_block,
-                                                 trtri_stream_plain)
+                                                 trtri_block_plain)
 from cholesky_tpu_torch.utils.errors import check
 
 
@@ -114,10 +114,12 @@ def unit_inverse(kern, L):
 
 def trti2_plain(L, unit=False):
     """The plain torch version, any real dtype and device: (W, info) as
-    :func:`trti2_f32` returns them, by a triangular solve against the
-    identity."""
-    return unit_inverse(trtri_stream_plain, L) if unit \
-        else trtri_stream_plain(L)
+    :func:`trti2_f32` returns them, in the kernel's order of work
+    (:func:`~cholesky_tpu_torch.ops.kernels.mega.trtri_block_plain`: the
+    NB-wide leaves, then the levels of ``trtri_levels``); with ``unit`` on
+    tril(L, -1) + I, L's diagonal then put back on W's."""
+    return unit_inverse(trtri_block_plain, L) if unit \
+        else trtri_block_plain(L)
 
 
 def trti2_f32(L, unit=False):
@@ -127,7 +129,9 @@ def trti2_f32(L, unit=False):
     info (0-d int32) the 1-based index of the first zero diagonal, which
     is read as 1 and does not stop the inversion. With ``unit`` the
     diagonal is read as 1, info is 0 and W's diagonal is L's, passed
-    through as LAPACK's xtrti2 leaves it."""
+    through as LAPACK's xtrti2 leaves it. The launch takes no scratch
+    beyond W: each level's B·A⁻¹ goes transposed into W's strict upper,
+    which the last of its launches writes zero."""
     n = _check_leaf(L, "trti2_f32")
     if L.device.type == "cpu":
         return trti2_plain(L, unit)
@@ -135,7 +139,7 @@ def trti2_f32(L, unit=False):
     info = torch.empty((), dtype=torch.int32, device=L.device)
     err = _build.library().ct_trti2_f32(
         L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), n, int(unit),
-        info.data_ptr(), *_build.device_args(L))
+        GEMM128_MIN_TILES, info.data_ptr(), *_build.device_args(L))
     _build.check_launch(err, "trti2_f32")
     trti2_f32.launches += 1
     return W, info

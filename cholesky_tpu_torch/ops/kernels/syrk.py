@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from cholesky_tpu_torch.ops.kernels import _build
+from cholesky_tpu_torch.ops.kernels.gemm import _k_fast, _on_grid
 from cholesky_tpu_torch.utils.errors import check
 
 
@@ -28,9 +29,56 @@ def syrk_lower_plain(alpha, A, beta, C):
     return C
 
 
+#: from this many lower tiles of 128 a launch takes the 128 x 128 tile,
+#: below it the 64 x 64 one (chip_smoke.py's A/B)
+SYRK128_MIN_TILES = 36
+#: blocks of either tile in one wave of the card: two on each of the
+#: H100's 132 SMs (__launch_bounds__(256, 2) in csrc/syrk.cu)
+WAVE = 264
+#: from this many tiles a block takes whole tiles (the last wave's tail
+#: is a small part of the launch); below it the k-steps are cut in runs
+#: for one wave, of at least MIN_RUN k-steps of 16
+WHOLE_MIN_TILES, MIN_RUN = 4 * WAVE, 16
+
+
+def tile_steps(k):
+    """k-steps of 16 in a tile's depth (one at k = 0, which still scales
+    C by beta)."""
+    return max(1, -(-k // 16))
+
+
+def launch_plan(n, k, strides, ptr, *, tile=None, split=None, blocks=None):
+    """The launch of syrk_lower_f32 for an (n x k) f32 operand A with these
+    strides (in elements) and base address: (tile edge, q, blocks, A
+    k-fast, 16-byte staging). The lower tiles' k-steps of 16, in tile
+    order, are cut in runs of q, one a block: q a tile's whole depth, or a
+    part of it, whose partial tiles one more pass sums. ``tile`` and a
+    uniform ``split`` of each tile's depth or a number of ``blocks``
+    override the rule (the A/B of chip_smoke.py)."""
+    kf = _k_fast(strides[0], strides[1])
+    vec = _on_grid(ptr, strides[0], strides[1], kf)
+    if tile is None:
+        nt = -(-n // 128)
+        tile = 128 if nt * (nt + 1) // 2 >= SYRK128_MIN_TILES else 64
+    nt = -(-n // tile)
+    tiles, T = nt * (nt + 1) // 2, tile_steps(k)
+    if split is not None:
+        q = -(-T // split)
+    elif blocks is not None:
+        q = -(-tiles * T // blocks)
+    elif tiles >= WHOLE_MIN_TILES:
+        q = T
+    else:
+        q = max(-(-tiles * T // WAVE), min(T, MIN_RUN))
+    return tile, q, -(-tiles * T // q), kf, vec
+
+
 def syrk_lower_f32(alpha, A, beta, C):
     """Lower triangle of C := alpha·A·Aᵀ + beta·C in place, A (n, k) and
-    C (n, n) f32; C is read only when beta != 0. Returns C."""
+    C (n, n) f32; C is read only when beta != 0. Returns C. A launch whose
+    plan splits tiles takes two tiles of scratch a block on the card (at
+    most 2·WAVE·128² floats below WHOLE_MIN_TILES tiles), freed on
+    return."""
     check(A.ndim == 2 and C.ndim == 2, "syrk_lower_f32", 2,
           "A and C must be 2-D")
     n, k = A.shape
@@ -48,10 +96,15 @@ def syrk_lower_f32(alpha, A, beta, C):
           f"unsupported device {A.device}")
     if n == 0:
         return C
+    tile, q, blocks, kf, vec = launch_plan(n, k, A.stride(), A.data_ptr())
+    # two partial tiles a block, where runs split tiles
+    P = (torch.empty((2 * blocks * tile * tile,), dtype=C.dtype,
+                     device=C.device) if q % tile_steps(k) else None)
     err = _build.library().ct_syrk_lower_f32(
         A.data_ptr(), A.stride(0), A.stride(1),
         C.data_ptr(), C.stride(0), C.stride(1),
-        n, k, float(alpha), float(beta), *_build.device_args(C))
+        n, k, float(alpha), float(beta), tile, q, blocks, int(kf), int(vec),
+        P.data_ptr() if P is not None else None, *_build.device_args(C))
     _build.check_launch(err, "syrk_lower_f32")
     syrk_lower_f32.launches += 1
     return C

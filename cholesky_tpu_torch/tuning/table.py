@@ -21,10 +21,9 @@ _TABLES_DIR = Path(__file__).parent / "tables"
 #: shipped defaults, used when no table matches the device
 DEFAULTS = {
     # kept so the key set matches the JAX package's; the CUDA gemm_f32
-    # picks its tile per launch (ops/kernels/gemm.py, launch_plan) and
-    # reads nothing here
+    # and syrk_lower_f32 pick their tiles per launch (ops/kernels/gemm.py
+    # and syrk.py, launch_plan) and read nothing here
     "matmul_f32": {"bm": 64, "bn": 64, "bk": 16},
-    # the lower-triangle SYRK reuses the SGEMM tile: bn x bn, k-step bk
     "syrk_f32": {"bn": 64, "bk": 16},
     # mega_max_n: largest block factored/inverted/squared by ONE
     # whole-matrix kernel (ops/kernels/mega.py); above it the blocked
