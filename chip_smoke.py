@@ -45,8 +45,10 @@ show that the path went through each of its kernels:
 Phase 3 also runs the A/B of ``gemm_f32``'s two tiles at the paths'
 shapes, of ``potrf_block_f32``'s two launches (one thread block, or one
 cooperative launch over many) and of ``potrf_stream_f32`` at the
-multiples of 128 that sets its crossover and of ``potf2_f32``'s strip
-width at 16384, and prints the trace of
+multiples of 128 that sets its crossover, of ``potf2_f32``'s strip
+width at 16384 and of ``syrk_lower_f32``'s cuts of the depth at 512,
+1024 and 2048, times ``trti2_f32`` beside ``trtri_stream_f32`` at 2048,
+4096 and 8192, and prints the trace of
 ``potrf_stream_f32``'s panel loop at n = 1024, 4096 and 8192 (per phase
 the sum over panels, F's mean, the first panel whose F is not hidden
 behind the trailing update). Phase 5 counts every ``gemm_f32`` launch of
@@ -376,10 +378,10 @@ def check_gemm(gen, rec, on):
 
 
 def syrk_plan_on(**plan):
-    """The syrk_lower_f32 launch rule moved so that every launch takes this
-    tile and a uniform split or a number of blocks (``launch_plan``'s
-    overrides): launch_plan, its only selector, wrapped for a while.
-    Returns the rule to put back."""
+    """The syrk_lower_f32 launch rule moved so that every launch takes a
+    uniform split of each tile's depth or a number of blocks
+    (``launch_plan``'s overrides): launch_plan, its only selector, wrapped
+    for a while. Returns the rule to put back."""
     keep = ksyrk.launch_plan
     ksyrk.launch_plan = functools.partial(keep, **plan)
     return keep
@@ -400,9 +402,9 @@ def syrk_case(gen, n, k, row_fast, off=0, odd=False, plan=None):
     buf = torch.randn(n, n + 3, device="cuda", generator=gen)
     C = buf[:, 1:1 + n]
     keep_buf = buf.clone()
-    ref = torch.tril(keep_buf[:, 1:1 + n].double() - A.double() @ A.double().T)
-    yard = torch.tril(syrk_lower_plain(-1.0, A, 1.0,
-                                       keep_buf[:, 1:1 + n].clone()))
+    C0 = keep_buf[:, 1:1 + n]
+    ref = torch.tril(C0.double() - A.double() @ A.double().T)
+    yard = torch.tril(syrk_lower_plain(-1.0, A, 1.0, C0.clone()))
     keep = syrk_plan_on(**plan) if plan else None
     try:
         took = ksyrk.launch_plan(n, k, A.stride(), A.data_ptr())
@@ -413,10 +415,10 @@ def syrk_case(gen, n, k, row_fast, off=0, odd=False, plan=None):
         if keep:
             ksyrk.launch_plan = keep
     what = (f"syrk_lower_f32 n={n} k={k} {'row' if row_fast else 'k'}-fast"
-            f" off {off} odd {odd} plan (tile, q, blocks) {took[:3]}")
+            f" off {off} odd {odd} plan (q, blocks) {took[:2]}")
     require(torch.equal(buf, again), f"{what}: a second call differs")
     low = torch.ones(n, n, dtype=torch.bool, device="cuda").tril_()
-    require(torch.equal(C[~low], keep_buf[:, 1:1 + n][~low])
+    require(torch.equal(C[~low], C0[~low])
             and torch.equal(buf[:, 0], keep_buf[:, 0])
             and torch.equal(buf[:, 1 + n:], keep_buf[:, 1 + n:]),
             f"{what}: wrote the strict upper or outside the view")
@@ -429,10 +431,12 @@ def check_syrk(gen, rec, on):
     times the twin's f32 error, on k-fast and row-fast operands: the
     recursion's n = k = 512, 1024, 2048 and the public 8192 under the
     launch rule; ragged n (600, 1000), a view off the 16-byte grid and one
-    of odd leading stride, k < 16; every split on both tiles at a ragged
-    size. Each call leaves the strict upper and everything outside C as it
-    was, and repeats bit for bit. Then the A/B of the tiles and splits at
-    the recursion's shapes and the times beside torch.addmm (whole
+    of odd leading stride, k < 16; uniform splits and runs for a number of
+    blocks at a ragged size. Each call leaves the strict upper and
+    everything outside C as it was, and repeats bit for bit. Then the A/B
+    of the depth's cuts
+    (uniform splits of each tile, runs for a number of blocks) at the
+    recursion's shapes, and the times beside torch.addmm (whole
     square)."""
     worst = 0.0
     plans = set()
@@ -442,28 +446,25 @@ def check_syrk(gen, rec, on):
               for n, k in ((600, 600), (1000, 1000), (1000, 515), (300, 7))
               for rf in (False, True)
               for off, odd in ((0, False), (1, False), (0, True))]
-    cases += [(1000, 777, rf, 1, False, dict(tile=tile, **cut))
-              for rf in (False, True) for tile in (128, 64)
-              for cut in (dict(split=1), dict(split=2), dict(split=3),
-                          dict(split=8), dict(blocks=97),
-                          dict(blocks=264))]
+    cases += [(1000, 777, rf, 1, False, plan) for rf in (False, True)
+              for plan in (dict(split=1), dict(split=2), dict(split=3),
+                           dict(split=8), dict(blocks=97), dict(blocks=264))]
     for n, k, rf, off, odd, plan in cases:
         err, lim, took = syrk_case(gen, n, k, rf, off, odd, plan)
         worst = max(worst, err / lim)
-        plans.add(took[:3])
+        plans.add(took[:2])
         if n == k == 2048 and not rf:
             err_2048 = err
     print(f"syrk_lower_f32, {len(cases)} cases (n = k = 512 to 8192, ragged "
           f"n, k < 16, views off the 16-byte grid or of odd leading stride, "
-          f"k-fast and row-fast A, plans (tile, q, blocks) {sorted(plans)}):"
-          f" the worst error "
-          f"{worst:.3f} of the limit, {F32_GATE:g}x the twin's f32 error "
+          f"k-fast and row-fast A, plans (q, blocks) {sorted(plans)}): the "
+          f"worst error {worst:.3f} of the limit, {F32_GATE:g}x the twin's "
+          "f32 error "
           "against f64; strict upper and the rest of the buffer unchanged, "
           "every call repeated bit for bit")
-    # the A/B of tiles and splits at the recursion's shapes, in turns
-    ab = [dict(tile=tile, **cut) for tile in (128, 64)
-          for cut in (dict(split=1), dict(split=2), dict(split=4),
-                      dict(blocks=132), dict(blocks=264), dict(blocks=528))]
+    # the A/B of the depth's cuts at the recursion's shapes, in turns
+    ab = [dict(split=1), dict(split=2), dict(split=4), dict(blocks=132),
+          dict(blocks=264), dict(blocks=528)]
     for n in (512, 1024, 2048):
         buf = torch.randn(n, 2 * n, device="cuda", generator=gen)
         A, C = buf[:, :n], buf[:, n:]
@@ -479,7 +480,7 @@ def check_syrk(gen, rec, on):
         rule = ksyrk.launch_plan(n, n, A.stride(), A.data_ptr())
         print(f"syrk_lower_f32 A/B n=k={n}: "
               + ", ".join(f"{p} {v[0]:.4f}/{v[1]:.4f}" for p, v in t.items())
-              + f" ms; the rule takes (tile, q, blocks) {rule[:3]} on {on}")
+              + f" ms; the rule takes (q, blocks) {rule[:2]} on {on}")
     for n in (512, 1024, 2048, 8192):
         buf = torch.randn(n, 2 * n, device="cuda", generator=gen)
         A, C = buf[:, :n], buf[:, n:]

@@ -116,7 +116,7 @@ def library() -> ctypes.CDLL:
             "ct_gemm_f32": [P, LL, LL, P, LL, LL, P, LL, LL, P, LL, LL,
                             I, I, I, F, F, I, I, I, I, I, P],
             "ct_syrk_lower_f32": [P, LL, LL, P, LL, LL, I, I, F, F, I, I, I, I,
-                                  I, P, I, P],
+                                  P, I, P],
             "ct_potrf_block_f32": [P, LL, I, P, I, I, P],
             "ct_potrf_stream_f32": [P, LL, P, P, P, I, P, P, I, P],
             "ct_trtri_block_f32": [P, LL, P, LL, P, I, P, I, P],

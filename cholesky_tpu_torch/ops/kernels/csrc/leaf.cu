@@ -23,10 +23,11 @@
 //           reports it. With unit, the diagonal is read as 1, info is 0
 //           and W's diagonal is L's, passed through as in xtrti2.
 //
-// What bounds them on the H100: n^3/3 FFMA each (0.73 T for potf2 at
-// n = 16384), at best the 67 TFLOP/s f32 vector rate (21.9 ms for potf2
-// at 16384), and for potf2 the chain of n/128 diagonal tiles, each
-// factored on one thread block (60-80 µs a tile).
+// What bounds them on the H100: n^3/6 FFMA each (0.73 T flops for potf2
+// at n = 16384, 0.18 T for trti2 at 8192), at best the 67 TFLOP/s f32
+// vector rate (21.9 ms for potf2 at 16384, 2.74 ms for trti2 at 8192),
+// and what feeds the FFMA tiles; for potf2 also the chain of n/128
+// diagonal tiles, each factored on one thread block (60-80 µs a tile).
 //
 // Design: the TPU kernels held the whole block in VMEM and swept 128-wide
 // panels in one dispatch. Here the block stays in device memory and ONE C
@@ -79,13 +80,19 @@
 //             so no launch reads a mirror but the one its level wrote;
 //     finish  W's strict upper outside the leaves written zero (the
 //             mirrors), and with unit, L's diagonal put on W's.
-//   1 + 2·log2(n/128) + 1 launches: 14 at 8192. The design before this
-//   one ran 64 panels in sequence at 8192, each a per-row sweep (one
-//   thread a row through a chain of up to 128 dependent FFMAs) and a
-//   fold of depth 128 on the 64 x 64 tile that read and wrote all of
-//   W[b:, :b] again: 18.65 ms at 8192 (sweeps 8.57, folds 9.62 of device
-//   time) against solve_triangular(L, I)'s 17.48; 1.107 ms at 1024
-//   (chip_compare.py, NVIDIA H100 80GB HBM3, 700 W).
+//   1 + 2·log2(n/128) + 1 launches: 14 at 8192, whose top level (two
+//   launches of 1024 tiles of 128, depth up to 4096) holds 3/4 of the
+//   FFMA. 5.11-5.22 ms at 8192 and 0.27-0.31 at 1024 against
+//   solve_triangular(L, I)'s 17.48-17.60 and 0.40-0.41; trtri_stream_f32
+//   on the same factor 0.87-0.88 / 2.27-2.34 / 12.48-12.67 ms at 2048 /
+//   4096 / 8192, this kernel 0.56 / 1.21-1.27 / 5.09-5.30
+//   (chip_smoke.py). The design before this one ran 64 panels in
+//   sequence at 8192, each a per-row sweep (one thread a row through a
+//   chain of up to 128 dependent FFMAs) and a fold of depth 128 on the
+//   64 x 64 tile that read and wrote all of W[b:, :b] again: 18.65 ms at
+//   8192 (sweeps 8.57 ms of device time, folds 9.62) against
+//   solve_triangular(L, I)'s 17.48, 1.107 ms at 1024 (sweeps 0.93)
+//   (chip_compare.py; NVIDIA H100 80GB HBM3, 700 W).
 #include <algorithm>
 
 #include "chol_tile.cuh"

@@ -29,16 +29,16 @@ def syrk_lower_plain(alpha, A, beta, C):
     return C
 
 
-#: from this many lower tiles of 128 a launch takes the 128 x 128 tile,
-#: below it the 64 x 64 one (chip_smoke.py's A/B)
-SYRK128_MIN_TILES = 36
-#: blocks of either tile in one wave of the card: two on each of the
-#: H100's 132 SMs (__launch_bounds__(256, 2) in csrc/syrk.cu)
+#: the tile edge (csrc/syrk.cu on sgemm128.cuh's tile)
+TILE = 128
+#: blocks in one wave of the card: two on each of the H100's 132 SMs
+#: (__launch_bounds__(256, 2) in csrc/syrk.cu)
 WAVE = 264
-#: from this many tiles a block takes whole tiles (the last wave's tail
-#: is a small part of the launch); below it the k-steps are cut in runs
-#: for one wave, of at least MIN_RUN k-steps of 16
-WHOLE_MIN_TILES, MIN_RUN = 4 * WAVE, 16
+#: from this many lower tiles a block takes whole tiles, the last wave's
+#: tail a small part of the launch; below it the k-steps are cut for one
+#: wave (chip_smoke.py's A/B: at 512, 1024 and 2048 runs for 264 blocks
+#: ahead of a uniform split of each tile's depth in 1, 2 or 4)
+WHOLE_MIN_TILES = 4 * WAVE
 
 
 def tile_steps(k):
@@ -47,30 +47,26 @@ def tile_steps(k):
     return max(1, -(-k // 16))
 
 
-def launch_plan(n, k, strides, ptr, *, tile=None, split=None, blocks=None):
+def launch_plan(n, k, strides, ptr, *, split=None, blocks=None):
     """The launch of syrk_lower_f32 for an (n x k) f32 operand A with these
-    strides (in elements) and base address: (tile edge, q, blocks, A
-    k-fast, 16-byte staging). The lower tiles' k-steps of 16, in tile
-    order, are cut in runs of q, one a block: q a tile's whole depth, or a
-    part of it, whose partial tiles one more pass sums. ``tile`` and a
-    uniform ``split`` of each tile's depth or a number of ``blocks``
-    override the rule (the A/B of chip_smoke.py)."""
+    strides (in elements) and base address: (q, blocks, A k-fast, 16-byte
+    staging). The lower TILE x TILE tiles' k-steps of 16, in tile order,
+    are cut in runs of q, one a block: whole tiles from WHOLE_MIN_TILES
+    tiles, else runs for one WAVE of blocks; a run that ends inside a
+    tile leaves a part of it for one more pass to sum. A uniform ``split``
+    of each tile's depth or a number of ``blocks`` overrides the rule (the
+    A/B of chip_smoke.py)."""
     kf = _k_fast(strides[0], strides[1])
     vec = _on_grid(ptr, strides[0], strides[1], kf)
-    if tile is None:
-        nt = -(-n // 128)
-        tile = 128 if nt * (nt + 1) // 2 >= SYRK128_MIN_TILES else 64
-    nt = -(-n // tile)
+    nt = -(-n // TILE)
     tiles, T = nt * (nt + 1) // 2, tile_steps(k)
     if split is not None:
         q = -(-T // split)
-    elif blocks is not None:
-        q = -(-tiles * T // blocks)
-    elif tiles >= WHOLE_MIN_TILES:
+    elif blocks is None and tiles >= WHOLE_MIN_TILES:
         q = T
     else:
-        q = max(-(-tiles * T // WAVE), min(T, MIN_RUN))
-    return tile, q, -(-tiles * T // q), kf, vec
+        q = -(-tiles * T // (blocks or WAVE))
+    return q, -(-tiles * T // q), kf, vec
 
 
 def syrk_lower_f32(alpha, A, beta, C):
@@ -96,14 +92,14 @@ def syrk_lower_f32(alpha, A, beta, C):
           f"unsupported device {A.device}")
     if n == 0:
         return C
-    tile, q, blocks, kf, vec = launch_plan(n, k, A.stride(), A.data_ptr())
+    q, blocks, kf, vec = launch_plan(n, k, A.stride(), A.data_ptr())
     # two partial tiles a block, where runs split tiles
-    P = (torch.empty((2 * blocks * tile * tile,), dtype=C.dtype,
+    P = (torch.empty((2 * blocks * TILE * TILE,), dtype=C.dtype,
                      device=C.device) if q % tile_steps(k) else None)
     err = _build.library().ct_syrk_lower_f32(
         A.data_ptr(), A.stride(0), A.stride(1),
         C.data_ptr(), C.stride(0), C.stride(1),
-        n, k, float(alpha), float(beta), tile, q, blocks, int(kf), int(vec),
+        n, k, float(alpha), float(beta), q, blocks, int(kf), int(vec),
         P.data_ptr() if P is not None else None, *_build.device_args(C))
     _build.check_launch(err, "syrk_lower_f32")
     syrk_lower_f32.launches += 1

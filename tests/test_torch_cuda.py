@@ -12,6 +12,8 @@ The bound is tests/util.py's, restated: fpe x 2 x eps_f32 x max(1, |ref|),
 with fpe 2k+3 for a product of depth k, 8n for a Cholesky factor, 60n
 for a triangular inverse or solve and 3000n for potri."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -141,6 +143,39 @@ def test_syrk_vs_twin(cuda):
     kernels.syrk_lower_f32(-1.0, A, 1.0, C)
     assert_close(torch.tril(C), torch.tril(want), 2 * 500 + 3, "syrk")
     assert torch.equal(torch.triu(C, 1), torch.triu(C0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_fast", [False, True], ids=["kfast", "rowfast"])
+@pytest.mark.parametrize("cut", [{}, {"split": 1}, {"split": 2},
+                                 {"split": 3}, {"blocks": 97},
+                                 {"blocks": 264}],
+                         ids=["rule", "whole", "split2", "split3",
+                              "blocks97", "blocks264"])
+def test_syrk_plans(cuda, monkeypatch, row_fast, cut):
+    # every cut of the depth on both layouts of A, off the 16-byte grid,
+    # into a view of C: the strict upper and the rest of the buffer kept,
+    # a second call equal bit for bit
+    monkeypatch.setattr(syrk, "launch_plan",
+                        functools.partial(syrk.launch_plan, **cut))
+    n, k = 1000, 777
+    if row_fast:
+        A = rand((k, n + 1), 9).to(cuda)[:, 1:].mH
+    else:
+        A = rand((n, k + 1), 9).to(cuda)[:, 1:]
+    W = rand((n, n + 3), 10).to(cuda)
+    W0 = W.clone()
+    C = W[:, 1:1 + n]
+    want = syrk.syrk_lower_plain(-1.0, A, 1.0, C.clone())
+    kernels.syrk_lower_f32(-1.0, A, 1.0, C)
+    again = W0.clone()
+    kernels.syrk_lower_f32(-1.0, A, 1.0, again[:, 1:1 + n])
+    assert torch.equal(W, again)
+    assert_close(torch.tril(C), torch.tril(want), 2 * k + 3, f"syrk {cut}")
+    low = torch.ones(n, n, dtype=torch.bool, device=cuda).tril_()
+    assert torch.equal(C[~low], W0[:, 1:1 + n][~low])
+    assert torch.equal(W[:, 0], W0[:, 0])
+    assert torch.equal(W[:, 1 + n:], W0[:, 1 + n:])
 
 
 @pytest.mark.cuda
@@ -789,6 +824,26 @@ def test_trtri_block_unit_and_view(cuda):
 def test_trti2_vs_twin(cuda, n, unit):
     L = factor(n).contiguous().to(cuda)
     if unit:        # a unit factor with a stored diagonal to pass through
+        L = L / torch.diagonal(L)[None, :] + torch.diag(
+            torch.diagonal(L) - 1.0)
+    Lw = L.clone()
+    Lw[torch.ones_like(Lw, dtype=torch.bool).triu(1)] = float("nan")
+    W, info = kernels.trti2_f32(Lw, unit=unit)
+    want, i_ref = leaf.trti2_plain(L, unit)
+    assert int(info) == int(i_ref) == 0
+    assert bool((torch.triu(W, 1) == 0).all())
+    assert_close(W, want, 60 * n, f"trti2 n={n} unit={unit}")
+    if unit:
+        assert torch.equal(torch.diagonal(W), torch.diagonal(L))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [384, 640, 1280])
+@pytest.mark.parametrize("unit", [False, True])
+def test_trti2_odd_leaf_counts(cuda, n, unit):
+    # 3, 5 and 10 leaves: levels with an unpaired block and a short C
+    L = factor(n).contiguous().to(cuda)
+    if unit:
         L = L / torch.diagonal(L)[None, :] + torch.diag(
             torch.diagonal(L) - 1.0)
     Lw = L.clone()

@@ -9,6 +9,9 @@ Tolerances are the repo's eps-scaled bounds (tests/util.py): 2k+3 for a
 product of depth k, 8n for a Cholesky factor, 60n for a triangular
 inverse, as the JAX package's tests use."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +26,7 @@ from cholesky_tpu_torch.ops.kernels import (gemm_f32, potrf_block_f32,
 from cholesky_tpu_torch.ops import lapack_ref
 from cholesky_tpu_torch.ops.kernels import gemm as kgemm
 from cholesky_tpu_torch.ops.kernels import mega
+from cholesky_tpu_torch.ops.kernels import syrk as ksyrk
 from tests.util import assert_close
 
 F32 = np.float32
@@ -164,6 +168,47 @@ def test_syrk_on_views_of_one_buffer():
                  "syrk views")
     np.testing.assert_array_equal(got[:, :128], W[:, :128])
     np.testing.assert_array_equal(got[:128], W[:128])
+
+
+def test_syrk_row_fast_view_vs_pallas():
+    # lauum's B11 += MᴴM: A = M.mH is a transposed view, row-fast
+    M, C = rand((96, 200), 7), rand((200, 200), 8)
+    A = torch.from_numpy(M.copy()).mH
+    assert A.stride() == (1, 200)
+    Ct = torch.from_numpy(C.copy())
+    syrk_lower_f32(1.0, A, 1.0, Ct)
+    ref = np.asarray(jax.jit(functools.partial(
+        psyrk.syrk_f32, alpha=1.0, beta=1.0))(jnp.asarray(M.T.copy()),
+                                             jnp.asarray(C)))
+    got = Ct.numpy()
+    assert_close(np.tril(got), np.tril(ref), F32, 2 * 96 + 3,
+                 "syrk row-fast view")
+    iu = np.triu_indices(200, 1)
+    np.testing.assert_array_equal(got[iu], C[iu])
+
+
+@pytest.mark.parametrize("n,k,strides,ptr,cut,want", [
+    # the potrf recursion's shapes at 4096 with 512 leaves: runs for one
+    # wave of 264 blocks, cutting tiles
+    (512, 512, (4096, 1), 0, {}, (2, 160, True, True)),
+    (1024, 1024, (4096, 1), 0, {}, (9, 256, True, True)),
+    (2048, 2048, (4096, 1), 0, {}, (66, 264, True, True)),
+    # runs of whole tiles: two a block at 4096 x 512, one a block from
+    # WHOLE_MIN_TILES tiles (the public ssyrk at 8192)
+    (4096, 512, (512, 1), 0, {}, (64, 264, True, True)),
+    (8192, 8192, (8192, 1), 0, {}, (512, 2080, True, True)),
+    # k < 16 and k = 0: one k-step a tile
+    (100, 8, (8, 1), 0, {}, (1, 1, True, True)),
+    (300, 0, (1, 300), 0, {}, (1, 6, False, True)),
+    # lauum's Mᴴ (row-fast) off the 16-byte grid or of odd leading stride
+    (1000, 777, (1, 1000), 4, {}, (7, 252, False, False)),
+    (1000, 777, (1, 1001), 0, {}, (7, 252, False, False)),
+    # the A/B's overrides: a uniform split of each tile, a number of blocks
+    (1000, 777, (1, 1000), 0, {"split": 3}, (17, 104, False, True)),
+    (2048, 2048, (2048, 1), 0, {"blocks": 132}, (132, 132, True, True)),
+])
+def test_syrk_launch_plan(n, k, strides, ptr, cut, want):
+    assert ksyrk.launch_plan(n, k, strides, ptr, **cut) == want
 
 
 # ---------------------------------------------------------------------------

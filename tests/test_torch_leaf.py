@@ -9,6 +9,9 @@ Tolerances are the repo's eps-scaled bounds (tests/util.py): 8n for a
 Cholesky factor, 60n for a triangular inverse. Past a failed pivot only
 info and the leading (info-1) block are compared (ROADMAP Queue 3)."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -152,12 +155,17 @@ def test_potf2_strips_plan(n, kb, want):
 # trti2_f32 — replaces ops/pallas/leaf.py:trti2_f32
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n", [8, 128, 256])
+@pytest.mark.parametrize("n", [8, 128, 256, 384])
 @pytest.mark.parametrize("unit", [False, True])
 def test_trti2_twin_vs_pallas(n, unit):
+    # 384: three leaves, a level whose last leaf has no partner and one
+    # whose C is short (mega.trtri_levels), in the twin's order of work
     T = tri_np(n)
-    W, info = trti2_f32(torch.from_numpy(T), unit=unit)
-    ref, info_j = pleaf.trti2_f32(jnp.asarray(T), unit=unit)
+    Tn = torch.from_numpy(T.copy())
+    Tn[np.triu_indices(n, 1)] = np.nan          # the strict upper is unread
+    W, info = trti2_f32(Tn, unit=unit)
+    ref, info_j = jax.jit(functools.partial(pleaf.trti2_f32, unit=unit))(
+        jnp.asarray(T))
     assert int(info) == int(info_j) == 0
     got, ref = W.numpy(), np.asarray(ref)
     assert np.all(np.triu(got, 1) == 0.0)
@@ -177,6 +185,18 @@ def test_trti2_zero_diagonal():
     assert int(info) == int(info_j) == 10
     assert torch.isfinite(W).all()
     assert_close(W.numpy(), np.asarray(ref), F32, 60 * 256, "trti2 zero diag")
+
+
+def test_trti2_levels_zero_diagonal():
+    # one zero in the second leaf: info 201 in both, read as 1, finite
+    T = np.tril(tri_np(384, seed=5))
+    T[200, 200] = 0.0
+    W, info = leaf.trti2_plain(torch.from_numpy(T))
+    ref, info_j = jax.jit(pleaf.trti2_f32)(jnp.asarray(T))
+    assert int(info) == int(info_j) == 201
+    assert torch.isfinite(W).all()
+    assert_close(W.numpy(), np.asarray(ref), F32, 60 * 384,
+                 "trti2 levels zero diag")
 
 
 @pytest.mark.parametrize("kernel", [potf2_f32, trti2_f32])
