@@ -23,8 +23,15 @@ them, so two trees' splits can differ):
   ``potrf(block_size=512)`` at 4096 and of ``lauum(block_size=512)`` at
   2048;
 - ``potf2_f32`` at 4096, 8192 and 16384 beside ``torch.linalg.cholesky_ex``;
+- ``trtri_stream_f32`` and ``lauum_stream_f32``, potri's two whole-matrix
+  kernels, at n = 2048, 4096 and 8192 beside ``solve_triangular(L, I)``
+  and ``trti2_f32`` on the same factor, and ``torch.matmul(Lᵀ, L)``; where
+  the tree's ``trtri_stream_f32`` takes ``trace=``, one traced launch's
+  phases (µs from block 0's entry to the last block's end, and to the
+  next phase's entry);
 - one GP train step at n = 8192, d = 8 (as in ``chip_smoke.py`` phase 5)
-  with the ``trtri_block_f32`` launches it makes and their device time.
+  with the ``trtri_block_f32``, ``trtri_stream_f32`` and
+  ``lauum_stream_f32`` launches it makes and their device time.
 
 Prints the card's name and power limit, then one JSON line. Needs one
 CUDA card.
@@ -32,6 +39,7 @@ CUDA card.
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -62,8 +70,10 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from cholesky_tpu_torch.models import gp
-    from cholesky_tpu_torch.ops.kernels import (potf2_f32, syrk_lower_f32,
-                                                trti2_f32, trtri_block_f32)
+    from cholesky_tpu_torch.ops.kernels import (lauum_stream_f32, mega,
+                                                potf2_f32, syrk_lower_f32,
+                                                trti2_f32, trtri_block_f32,
+                                                trtri_stream_f32)
     from cholesky_tpu_torch.utils.benchlib import bench_op
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -177,6 +187,41 @@ def main() -> int:
         out[f"potf2_f32 {n}"] = ms_inplace(potf2_f32, A, 3)
         out[f"cholesky_ex {n}"] = ms_inplace(torch.linalg.cholesky_ex, A, 3)
         del A
+    traced = "trace" in inspect.signature(trtri_stream_f32).parameters
+    for n in (2048, 4096, 8192):
+        L = torch.linalg.cholesky(dense_spd(n)).contiguous()
+        eye = torch.eye(n, device="cuda")
+        reps = 20 if n < 8192 else 5
+        # in turns: trtri_stream_f32, trti2_f32, trti2_f32, trtri_stream_f32
+        t = [bench_op(fn, L, reps=reps) * 1e3 for fn in (
+            trtri_stream_f32, trti2_f32, trti2_f32, trtri_stream_f32)]
+        out[f"trtri_stream_f32 {n}"] = [t[0], t[3]]
+        out[f"trti2_f32 {n} same factor"] = [t[1], t[2]]
+        out[f"trtri_stream_f32 {n} device"] = per_call(device_by_kernel(
+            lambda: [trtri_stream_f32(L) for _ in range(3)],
+            "trtri_stream"), 3)
+        out[f"solve_triangular {n} stream factor"] = bench_op(
+            lambda x: torch.linalg.solve_triangular(x, eye, upper=False), L,
+            reps=reps) * 1e3
+        if traced:
+            trtri_stream_f32(L)
+            names = mega.trtri_stream_phases(n)
+            tr = torch.zeros(len(names), mega.TRTRI_TRACE_SLOTS,
+                             dtype=torch.int64, device="cuda")
+            torch.cuda.synchronize()
+            trtri_stream_f32(L, trace=tr)
+            tr = (tr.cpu() - int(tr[0, 0])).double() / 1e3
+            nxt = list(tr[1:, 0]) + [tr[-1, 1]]
+            out[f"trtri_stream_f32 {n} trace"] = {
+                name: [float(tr[i, 1] - tr[i, 0]), float(nxt[i] - tr[i, 0])]
+                for i, name in enumerate(names)}
+        out[f"lauum_stream_f32 {n}"] = bench_op(
+            lambda x: lauum_stream_f32(x), L, reps=reps) * 1e3
+        out[f"lauum_stream_f32 {n} device"] = per_call(device_by_kernel(
+            lambda: [lauum_stream_f32(L) for _ in range(3)], "lauum"), 3)
+        out[f"matmul LtL {n}"] = bench_op(lambda x: torch.matmul(x.T, x), L,
+                                          reps=reps) * 1e3
+        del L, eye
 
     # the GP train step of chip_smoke.py phase 5
     n, d = 8192, 8
@@ -204,6 +249,14 @@ def main() -> int:
     ms, calls = trtri_device_ms(step)
     out["GP trtri_block_f32 launches"] = calls
     out["GP trtri_block_f32 device ms"] = ms
+    for name, fn, match in (("trtri_stream_f32", trtri_stream_f32,
+                             "trtri_stream"),
+                            ("lauum_stream_f32", lauum_stream_f32, "lauum")):
+        before = fn.launches
+        split = device_by_kernel(step, match)
+        out[f"GP {name}"] = {"launches": fn.launches - before,
+                             "ms": sum(ms for ms, _ in split.values()),
+                             "kernels": split}
     print(json.dumps(out))
     return 0
 

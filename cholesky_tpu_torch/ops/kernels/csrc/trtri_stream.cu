@@ -35,6 +35,11 @@
 // tile's k-loop skips the zero triangle of W1 or W2, so the flops stay
 // n^3/6, and the longest chain is one tile of depth s, not n. Reads of W
 // and S, which other CTAs wrote in this launch, bypass L1 (__ldcg).
+//
+// Trace: given a zeroed buffer of TRACE_SLOTS 64-bit words a phase, in
+// launch order (mega.trtri_stream_phases), the launch records %globaltimer
+// (ns): block 0's entry into the phase, and the latest end of any block's
+// work in it (atomicMax). A null buffer records nothing.
 #include <cooperative_groups.h>
 
 #include "sgemm_tile.cuh"
@@ -48,10 +53,26 @@ constexpr int BT = 64;         // GEMM tile edge of the levels
 constexpr int BK = 16;         // k-step of the GEMM tiles
 constexpr int NT = (BT / ct::TM) * (BT / ct::TN);   // 256 threads
 constexpr int MAX_N = 8192;
+constexpr int TRACE_SLOTS = 2;     // a phase's entry and its last end
+
+// block 0's entry into phase r, and the end of this block's work in it
+__device__ __forceinline__ void stamp_entry(unsigned long long* trace,
+                                            int r) {
+  if (trace && blockIdx.x == 0 && threadIdx.x == 0)
+    trace[r * TRACE_SLOTS] = ct::globaltimer();
+}
+
+__device__ __forceinline__ void stamp_end(unsigned long long* trace, int r) {
+  if (!trace) return;
+  __syncthreads();                 // every thread of the block is done
+  if (threadIdx.x == 0) atomicMax(trace + r * TRACE_SLOTS + 1,
+                                  ct::globaltimer());
+}
 
 __global__ void __launch_bounds__(NT)
 trtri_stream_f32_kernel(const float* L, long long ldl, float* W,
-                        long long ldw, float* S, int n, int* info) {
+                        long long ldw, float* S, int n, int* info,
+                        unsigned long long* trace) {
   __shared__ float Xs[BK][BT + 1];
   __shared__ float Ys[BK][BT + 1];
   __shared__ int s_first;
@@ -59,7 +80,9 @@ trtri_stream_f32_kernel(const float* L, long long ldl, float* W,
   const int tid = threadIdx.x;
   const int nd = n / NB;                 // diagonal tiles
 
+  int phase = 0;
   // ---- phase A: info, the upper off-diagonal blocks, the diagonal tiles
+  stamp_entry(trace, phase);
   if (blockIdx.x == 0) {
     if (tid == 0) s_first = n;
     __syncthreads();
@@ -85,6 +108,7 @@ trtri_stream_f32_kernel(const float* L, long long ldl, float* W,
       Wp[i * ldw + c] = x / d;
     }
   }
+  stamp_end(trace, phase++);
   grid.sync();
 
   // ---- levels: merge pairs of inverted s-blocks into 2s-blocks
@@ -92,6 +116,7 @@ trtri_stream_f32_kernel(const float* L, long long ldl, float* W,
     const int npairs = (n - s + 2 * s - 1) / (2 * s);  // pairs with b + s < n
     const int st = s / BT;                               // tiles along s
     const int tiles = npairs * st * st;
+    stamp_entry(trace, phase);
     // T = W2·M, T row-major s2 x s at S + q·s·s (ld s); W2 lower, so the
     // k-loop of row tile lr stops at the end of its own rows
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -108,7 +133,9 @@ trtri_stream_f32_kernel(const float* L, long long ldl, float* W,
       ct::store_tile<BT, BT>(S + (long long)q * s * s, s, lr * BT, lc * BT,
                              1.f, acc);
     }
+    stamp_end(trace, phase++);
     grid.sync();
+    stamp_entry(trace, phase);
     // W[b+s:b+s+s2, b:b+s] = -T·W1; W1 lower, so the k-loop of column
     // tile lc starts at its own columns
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
@@ -127,6 +154,7 @@ trtri_stream_f32_kernel(const float* L, long long ldl, float* W,
       ct::store_tile<BT, BT>(W + (long long)(b + s) * ldw + b, ldw, lr * BT,
                              lc * BT, -1.f, acc);
     }
+    stamp_end(trace, phase++);
     grid.sync();
   }
 }
@@ -135,7 +163,8 @@ trtri_stream_f32_kernel(const float* L, long long ldl, float* W,
 
 CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
                                   long long ldw, float* S, int n, int* info,
-                                  int device, void* stream) {
+                                  unsigned long long* trace, int device,
+                                  void* stream) {
   if (n < NB || n > MAX_N || n % NB != 0 || ldl < n || ldw < n)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
@@ -150,7 +179,7 @@ CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
       &per_sm, trtri_stream_f32_kernel, NT, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  void* args[] = {&L, &ldl, &W, &ldw, &S, &n, &info};
+  void* args[] = {&L, &ldl, &W, &ldw, &S, &n, &info, &trace};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(trtri_stream_f32_kernel), dim3(nsm * per_sm),
       dim3(NT), args, 0, static_cast<cudaStream_t>(stream));

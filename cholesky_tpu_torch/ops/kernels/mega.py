@@ -216,14 +216,38 @@ def trtri_stream_plain(L):
     return torch.tril(W), info
 
 
-def trtri_stream_f32(L):
+#: stamps per phase of trtri_stream_f32's trace (csrc/trtri_stream.cu): block
+#: 0's entry into the phase, the last end of any block's work in it
+TRTRI_TRACE_SLOTS = 2
+
+
+def trtri_stream_phases(n):
+    """The phases of trtri_stream_f32 at n in launch order, one row of its
+    trace each."""
+    names = ["leaves"]
+    for s, _ in trtri_levels(n):
+        names += [f"level {s} T", f"level {s} W"]
+    return names
+
+
+def trtri_stream_f32(L, *, trace=None):
     """Inverse of the lower-triangular f32 matrix L, n a multiple of NB up
     to STREAM_MAX_N, unit-stride rows; only its lower triangle is read.
     Returns (W, info) as :func:`trtri_block_f32` does: W a new contiguous
     tensor with a zero strict upper, info (0-d int32) the 1-based index of
     the first zero diagonal, which is treated as 1. The launch also takes
-    n²/4 floats of scratch on the card, freed on return."""
+    n²/4 floats of scratch on the card, freed on return. ``trace``, for
+    measurement on the card only: a zeroed int64 tensor of
+    (len(trtri_stream_phases(n)), TRTRI_TRACE_SLOTS) into which the launch
+    writes the card's nanosecond clock at each phase boundary."""
     n = _check_block(L, "trtri_stream_f32", STREAM_MAX_N, NB)
+    if trace is not None:
+        rows = len(trtri_stream_phases(n))
+        check(L.device.type == "cuda" and trace.device == L.device
+              and trace.dtype == torch.int64 and trace.is_contiguous()
+              and trace.shape == (rows, TRTRI_TRACE_SLOTS),
+              "trtri_stream_f32", 2, "trace must be a contiguous int64 "
+              f"({rows}, {TRTRI_TRACE_SLOTS}) tensor beside L on the card")
     if L.device.type == "cpu":
         return trtri_stream_plain(L)
     W = torch.empty((n, n), dtype=L.dtype, device=L.device)
@@ -231,7 +255,8 @@ def trtri_stream_f32(L):
     info = torch.empty((), dtype=torch.int32, device=L.device)
     err = _build.library().ct_trtri_stream_f32(
         L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), S.data_ptr(),
-        n, info.data_ptr(), *_build.device_args(L))
+        n, info.data_ptr(), trace.data_ptr() if trace is not None else None,
+        *_build.device_args(L))
     _build.check_launch(err, "trtri_stream_f32")
     trtri_stream_f32.launches += 1
     return W, info
