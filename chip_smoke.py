@@ -47,15 +47,21 @@ shapes, of ``potrf_block_f32``'s two launches (one thread block, or one
 cooperative launch over many) and of ``potrf_stream_f32`` at the
 multiples of 128 that sets its crossover, of ``potf2_f32``'s strip
 width at 16384 and of ``syrk_lower_f32``'s cuts of the depth at 512,
-1024 and 2048, times ``trti2_f32`` beside ``trtri_stream_f32`` at 2048,
-4096 and 8192, and prints the trace of
+1024 and 2048, of ``lauum_stream_f32``'s equal runs against a tile a
+block at 1024-8192 and of ``trtri_stream_f32``'s launch form (one
+cooperative launch, or a launch a phase with and without programmatic
+dependent launch) and of the tile count from which its levels take a
+block a tile, at 2048, 4096 and 8192; times ``trti2_f32`` beside
+``trtri_stream_f32`` at 1152-8192 and the public ``trtri`` at 8192
+beside one ``trtri_stream_f32`` launch; and prints the traces of
 ``potrf_stream_f32``'s panel loop at n = 1024, 4096 and 8192 (per phase
 the sum over panels, F's mean, the first panel whose F is not hidden
-behind the trailing update). Phase 5 counts every ``gemm_f32`` launch of
-one GP train step by shape and layout, with the tile the launch rule
-chose and its device time, and its ``trtri_block_f32`` launches with
-their device time; phase 6 every ``mm_groups_f32pair`` launch of the
-profiled ``dpotrf``.
+behind the trailing update) and of ``trtri_stream_f32``'s phases at
+2048, 4096 and 8192. Phase 5 counts every ``gemm_f32`` launch of one GP
+train step by shape and layout, with the tile the launch rule chose and
+its device time, and its ``trtri_block_f32``, ``trtri_stream_f32`` and
+``lauum_stream_f32`` launches with their device time; phase 6 every
+``mm_groups_f32pair`` launch of the profiled ``dpotrf``.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
@@ -69,6 +75,7 @@ call computing the same function where there is one) and the result
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -827,7 +834,7 @@ def check_trtri_block(gen, rec, on):
     e_u, l_u, _ = gated("trtri_block_f32 unit", torch.tril(W, -1),
                         torch.tril(W64, -1),
                         max_err(torch.tril(unit_inverse(
-                            trtri_stream_plain, U)[0], -1),
+                            solve_inverse, U)[0], -1),
                             torch.tril(W64, -1)))
     buf = torch.full((n, n + 37), 7.0, device="cuda")
     v = buf[:, 5:5 + n]
@@ -860,69 +867,319 @@ def check_trtri_block(gen, rec, on):
                 library_ms=lib_ms, **rl)
 
 
+@contextlib.contextmanager
+def stream_form(**settings):
+    """trtri_stream_f32's launch form for a while, by its selectors in
+    mega (each the only one of its choice): STREAM_WHOLE_MIN_TILES (from
+    how many tiles a level, or lauum_stream_f32, takes a block a tile;
+    below it equal runs), STREAM_PDL (programmatic dependent launch),
+    TRTRI_STREAM_COOP (one cooperative launch for the levels)."""
+    keep = {k: getattr(mega, k) for k in settings}
+    for k, v in settings.items():
+        setattr(mega, k, v)
+    try:
+        yield
+    finally:
+        for k, v in keep.items():
+            setattr(mega, k, v)
+
+
+#: the A/B's settings of STREAM_WHOLE_MIN_TILES: every level a tile a block,
+#: from one wave, two, four, and no level
+WHOLE_AB = (1, ksyrk.WAVE, 2 * ksyrk.WAVE, 4 * ksyrk.WAVE, 1 << 30)
+
+
+def trace_trtri_stream(L, on):
+    """One traced trtri_stream_f32 launch on L (after one untraced warm-up):
+    per phase kind the µs from block 0's entry to the last block's end,
+    summed over the levels, the top level apart, and the gaps to the next
+    phase's entry (the grid syncs, or the launches between phases)."""
+    n = L.shape[0]
+    names = mega.trtri_stream_phases(n)
+    trtri_stream_f32(L)
+    tr = torch.zeros(len(names), mega.TRTRI_TRACE_SLOTS, dtype=torch.int64,
+                     device="cuda")
+    torch.cuda.synchronize()
+    require(int(trtri_stream_f32(L, trace=tr)[1]) == 0, "traced launch: info")
+    t = (tr.cpu() - int(tr[0, 0])).double() / 1e3
+    work = [float(t[i, 1] - t[i, 0]) for i in range(len(names))]
+    gaps = sum(float(t[i + 1, 0] - t[i, 1]) for i in range(len(names) - 1))
+    kinds, top = {}, []
+    for name, w in zip(names, work):
+        kind = name.split(" ", 2)[2] if name.startswith("level") else name
+        kinds[kind] = kinds.get(kind, 0.0) + w
+        if name.startswith(f"level {n // 2} "):
+            top.append(f"{kind} {w:.1f}")
+    print(f"trtri_stream_f32 trace n={n} (levels "
+          f"{mega.trtri_stream_plan(n)}, pdl {mega.STREAM_PDL}, cooperative "
+          f"{mega.TRTRI_STREAM_COOP}): "
+          f"total {float(t[-1, 1]):.1f} µs; summed over the levels "
+          + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
+          + f" (the top level: {', '.join(top)}); gaps between phases "
+          f"{gaps:.1f} on {on}")
+
+
+def solve_inverse(L):
+    """tril(L)⁻¹ by one f32 solve_triangular against the identity, zero
+    diagonals read as 1: the f32 yardstick of the inverses."""
+    zero = torch.diagonal(L) == 0
+    T = torch.tril(L, -1) + torch.diag(torch.where(zero, 1.0, L.diagonal()))
+    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    W = torch.linalg.solve_triangular(T, eye, upper=False)
+    info = torch.where(zero.any(), zero.int().argmax() + 1, 0).to(torch.int32)
+    return torch.tril(W), info
+
+
 def check_trtri_stream(gen, rec, on):
-    for n in (2048, 4096, 8192):
-        # a potrf factor, the caller's matrix still above it: only the
-        # lower triangle may be read
-        F, info = ct.potrf("L", spd(gen, n))
+    """The whole-matrix inverse (128 leaves, then the levels of
+    mega.trtri_levels in balanced runs of the 128 tile) against an f64
+    inverse of a dense factor, gated on solve_triangular's f32 error, at
+    n = 128, 1024, 1152, 2048, 4096 and 8192 with a NaN strict upper, each
+    call repeated bit for bit; zero diagonals at 9, 700 and 1200 (info 10);
+    the unit route; views with a longer row, on and off the 16-byte grid;
+    the phase trace; the A/B of the tile count from which a level takes a
+    block a tile; the times beside solve_triangular(L, I) and trti2_f32 on
+    the same factor; and for the routing, trti2_f32 beside it at 1152-4096 and,
+    at 8192, the recursion the public trtri takes (two launches at 4096
+    and two gemm_f32 products)."""
+    Ls = {}
+    for n in (128, 1024, 1152, 2048, 4096, 8192):
+        F, info = ct.potrf("L", dense_spd(gen, n))
         require(int(info) == 0, f"trtri_stream input factor n={n}")
-        W, info = trtri_stream_f32(F)
-        want, i_ref = trtri_stream_plain(F)
-        require(int(info) == 0 == int(i_ref), f"trtri_stream n={n}: info")
-        err = max_err(W, want)
-        b = bound(60 * n, float(want.abs().max()))
-        require(err <= b, f"trtri_stream_f32 n={n}: err {err} > {b}")
-        require(bool((torch.triu(W, 1) == 0).all()),
-                f"trtri_stream_f32 n={n}: strict upper not zero")
-        ms = bench_op(lambda x: trtri_stream_f32(x), F, reps=5) * 1e3
-        plain_ms = bench_op(lambda x: trtri_stream_plain(x), F, reps=5) * 1e3
-        print(f"trtri_stream_f32 n={n}: max err {err:.3e} (bound {b:.3e}); "
-              f"kernel {ms:.4f} ms, plain (solve_triangular) "
-              f"{plain_ms:.4f} ms on {on}")
+        L = torch.tril(F)
+        del F
+        X = L.clone()
+        X[torch.ones_like(X, dtype=torch.bool).triu(1)] = math.nan
+        for form in ({}, dict(STREAM_WHOLE_MIN_TILES=1),
+                     dict(STREAM_WHOLE_MIN_TILES=1 << 30),
+                     dict(TRTRI_STREAM_COOP=True)):
+            with stream_form(**form):
+                W, info = trtri_stream_f32(X)
+                again, _ = trtri_stream_f32(X)
+                what = (f"trtri_stream_f32 n={n} levels (s, whole) "
+                        f"{mega.trtri_stream_plan(n)} cooperative "
+                        f"{mega.TRTRI_STREAM_COOP}")
+            require(int(info) == 0 and bool((torch.triu(W, 1) == 0).all()),
+                    f"{what}: info {int(info)} or strict upper not zero")
+            require(torch.equal(W, again), f"{what}: a second call differs")
+            err, lim, rms, yard = trtri_gated(what, W, L)
+            print(f"{what} (dense factor, NaN strict upper): max err vs f64 "
+                  f"{err:.3e}, solve_triangular's {yard:.3e} (limit "
+                  f"{lim:.3e}, 1/{rms / lim:.0f} of the strict lower's RMS "
+                  f"{rms:.3e}); a second call equal bit for bit")
+            if n == 4096 and not form:
+                err_4096 = err
+            del W, again
+        del X
+        if n in (1152, 2048, 4096, 8192):
+            Ls[n] = L
+    # zero diagonals: info the smallest, read as 1, finite, as the twin
+    Z = Ls[2048].clone()
+    for z in (9, 700, 1200):
+        Z[z, z] = 0.0
+    W, info = trtri_stream_f32(Z)
+    want, i_ref = trtri_stream_plain(Z)
+    require(int(info) == 10 == int(i_ref) and bool(torch.isfinite(W).all()),
+            f"trtri_stream_f32 zero diagonals: info {int(info)}")
+    e_z = max_err(W, want)
+    require(e_z <= bound(60 * 2048, float(want.abs().max())),
+            f"trtri_stream_f32 zero diagonals: err vs twin {e_z:.3e}")
+    # the unit route, and views with a longer row
+    n = 1152
+    U = unit_form(Ls[n])
+    W, info = unit_inverse(trtri_stream_f32, U)
+    require(int(info) == 0 and torch.equal(torch.diagonal(W),
+                                           torch.diagonal(U)),
+            "trtri_stream_f32 unit: info or the diagonal")
+    W64 = inverse64(U, unit=True)
+    e_u, l_u, _ = gated("trtri_stream_f32 unit", torch.tril(W, -1),
+                        torch.tril(W64, -1),
+                        max_err(torch.tril(unit_inverse(solve_inverse, U)[0],
+                                           -1), torch.tril(W64, -1)))
+    views = []
+    for n, off, extra in ((1152, 5, 37), (2048, 128, 128)):
+        buf = torch.full((n, n + extra), 7.0, device="cuda")
+        v = buf[:, off:off + n]
+        v.copy_(Ls[n])
+        W, info = trtri_stream_f32(v)
+        require(int(info) == 0, "trtri_stream_f32 view: info")
+        e_v, l_v, _, _ = trtri_gated("trtri_stream_f32 view", W, Ls[n])
+        views.append(f"n={n} leading stride {n + extra} column {off}: "
+                     f"{e_v:.3e} (limit {l_v:.3e})")
+        del buf, v
+    print(f"trtri_stream_f32 zero diagonals at 9, 700, 1200 (n=2048): info "
+          f"10, finite, err vs twin {e_z:.3e}; unit route n=1152: max err vs "
+          f"f64 {e_u:.3e} (limit {l_u:.3e}), diagonal passed through; views "
+          + "; ".join(views))
+    # the trace and the A/Bs of the launch form, of programmatic dependent
+    # launch and of the cut, in turns
+    for n in (2048, 4096, 8192):
+        reps = 20 if n < 8192 else 5
+        forms = (dict(TRTRI_STREAM_COOP=True), dict(STREAM_PDL=True),
+                 dict(STREAM_PDL=False))
+        for form in forms:
+            with stream_form(**form):
+                trace_trtri_stream(Ls[n], on)
+        t = {}
+        for form in forms + forms[::-1]:
+            with stream_form(**form):
+                t.setdefault(plan_name(form), []).append(bench_op(
+                    lambda x: trtri_stream_f32(x), Ls[n], reps=reps) * 1e3)
+        print(f"trtri_stream_f32 A/B n={n}, the launch form: "
+              + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in t.items())
+              + f" ms on {on}")
+        t = {}
+        for whole_min in WHOLE_AB + WHOLE_AB[::-1]:
+            with stream_form(STREAM_WHOLE_MIN_TILES=whole_min):
+                t.setdefault(whole_min, []).append(bench_op(
+                    lambda x: trtri_stream_f32(x), Ls[n], reps=reps) * 1e3)
+        print(f"trtri_stream_f32 A/B n={n}, a tile a block from this many "
+              "tiles of a level, below it runs for one wave: "
+              + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in t.items())
+              + f" ms (the rule: {mega.STREAM_WHOLE_MIN_TILES}) on {on}")
+    # the times, beside solve_triangular and trti2_f32 on the same factor
+    for n in (2048, 4096, 8192):
+        L = Ls[n]
+        reps = 20 if n < 8192 else 5
+        t = [bench_op(fn, L, reps=reps) * 1e3
+             for fn in (trtri_stream_f32, trti2_f32, trti2_f32,
+                        trtri_stream_f32)]
+        plain_ms = bench_op(lambda x: trtri_stream_plain(x), L, warmup=1,
+                            reps=3) * 1e3
+        eye = torch.eye(n, device="cuda")
+        lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
+            x, eye, upper=False), L, reps=reps) * 1e3
+        rl = roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n))
+        print(f"trtri_stream_f32 n={n}: kernel {t[0]:.4f}/{t[3]:.4f} ms, "
+              f"trti2_f32 {t[1]:.4f}/{t[2]:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.linalg.solve_triangular(L, I) {lib_ms:.4f} ms, bound "
+              f"{rl['bound_ms']:.4f} ms ({rl['bound_by']}) on {on}")
         if n == 4096:
-            eye = torch.eye(n, device="cuda")
-            lib_ms = bench_op(lambda x: torch.linalg.solve_triangular(
-                x, eye, upper=False), torch.tril(F), reps=5) * 1e3
-            print(f"  torch.linalg.solve_triangular(L, I) n={n}: "
-                  f"{lib_ms:.4f} ms")
             rec["trtri_stream_f32"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
-            Z = F.clone()
-            Z[9, 9] = 0.0
-            W, info = trtri_stream_f32(Z)
-            require(int(info) == 10 and bool(torch.isfinite(W).all()),
-                    f"trtri_stream zero diagonal: info {int(info)}")
-    print("trtri_stream_f32 zero diagonal L[9,9]=0 at n=4096: info 10, finite")
+                max_abs_err=err_4096, ms=min(t[0], t[3]), plain_ms=plain_ms,
+                library_ms=lib_ms, **rl)
+        del eye
+    # records for the routing: trti2_f32 where _KernelTiles.trti2 takes this
+    # kernel, and at 8192 the public trtri's recursion against one launch
+    for n in (1152, 2048, 3072, 4096):
+        Lm = Ls[8192][:n, :n].contiguous()
+        t = [bench_op(fn, Lm, reps=10) * 1e3
+             for fn in (trti2_f32, trtri_stream_f32, trtri_stream_f32,
+                        trti2_f32)]
+        print(f"routing record n={n}: trti2_f32 {t[0]:.4f}/{t[3]:.4f} ms, "
+              f"trtri_stream_f32 {t[1]:.4f}/{t[2]:.4f} ms on {on}")
+    L = Ls[8192]
+    kernels.reset_launch_counts()
+    ct.trtri("L", "N", L)
+    counts = kernels.launch_counts()
+    require(counts["trtri_stream_f32"] == 2 and counts["gemm_f32"] == 2,
+            f"trtri n=8192: launches {counts}")
+    t = [bench_op(fn, L, reps=5) * 1e3
+         for fn in (lambda x: ct.trtri("L", "N", x), trtri_stream_f32,
+                    trtri_stream_f32, lambda x: ct.trtri("L", "N", x))]
+    print(f"routing record n=8192: the public trtri (two trtri_stream_f32 "
+          f"at 4096, two gemm_f32 4096³) {t[0]:.4f}/{t[3]:.4f} ms, one "
+          f"trtri_stream_f32 {t[1]:.4f}/{t[2]:.4f} ms on {on}")
+
+
+def lauum_plan_on(**plan):
+    """lauum_stream_f32's plan with launch_plan's overrides (whole tiles,
+    a number of blocks): lauum_launch_plan, its only selector, wrapped for
+    a while. Returns the plan to put back."""
+    keep = mega.lauum_launch_plan
+    mega.lauum_launch_plan = functools.partial(keep, **plan)
+    return keep
 
 
 def check_lauum_stream(gen, rec, on):
-    for n in (4096, 8192):
-        F, info = ct.potrf("L", spd(gen, n))
+    """tril(LᵀL) (the lower tiles' k-steps in equal runs of the 128 tile)
+    against f64 on dense factors, gated on the f32 matmul's error, at n =
+    128, 1024, 1152, 2048, 4096 and 8192 under the launch plan, with a tile
+    a block and in runs for one wave, with a NaN strict upper, each call
+    repeated bit for bit; views with a longer row, on and off the 16-byte
+    grid; the A/B of equal runs against whole tiles at 1024, 2048, 4096
+    and 8192; the times beside torch.matmul(Lᵀ, L)."""
+    Ls = {}
+    for n in (128, 1024, 1152, 2048, 4096, 8192):
+        F, info = ct.potrf("L", dense_spd(gen, n))
+        require(int(info) == 0, f"lauum_stream input factor n={n}")
         L = torch.tril(F)
-        want = lauum_stream_plain(L)
-        L[torch.ones_like(L, dtype=torch.bool).triu(1)] = float("nan")
-        B = lauum_stream_f32(L)
-        require(bool(torch.isfinite(B).all()),
-                f"lauum_stream_f32 n={n} read the NaN strict upper")
-        require(bool((torch.triu(B, 1) == 0).all()),
-                f"lauum_stream_f32 n={n}: strict upper not zero")
-        err = max_err(B, want)
-        b = bound(2 * n + 3, float(want.abs().max()))
-        require(err <= b, f"lauum_stream_f32 n={n}: err {err} > {b}")
-        ms = bench_op(lambda x: lauum_stream_f32(x), L, reps=5) * 1e3
-        plain_ms = bench_op(lambda x: lauum_stream_plain(x), L, reps=5) * 1e3
-        print(f"lauum_stream_f32 n={n}: max err {err:.3e} (bound {b:.3e}), "
-              f"NaN strict upper unread; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms on {on}")
+        del F
+        ref = torch.tril(L.double().T @ L.double())
+        yard = max_err(lauum_stream_plain(L), ref)
+        X = L.clone()
+        X[torch.ones_like(X, dtype=torch.bool).triu(1)] = math.nan
+        for plan in ({}, dict(whole=True), dict(blocks=ksyrk.WAVE)):
+            keep = lauum_plan_on(**plan)
+            try:
+                took = mega.lauum_launch_plan(n)
+                B = lauum_stream_f32(X)
+                again = lauum_stream_f32(X)
+            finally:
+                mega.lauum_launch_plan = keep
+            what = f"lauum_stream_f32 n={n} plan (q, blocks) {took}"
+            require(bool(torch.isfinite(B).all()),
+                    f"{what}: read the NaN strict upper")
+            require(bool((torch.triu(B, 1) == 0).all()),
+                    f"{what}: strict upper not zero")
+            require(torch.equal(B, again), f"{what}: a second call differs")
+            err, lim, rms = gated(what, B, ref, yard)
+            print(f"{what} (dense factor, NaN strict upper): max err vs f64 "
+                  f"{err:.3e}, matmul's {yard:.3e} (limit {lim:.3e}, "
+                  f"1/{rms / lim:.0f} of the strict lower's RMS {rms:.3e}); "
+                  "a second call equal bit for bit")
+            if n == 8192 and not plan:
+                err_8192 = err
+            del B, again
+        del X, ref
+        if n in (1024, 1152, 2048, 4096, 8192):
+            Ls[n] = L
+    for n, off, extra in ((1152, 5, 37), (2048, 128, 128)):
+        buf = torch.full((n, n + extra), math.nan, device="cuda")
+        v = buf[:, off:off + n]
+        v.copy_(torch.tril(Ls[n]) + torch.triu(v, 1))
+        B = lauum_stream_f32(v)
+        ref = torch.tril(Ls[n].double().T @ Ls[n].double())
+        err, lim, _ = gated(f"lauum_stream_f32 view n={n}", B, ref,
+                            max_err(lauum_stream_plain(Ls[n]), ref))
+        print(f"lauum_stream_f32 view n={n} of leading stride {n + extra} "
+              f"at column {off}, NaN around the lower triangle: max err vs "
+              f"f64 {err:.3e} (limit {lim:.3e})")
+        del buf, v, B, ref
+    # the A/B of the cut, in turns
+    ab = (dict(blocks=ksyrk.WAVE), dict(whole=True))
+    for n in (1024, 2048, 4096, 8192):
+        reps = 20 if n < 8192 else 5
+        t = {}
+        for plan in ab + ab[::-1]:
+            keep = lauum_plan_on(**plan)
+            try:
+                t.setdefault(plan_name(plan), []).append(
+                    bench_op(lambda x: lauum_stream_f32(x), Ls[n],
+                             reps=reps) * 1e3)
+            finally:
+                mega.lauum_launch_plan = keep
+        print(f"lauum_stream_f32 A/B n={n}: equal runs for one wave ("
+              + ", ".join(f"{p} {v[0]:.4f}/{v[1]:.4f}" for p, v in t.items())
+              + f" ms); the rule takes (q, blocks) "
+              f"{mega.lauum_launch_plan(n)} on {on}")
+    for n in (2048, 4096, 8192):
+        L = Ls[n]
+        reps = 20 if n < 8192 else 5
+        ms = bench_op(lambda x: lauum_stream_f32(x), L, reps=reps) * 1e3
+        plain_ms = bench_op(lambda x: lauum_stream_plain(x), L,
+                            reps=reps) * 1e3
+        # the library call computes the whole square, six times the work
+        lib_ms = bench_op(lambda x: torch.matmul(x.T, x), L, reps=reps) * 1e3
+        rl = roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n))
+        print(f"lauum_stream_f32 n={n}: kernel {ms:.4f} ms "
+              f"({n ** 3 / 3 / ms / 1e9:.1f} TF/s), plain {plain_ms:.4f} ms, "
+              f"torch.matmul(Lᵀ, L) {lib_ms:.4f} ms, bound "
+              f"{rl['bound_ms']:.4f} ms on {on}")
         if n == 8192:
-            # the library call computes the whole square, six times the work
-            lib_ms = bench_op(lambda x: torch.matmul(x.T, x), torch.tril(L),
-                              reps=5) * 1e3
-            print(f"  torch.matmul(Lᵀ, L) n={n}: {lib_ms:.4f} ms")
             rec["lauum_stream_f32"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                **roofline(n ** 3 / 3, "f32", 2 * tri_bytes(n)))
+                max_abs_err=err_8192, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **rl)
 
 
 def check_lauu2(gen, rec, on):
@@ -1636,23 +1893,25 @@ def print_gemm_census(census, on, top=6):
               f"{lib_ms:.4f} ms on {on}")
 
 
-def trtri_census(fn, on):
-    """The trtri_block_f32 launches of one call of fn (its launch counter)
-    and their device time (torch.profiler's kernels of that name)."""
+def kernel_census(fn, on, name, match):
+    """The launches of kernel ``name`` in one call of fn (its launch
+    counter) and their device time (torch.profiler's CUDA kernels whose
+    name holds ``match``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    wrapper = kernels.KERNELS[name]
     torch.cuda.synchronize()
-    before = trtri_block_f32.launches
+    before = wrapper.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    launches = trtri_block_f32.launches - before
+    launches = wrapper.launches - before
     runs = [(e.time_range.end - e.time_range.start) / 1e3
             for e in prof.events() if e.device_type == DeviceType.CUDA
-            and "trtri_block" in e.name]
-    require(launches > 0 and runs, "trtri census: no trtri_block_f32 launch")
-    print(f"trtri_block_f32 census of one GP train step: {launches} launches "
+            and match in e.name]
+    require(launches > 0 and runs, f"{name} census: no launch")
+    print(f"{name} census of one GP train step: {launches} launches "
           f"({len(runs)} kernels in the trace), {sum(runs):.3f} ms of device "
           f"time, {sum(runs) / launches:.4f} ms a launch on {on}")
     return launches, sum(runs)
@@ -1779,7 +2038,11 @@ def gp_path(name_power, dev="cuda"):
 
     print_gemm_census(gemm_census(lambda: gp.gp_train_step(p0, X, y, lr=lr)),
                       name_power)
-    trtri_census(lambda: gp.gp_train_step(p0, X, y, lr=lr), name_power)
+    for name, match in (("trtri_block_f32", "trtri_block"),
+                        ("trtri_stream_f32", "trtri_stream"),
+                        ("lauum_stream_f32", "lauum")):
+        kernel_census(lambda: gp.gp_train_step(p0, X, y, lr=lr), name_power,
+                      name, match)
 
     # times, beside torch.linalg yardsticks (never the port)
     step_ms = wall_ms(lambda: gp.gp_train_step(p0, X, y, lr=lr))

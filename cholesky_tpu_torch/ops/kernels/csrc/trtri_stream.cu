@@ -1,40 +1,56 @@
 // trtri_stream_f32: inverse of a lower-triangular n x n matrix, n % 128 == 0,
-// 128 <= n <= 8192, in one cooperative launch over every SM.
+// 128 <= n <= 8192.
 //
 // Replaces cholesky_tpu/ops/pallas/mega.py:trtri_hbm_f32
 // (_trtri_hbm_kernel), the TPU's whole-matrix trtri for 1024 < n <= 8192.
-// On the GP model's train step it is potri's trtri at n = 4096, and both
-// halves of the recursion at n = 8192.
+// On the GP model's train step it is potri's trtri at n = 8192, as two
+// launches at 4096 (the tuned trtri_f32.mega_max_n) in the recursion.
 //
 // Contract (that of trtri_block.cu without its 1024 cap): only the lower
 // triangle of L is read; W is a separate buffer whose strict upper is
 // written zero. A zero diagonal entry is read as 1 and does not stop the
 // inversion, so W stays finite; info is the 1-based index of the first
-// (smallest) zero diagonal, as LAPACK's strtri reports it.
+// (smallest) zero diagonal, as LAPACK's strtri reports it. A call repeats
+// bit for bit.
 //
-// What bounds it on the H100: n^3/6 FFMA (11.5 G at n = 4096), and the
-// sequential dependency of the inverse. The TPU kernel streamed 128-row
-// panels bottom-up through one core's VMEM. A one-CTA stream here would
-// repeat potrf_block_f32's one-SM bottleneck at 4-64x the work; column
-// stripes (one CTA per 32 columns, as trtri_block.cu) or bottom-up panels
-// with a grid-wide sync between them both leave one CTA with a chain of
-// about 16 n^2 FFMA (the first stripe, or each panel's bottom row tile),
-// 268 M at n = 4096, which one SM runs at a few percent of the card.
+// What bounds it on the H100: n^3/6 FFMA (11.5 G at n = 4096) in plain f32
+// (TF32 is not f32-accurate), at best the 67 TFLOP/s vector rate: 0.342 ms
+// at 4096; then the chain of log2(n/128) levels, each waiting for the one
+// before it. The TPU kernel streamed 128-row panels bottom-up through one
+// core's VMEM.
 //
-// Design: the recursion W = [W1 0; -W2·M·W1 W2] run level by level, so
-// every phase is a wide, independent set of 64 x 64 tiles:
-//   phase A   every 128 x 128 diagonal tile inverted by forward
-//             substitution (one thread per column), the off-diagonal
-//             upper blocks zeroed, info from the diagonal;
-//   level s   (s = 128, 256, ..., < n) for each pair of inverted s-blocks
-//             W1 = W[b:b+s, b:b+s], W2 = W[b+s:b+s+s2, ...] and
-//             M = L[b+s:b+s+s2, b:b+s]:  T = W2·M into the scratch S,
-//             then W[b+s:, b:b+s] = -T·W1.
-// One cooperative launch (grid from the occupancy query, a few CTAs per
-// SM), a grid-wide sync between phases, 1 + 2·log2(n/128) phases. Each
-// tile's k-loop skips the zero triangle of W1 or W2, so the flops stay
-// n^3/6, and the longest chain is one tile of depth s, not n. Reads of W
-// and S, which other CTAs wrote in this launch, bypass L1 (__ldcg).
+// Design: the 2 x 2 block identity inv([[A, 0], [B, C]]) = [[A⁻¹, 0],
+// [−C⁻¹·B·A⁻¹, C⁻¹]] applied bottom-up (trtri_block_f32's and trti2_f32's
+// order of work, mega.trtri_levels):
+//   leaves  every 128-wide diagonal tile at once, one block each
+//           (trtri_leaf.cuh, shared with trtri_block.cu and leaf.cu's
+//           trti2_f32); tile 0's block writes info;
+//   levels  for s = 128, 256, ... < n, each pair (A at a0, C at c0 =
+//           a0 + s, C short at the end) of inverted s-blocks, two
+//           products on sgemm128.cuh's 128 x 128 tile, as trti2_f32 has
+//           them: Xᵀ = (B·A⁻¹)ᵀ = A⁻ᵀ·Bᵀ into W's strict upper, the
+//           mirror W[a0:c0, c0:c0+sc] of the block it is for, then
+//           W[c0:c0+sc, a0:c0] = −C⁻¹·X with X read back from the mirror.
+//           A⁻¹ and C⁻¹ are lower, so an output tile's depth runs only
+//           where they are live: 128 to s. Each product's tiles of a level
+//           (every pair's) have their k-steps cut in equal runs for one
+//           wave of blocks (runs128.cuh), and a tile split between runs
+//           is summed in k order in a phase of its own;
+//   finish  W's strict upper right of each row's leaf written zero (the
+//           mirrors).
+// A⁻¹ is read from its diagonal tile on and C⁻¹ up to its diagonal tile,
+// whose upper parts are the leaf's zeros, so no product reads a mirror but
+// the one its level wrote. The leaves run as one launch (a leaf needs
+// 150 KB of shared memory, a product tile 78 KB: two product blocks an
+// SM, one leaf block); the levels and the finish as ONE cooperative
+// launch of two blocks an SM, a grid-wide sync after each phase (four a
+// level) with TRTRI_STREAM_COOP in mega.py, or as a launch per phase.
+// Reads of data other blocks wrote in the launch bypass L1 (cp.async.cg,
+// __ldcg). The previous design, one cooperative launch whose leaves were
+// a forward substitution with one thread a column from device memory and
+// whose levels ran one 64 x 64 tile (sgemm_tile.cuh) a block, took 2.53
+// ms of device time at 4096, 354 µs of it the leaves and 1.33 ms the last
+// level (chip_compare.py's trace; NVIDIA H100 80GB HBM3, 700 W).
 //
 // Trace: given a zeroed buffer of TRACE_SLOTS 64-bit words a phase, in
 // launch order (mega.trtri_stream_phases), the launch records %globaltimer
@@ -42,18 +58,27 @@
 // work in it (atomicMax). A null buffer records nothing.
 #include <cooperative_groups.h>
 
+#include <algorithm>
+#include <initializer_list>
+#include <utility>
+
+#include "runs128.cuh"
 #include "sgemm_tile.cuh"
+#include "trtri_leaf.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NB = 128;        // diagonal tile of phase A
-constexpr int BT = 64;         // GEMM tile edge of the levels
-constexpr int BK = 16;         // k-step of the GEMM tiles
-constexpr int NT = (BT / ct::TM) * (BT / ct::TN);   // 256 threads
+using ct::runs::E;                 // the tile edge and the leaf
+using ct::runs::NT;                // threads
+static_assert(E == ct::tleaf::LW && NT == ct::tleaf::NT, "the leaves");
+constexpr int STEPS = E / ct::runs::STEP;   // k-steps of one 128 tile
 constexpr int MAX_N = 8192;
 constexpr int TRACE_SLOTS = 2;     // a phase's entry and its last end
+// shared bytes of a product block (the larger of the two products' rings)
+constexpr int SMEM =
+    ct::t128::smem_floats<true, true>() * static_cast<int>(sizeof(float));
 
 // block 0's entry into phase r, and the end of this block's work in it
 __device__ __forceinline__ void stamp_entry(unsigned long long* trace,
@@ -65,124 +90,371 @@ __device__ __forceinline__ void stamp_entry(unsigned long long* trace,
 __device__ __forceinline__ void stamp_end(unsigned long long* trace, int r) {
   if (!trace) return;
   __syncthreads();                 // every thread of the block is done
-  if (threadIdx.x == 0) atomicMax(trace + r * TRACE_SLOTS + 1,
-                                  ct::globaltimer());
+  if (threadIdx.x == 0)
+    atomicMax(trace + r * TRACE_SLOTS + 1, ct::globaltimer());
 }
 
-__global__ void __launch_bounds__(NT)
-trtri_stream_f32_kernel(const float* L, long long ldl, float* W,
-                        long long ldw, float* S, int n, int* info,
-                        unsigned long long* trace) {
-  __shared__ float Xs[BK][BT + 1];
-  __shared__ float Ys[BK][BT + 1];
-  __shared__ int s_first;
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x;
-  const int nd = n / NB;                 // diagonal tiles
+// Pairs of s-blocks whose second block starts inside the matrix.
+__host__ __device__ inline int pairs(int n, int s) {
+  return (n - s + 2 * s - 1) / (2 * s);
+}
 
-  int phase = 0;
-  // ---- phase A: info, the upper off-diagonal blocks, the diagonal tiles
-  stamp_entry(trace, phase);
-  if (blockIdx.x == 0) {
-    if (tid == 0) s_first = n;
-    __syncthreads();
-    for (int i = tid; i < n; i += NT)
-      if (L[i * ldl + i] == 0.f) atomicMin(&s_first, i);
-    __syncthreads();
-    if (tid == 0) *info = (s_first < n) ? s_first + 1 : 0;
+// One product of level s over every pair. FIRST: the tiles (ti, tj) of
+// Xᵀ (s x sc, depth 8·(m − ti) steps from row 128·ti of A⁻¹); else those
+// of W21 (sc x s, depth 8·(ti + 1)). m = s / 128, mc = sc / 128 (m but
+// for the last pair). Tiles pair by pair, in a pair row tile by row tile:
+// pair p's tiles start at p·m², its steps at p·(a full pair's steps).
+// VEC: L on the 16-byte grid (W, the wrapper's own, always is).
+template <bool FIRST, bool VEC>
+struct LevelPlan {
+  const float* L;
+  long long ldl;
+  float* W;
+  long long ldw;
+  int s, m, np, mc_last;
+
+  __device__ LevelPlan(const float* L_, long long ldl_, float* W_,
+                       long long ldw_, int n, int s_)
+      : L(L_), ldl(ldl_), W(W_), ldw(ldw_), s(s_), m(s_ / E),
+        np(pairs(n, s_)),
+        mc_last(min(s_, n - (2 * (pairs(n, s_) - 1) + 1) * s_) / E) {}
+
+  __device__ int rows(int mc) const { return FIRST ? m : mc; }  // row tiles
+  __device__ int cols(int mc) const { return FIRST ? mc : m; }  // per row
+  __device__ int depth(int ti) const {
+    return FIRST ? STEPS * (m - ti) : STEPS * (ti + 1);
   }
-  for (int r = blockIdx.x; r < n; r += gridDim.x)
-    for (int c = (r / NB + 1) * NB + tid; c < n; c += NT) W[r * ldw + c] = 0.f;
-  // two tiles per CTA, one column per thread: lockstep forward
-  // substitution of L_p·w = e_c down all 128 rows (rows above c come out
-  // zero), so every thread of a warp reads the same L element
-  for (int p = 2 * blockIdx.x + tid / NB; p < nd; p += 2 * gridDim.x) {
-    const int c = tid % NB;
-    const float* Lp = L + (long long)p * NB * ldl + p * NB;
-    float* Wp = W + (long long)p * NB * ldw + p * NB;
-    for (int i = 0; i < NB; ++i) {
-      float x = (i == c) ? 1.f : 0.f;
-      for (int k = 0; k < i; ++k) x = fmaf(-Lp[i * ldl + k], Wp[k * ldw + c], x);
-      float d = Lp[i * ldl + i];
-      if (d == 0.f) d = 1.f;
-      Wp[i * ldw + c] = x / d;
+  // the steps of the row tiles before ti, each of cols tiles
+  __device__ long long rows_before(int ti, int w) const {
+    const long long a = ti;
+    return FIRST ? STEPS * w * (a * m - a * (a - 1) / 2)
+                 : STEPS * w * (a * (a + 1) / 2);
+  }
+  __device__ long long pair_steps(int mc) const {
+    return rows_before(rows(mc), cols(mc));
+  }
+  __device__ long long total() const {
+    return (np - 1) * pair_steps(m) + pair_steps(mc_last);
+  }
+  __device__ void decode(int t, int& p, int& ti, int& tj) const {
+    p = t / (m * m);
+    const int w = cols(p == np - 1 ? mc_last : m), l = t - p * m * m;
+    ti = l / w;
+    tj = l % w;
+  }
+  __device__ int steps(int t) const {
+    int p, ti, tj;
+    decode(t, p, ti, tj);
+    return depth(ti);
+  }
+  __device__ long long start(int t) const {
+    int p, ti, tj;
+    decode(t, p, ti, tj);
+    const int w = cols(p == np - 1 ? mc_last : m);
+    return p * pair_steps(m) + rows_before(ti, w) +
+           static_cast<long long>(tj) * depth(ti);
+  }
+  __device__ int tile_at(long long u) const {
+    const int p = static_cast<int>(min(u / pair_steps(m),
+                                       static_cast<long long>(np - 1)));
+    const int w = cols(p == np - 1 ? mc_last : m);
+    long long r = u - p * pair_steps(m);
+    int ti = 0;
+    while (r >= static_cast<long long>(w) * depth(ti)) r -= w * depth(ti++);
+    return p * m * m + ti * w + static_cast<int>(r / depth(ti));
+  }
+  // block b's tile when a block takes a tile, the deepest first (row
+  // tile rank a the slowest index, then pair, then column tile); false
+  // for a block past the last pair's short C
+  __device__ bool whole_tile(int b, int& t) const {
+    const int a = b / (np * m), p = b / m % np, j = b % m;
+    const int mc = p == np - 1 ? mc_last : m;
+    const int ti = FIRST ? a : m - 1 - a;
+    t = p * m * m + ti * cols(mc) + j;
+    return (FIRST ? j : ti) < mc;
+  }
+  // steps [s0, s1) of tile t
+  __device__ void part(int t, int s0, int s1, float (&acc)[8][8],
+                       float* sm) const {
+    int p, ti, tj;
+    decode(t, p, ti, tj);
+    const long long a0 = 2LL * p * s, c0 = a0 + s;
+    const int K = (s1 - s0) * ct::runs::STEP;
+    if (FIRST) {
+      // Xᵀ[r][c] = Σ_k A⁻¹[k][r]·B[c][k]: A⁻¹ row-fast from W, B k-fast
+      // from L, k from row 128·ti of A⁻¹
+      const long long k0 = E * ti + s0 * ct::runs::STEP;
+      ct::t128::tile_xyt<false, true, true, VEC>(
+          W + (a0 + k0) * ldw + a0 + E * ti, 1, ldw, 0, E,
+          L + (c0 + E * tj) * ldl + a0 + k0, ldl, 1, 0, E, K, sm, acc);
+    } else {
+      // W21[r][c] = −Σ_k C⁻¹[r][k]·Xᵀ[c][k], both k-fast from W
+      const long long k0 = s0 * ct::runs::STEP;
+      ct::t128::tile_xyt<true, true, true>(
+          W + (c0 + E * ti) * ldw + c0 + k0, ldw, 1, 0, E,
+          W + (a0 + E * tj) * ldw + c0 + k0, ldw, 1, 0, E, K, sm, acc);
     }
   }
+  // four elements of row r, columns c .. c + 3, of tile t: into the
+  // mirror, or negated into W21
+  __device__ void store4(int t, int r, int c, float4 v) const {
+    int p, ti, tj;
+    decode(t, p, ti, tj);
+    const long long a0 = 2LL * p * s, c0 = a0 + s;
+    float* const out =
+        FIRST ? W + (a0 + E * ti + r) * ldw + c0 + E * tj + c
+              : W + (c0 + E * ti + r) * ldw + a0 + E * tj + c;
+    if (!FIRST) v = make_float4(-v.x, -v.y, -v.z, -v.w);
+    *reinterpret_cast<float4*>(out) = v;
+  }
+  __device__ void store(int t, const float (&acc)[8][8]) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store4(t, ct::t128::row_of(i), ct::t128::col_of(4 * h),
+               make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                           acc[i][4 * h + 2], acc[i][4 * h + 3]));
+  }
+};
+
+// The level's tiles of either product: every pair's m x mc.
+__host__ __device__ inline int level_tiles(int n, int s) {
+  const int m = s / E, np = pairs(n, s);
+  const int rest = n - (2 * (np - 1) + 1) * s;     // the last pair's C
+  return (np - 1) * m * m + m * ((rest < s ? rest : s) / E);
+}
+
+// Block b's work in one product: tile b of the deepest-first order where
+// the level takes a block a tile (runs = 0), else run b of `runs` equal
+// runs, its parts in two slots of P.
+template <bool FIRST, bool VEC>
+__device__ void product(const LevelPlan<FIRST, VEC>& p, int b, int runs,
+                        float* P, float* sm) {
+  long long u, u1;
+  if (runs == 0) {
+    int t;
+    if (!p.whole_tile(b, t)) return;
+    u = p.start(t);
+    u1 = u + p.steps(t);
+  } else {
+    const long long total = p.total(), q = (total + runs - 1) / runs;
+    u = b * q;
+    u1 = min(u + q, total);
+  }
+  float* const slots = P + 2LL * b * ct::runs::SLOT;
+  ct::runs::run(p, u, u1, slots, slots + ct::runs::SLOT, sm);
+}
+
+// W's strict upper right of each row's leaf zero (the mirrors): rows
+// first, first + stride, ...
+__device__ void finish_rows(float* W, long long ldw, int n, int first,
+                            int stride) {
+  for (int r = first; r < n; r += stride)
+    for (int c = (r / E + 1) * E + 4 * threadIdx.x; c < n; c += 4 * NT)
+      *reinterpret_cast<float4*>(W + r * ldw + c) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The launches, one a phase: the leaves ...
+__global__ void __launch_bounds__(NT)
+trtri_stream_leaf(const float* __restrict__ L, long long ldl, float* W,
+                  long long ldw, int n, int* info,
+                  unsigned long long* trace) {
+  extern __shared__ __align__(16) float sm[];
+  ct::runs::release();
+  stamp_entry(trace, 0);
+  ct::tleaf::leaf<false>(L, ldl, W, ldw, n, blockIdx.x, sm, info);
+  stamp_end(trace, 0);
+}
+
+// ... one product of level s, a block a tile or a run ...
+template <bool FIRST, bool VEC>
+__global__ void __launch_bounds__(NT, 2)
+trtri_stream_runs(const float* __restrict__ L, long long ldl, float* W,
+                  long long ldw, int n, int s, int runs, float* P,
+                  unsigned long long* trace, int phase) {
+  extern __shared__ __align__(16) float sm[];
+  const LevelPlan<FIRST, VEC> p(L, ldl, W, ldw, n, s);
+  ct::runs::release();
+  ct::runs::depend();
+  stamp_entry(trace, phase);
+  product(p, blockIdx.x, runs, P, sm);
+  stamp_end(trace, phase);
+}
+
+// ... the sum of its split tiles, a block a run boundary and group set ...
+template <bool FIRST, bool VEC>
+__global__ void __launch_bounds__(NT)
+trtri_stream_sum(const float* __restrict__ L, long long ldl, float* W,
+                 long long ldw, int n, int s, int runs, const float* P,
+                 unsigned long long* trace, int phase) {
+  const LevelPlan<FIRST, VEC> p(L, ldl, W, ldw, n, s);
+  ct::runs::release();
+  ct::runs::depend();
+  stamp_entry(trace, phase);
+  ct::runs::sum_at(p, blockIdx.x, blockIdx.y * NT + threadIdx.x,
+                   (p.total() + runs - 1) / runs, P);
+  stamp_end(trace, phase);
+}
+
+// ... and the finish, a block a row.
+__global__ void __launch_bounds__(NT)
+trtri_stream_finish(float* W, long long ldw, int n,
+                    unsigned long long* trace, int phase) {
+  ct::runs::depend();
+  stamp_entry(trace, phase);
+  finish_rows(W, ldw, n, blockIdx.x, gridDim.x);
+  stamp_end(trace, phase);
+}
+
+// The same phases in ONE cooperative launch, a grid-wide sync after each
+// (the A/B of chip_smoke.py): a product's tiles or runs, and its sums, the
+// blocks taking the work items in turn.
+template <bool FIRST, bool VEC>
+__device__ void coop_product(const LevelPlan<FIRST, VEC>& p, bool whole,
+                             int tiles, float* P, float* sm,
+                             unsigned long long* trace, int& phase,
+                             cg::grid_group& grid) {
+  const int g = gridDim.x;
+  stamp_entry(trace, phase);
+  for (int b = blockIdx.x; b < (whole ? tiles : g); b += g)
+    product(p, b, whole ? 0 : g, P, sm);
   stamp_end(trace, phase++);
   grid.sync();
+  if (whole) return;
+  stamp_entry(trace, phase);
+  const long long q = (p.total() + g - 1) / g;
+  for (int i = blockIdx.x; i < g * ct::runs::GROUPS; i += g)
+    ct::runs::sum_at(p, i / ct::runs::GROUPS,
+                     i % ct::runs::GROUPS * NT + threadIdx.x, q, P);
+  stamp_end(trace, phase++);
+  grid.sync();
+}
 
-  // ---- levels: merge pairs of inverted s-blocks into 2s-blocks
-  for (int s = NB; s < n; s *= 2) {
-    const int npairs = (n - s + 2 * s - 1) / (2 * s);  // pairs with b + s < n
-    const int st = s / BT;                               // tiles along s
-    const int tiles = npairs * st * st;
-    stamp_entry(trace, phase);
-    // T = W2·M, T row-major s2 x s at S + q·s·s (ld s); W2 lower, so the
-    // k-loop of row tile lr stops at the end of its own rows
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int q = t / (st * st), lr = (t % (st * st)) / st, lc = t % st;
-      const int b = q * 2 * s;
-      const int s2 = min(s, n - b - s);
-      if (lr * BT >= s2) continue;
-      const float* W2 = W + (long long)(b + s) * ldw + (b + s);
-      const float* M = L + (long long)(b + s) * ldl + b;
-      float acc[ct::TM][ct::TN] = {};
-      // X = W2 (rows, k), Y(c, k) = M[k][c]
-      ct::tile_xyt<BT, BT, BK, true>(W2, ldw, 1, lr * BT, s2, M, 1, ldl,
-                                     lc * BT, s, (lr + 1) * BT, Xs, Ys, acc);
-      ct::store_tile<BT, BT>(S + (long long)q * s * s, s, lr * BT, lc * BT,
-                             1.f, acc);
-    }
-    stamp_end(trace, phase++);
-    grid.sync();
-    stamp_entry(trace, phase);
-    // W[b+s:b+s+s2, b:b+s] = -T·W1; W1 lower, so the k-loop of column
-    // tile lc starts at its own columns
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int q = t / (st * st), lr = (t % (st * st)) / st, lc = t % st;
-      const int b = q * 2 * s;
-      const int s2 = min(s, n - b - s);
-      if (lr * BT >= s2) continue;
-      const float* T = S + (long long)q * s * s;
-      const float* W1 = W + (long long)b * ldw + b;
-      const int k0 = lc * BT;
-      float acc[ct::TM][ct::TN] = {};
-      // X(r, k) = T[r][k0 + k], Y(c, k) = W1[k0 + k][c]
-      ct::tile_xyt<BT, BT, BK, true>(T + k0, s, 1, lr * BT, s2,
-                                     W1 + (long long)k0 * ldw, 1, ldw,
-                                     lc * BT, s, s - k0, Xs, Ys, acc);
-      ct::store_tile<BT, BT>(W + (long long)(b + s) * ldw + b, ldw, lr * BT,
-                             lc * BT, -1.f, acc);
-    }
-    stamp_end(trace, phase++);
-    grid.sync();
+template <bool VEC>
+__global__ void __launch_bounds__(NT, 2)
+trtri_stream_coop(const float* __restrict__ L, long long ldl, float* W,
+                  long long ldw, int n, int whole_min, float* P,
+                  unsigned long long* trace) {
+  extern __shared__ __align__(16) float sm[];
+  cg::grid_group grid = cg::this_grid();
+  int phase = 1;
+  for (int s = E; s < n; s *= 2) {
+    const bool whole = level_tiles(n, s) >= whole_min;
+    const int tiles = pairs(n, s) * (s / E) * (s / E);
+    coop_product(LevelPlan<true, VEC>(L, ldl, W, ldw, n, s), whole, tiles,
+                 P, sm, trace, phase, grid);
+    coop_product(LevelPlan<false, VEC>(L, ldl, W, ldw, n, s), whole, tiles,
+                 P, sm, trace, phase, grid);
   }
+  stamp_entry(trace, phase);
+  finish_rows(W, ldw, n, blockIdx.x, gridDim.x);
+  stamp_end(trace, phase);
+}
+
+template <bool VEC>
+cudaError_t launch_coop(const float* L, long long ldl, float* W,
+                        long long ldw, int n, float* P, int blocks,
+                        int whole_min, unsigned long long* trace, int device,
+                        cudaStream_t st) {
+  const auto k = trtri_stream_coop<VEC>;
+  cudaError_t err = ct::runs::shared_max(k, SMEM);
+  int coop = 0, nsm = 0, per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, NT, SMEM);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  const int grid = std::min(blocks, nsm * per_sm);
+  void* args[] = {&L, &ldl, &W, &ldw, &n, &whole_min, &P, &trace};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(k),
+                                     dim3(grid), dim3(NT), args, SMEM, st);
+}
+
+template <bool VEC>
+cudaError_t launch_levels(const float* L, long long ldl, float* W,
+                          long long ldw, int n, float* P, int blocks,
+                          int whole_min, bool pdl,
+                          unsigned long long* trace, cudaStream_t st) {
+  const auto x = trtri_stream_runs<true, VEC>;
+  const auto w = trtri_stream_runs<false, VEC>;
+  const auto xs = trtri_stream_sum<true, VEC>;
+  const auto ws = trtri_stream_sum<false, VEC>;
+  cudaError_t err = ct::runs::shared_max(x, SMEM);
+  if (err == cudaSuccess) err = ct::runs::shared_max(w, SMEM);
+  if (err == cudaSuccess) err = ct::runs::shared_max(xs, 0);
+  if (err == cudaSuccess) err = ct::runs::shared_max(ws, 0);
+  if (err == cudaSuccess) err = ct::runs::shared_max(trtri_stream_finish, 0);
+  const dim3 sums(blocks, ct::runs::GROUPS);
+  int phase = 1;
+  for (int s = E; s < n && err == cudaSuccess; s *= 2) {
+    const int m = s / E, np = pairs(n, s);
+    if (level_tiles(n, s) >= whole_min) {
+      for (const auto k : {x, w})
+        if (err == cudaSuccess)
+          err = ct::runs::launch(k, np * m * m, SMEM, st, pdl, L, ldl, W,
+                                 ldw, n, s, 0, P, trace, phase++);
+      continue;
+    }
+    for (const auto [k, ks] : {std::pair(x, xs), std::pair(w, ws)}) {
+      if (err == cudaSuccess)
+        err = ct::runs::launch(k, blocks, SMEM, st, pdl, L, ldl, W, ldw, n,
+                               s, blocks, P, trace, phase++);
+      if (err == cudaSuccess)
+        err = ct::runs::launch(ks, sums, 0, st, pdl, L, ldl, W, ldw, n, s,
+                               blocks, static_cast<const float*>(P), trace,
+                               phase++);
+    }
+  }
+  if (err == cudaSuccess)
+    err = ct::runs::launch(trtri_stream_finish, std::min(n, 4096), 0, st,
+                           pdl, W, ldw, n, trace, phase);
+  return err;
 }
 
 }  // namespace
 
+// A level whose products have whole_min tiles of 128 or more takes a
+// block a tile, deepest first; a smaller one `blocks` equal runs. P: two
+// 128 x 128 slots a run. pdl: the launches after the first by
+// programmatic dependent launch; coop: the levels in one cooperative
+// launch instead. W is the wrapper's own n x n buffer.
 CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
-                                  long long ldw, float* S, int n, int* info,
+                                  long long ldw, float* P, int n, int blocks,
+                                  int whole_min, int pdl, int coop, int* info,
                                   unsigned long long* trace, int device,
                                   void* stream) {
-  if (n < NB || n > MAX_N || n % NB != 0 || ldl < n || ldw < n)
+  if (n < E || n > MAX_N || n % E != 0 || ldl < n || ldw < n ||
+      ldw % 4 != 0 || reinterpret_cast<unsigned long long>(W) % 16 != 0 ||
+      !P || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int coop = 0, nsm = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  err = ct::runs::shared_max(trtri_stream_leaf, ct::tleaf::LEAF_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
+  const auto st = static_cast<cudaStream_t>(stream);
+  trtri_stream_leaf<<<n / E, NT, ct::tleaf::LEAF_SMEM, st>>>(L, ldl, W, ldw,
+                                                             n, info, trace);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, trtri_stream_f32_kernel, NT, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  void* args[] = {&L, &ldl, &W, &ldw, &S, &n, &info, &trace};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(trtri_stream_f32_kernel), dim3(nsm * per_sm),
-      dim3(NT), args, 0, static_cast<cudaStream_t>(stream));
+  const bool vec =
+      reinterpret_cast<unsigned long long>(L) % 16 == 0 && ldl % 4 == 0;
+  if (coop)
+    err = vec ? launch_coop<true>(L, ldl, W, ldw, n, P, blocks, whole_min,
+                                  trace, device, st)
+              : launch_coop<false>(L, ldl, W, ldw, n, P, blocks, whole_min,
+                                   trace, device, st);
+  else
+    err = vec ? launch_levels<true>(L, ldl, W, ldw, n, P, blocks, whole_min,
+                                    pdl != 0, trace, st)
+              : launch_levels<false>(L, ldl, W, ldw, n, P, blocks, whole_min,
+                                     pdl != 0, trace, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,7 @@ import torch
 
 from cholesky_tpu_torch.ops import lapack_ref
 from cholesky_tpu_torch.ops.kernels import _build
+from cholesky_tpu_torch.ops.kernels.syrk import WAVE
 from cholesky_tpu_torch.utils.errors import check
 
 NB = 128            # the blocked recursion's granularity for these kernels
@@ -204,30 +205,51 @@ def potrf_stream_f32(A, *, trace=None):
 
 
 def trtri_stream_plain(L):
-    """The plain torch version, any real dtype and device: a triangular
-    solve against the identity, zero diagonals read as 1. Returns (inverse
-    of tril(L) with the strict upper zero, info), info the first zero
-    diagonal."""
-    zero = torch.diagonal(L) == 0
-    T = torch.tril(L, -1) + torch.diag(torch.where(zero, 1.0, L.diagonal()))
-    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
-    W = torch.linalg.solve_triangular(T, eye, upper=False)
-    info = torch.where(zero.any(), zero.int().argmax() + 1, 0).to(torch.int32)
-    return torch.tril(W), info
+    """The plain torch version, any real dtype and device, in the kernel's
+    order of work: :func:`trtri_block_plain` (the TRTRI_LEAF leaves, then
+    the levels of :func:`trtri_levels`). Returns (inverse of tril(L) with
+    the strict upper zero, info), info the first zero diagonal."""
+    return trtri_block_plain(L)
 
 
 #: stamps per phase of trtri_stream_f32's trace (csrc/trtri_stream.cu): block
 #: 0's entry into the phase, the last end of any block's work in it
 TRTRI_TRACE_SLOTS = 2
+#: from this many NB-tiles a launch of lauum_stream_f32, or a product of a
+#: trtri_stream_f32 level, takes a block a tile, the deepest first; below it
+#: the tiles' k-steps are cut in equal runs for one WAVE of blocks
+#: (chip_smoke.py's A/B)
+STREAM_WHOLE_MIN_TILES = WAVE
+
+
+#: trtri_stream_f32 launches each phase after the first by programmatic
+#: dependent launch, so that it is scheduled while the one before it ends
+#: (the A/B of chip_smoke.py's phase 3)
+STREAM_PDL = True
+#: trtri_stream_f32 runs its levels as one cooperative launch with a grid
+#: sync after each phase (True) or as a launch a phase (False): the A/B of
+#: chip_smoke.py's phase 3
+TRTRI_STREAM_COOP = False
+
+
+def trtri_stream_plan(n):
+    """trtri_stream_f32's levels at n: [(s, whole)], whole when each of the
+    level's two products has STREAM_WHOLE_MIN_TILES NB-tiles or more."""
+    return [(s, sum(s // NB * (sc // NB) for _, _, sc in pairs)
+             >= STREAM_WHOLE_MIN_TILES) for s, pairs in trtri_levels(n)]
 
 
 def trtri_stream_phases(n):
     """The phases of trtri_stream_f32 at n in launch order, one row of its
-    trace each."""
+    trace each: the leaves; for each level s, the product T = B·A⁻¹ (kept
+    transposed), then W21 = −C⁻¹·T, each followed by the sum of its split
+    tiles where the level is cut in runs; the finish."""
     names = ["leaves"]
-    for s, _ in trtri_levels(n):
-        names += [f"level {s} T", f"level {s} W"]
-    return names
+    for s, whole in trtri_stream_plan(n):
+        names += ([f"level {s} T", f"level {s} W"] if whole else
+                  [f"level {s} T", f"level {s} T sum", f"level {s} W",
+                   f"level {s} W sum"])
+    return names + ["finish"]
 
 
 def trtri_stream_f32(L, *, trace=None):
@@ -236,10 +258,11 @@ def trtri_stream_f32(L, *, trace=None):
     Returns (W, info) as :func:`trtri_block_f32` does: W a new contiguous
     tensor with a zero strict upper, info (0-d int32) the 1-based index of
     the first zero diagonal, which is treated as 1. The launch also takes
-    n²/4 floats of scratch on the card, freed on return. ``trace``, for
-    measurement on the card only: a zeroed int64 tensor of
-    (len(trtri_stream_phases(n)), TRTRI_TRACE_SLOTS) into which the launch
-    writes the card's nanosecond clock at each phase boundary."""
+    two NB x NB tiles of scratch a block, 2·WAVE·NB² floats, on the card,
+    freed on return. ``trace``, for measurement on the card only: a zeroed
+    int64 tensor of (len(trtri_stream_phases(n)), TRTRI_TRACE_SLOTS) into
+    which the launch writes the card's nanosecond clock at each phase
+    boundary."""
     n = _check_block(L, "trtri_stream_f32", STREAM_MAX_N, NB)
     if trace is not None:
         rows = len(trtri_stream_phases(n))
@@ -251,11 +274,14 @@ def trtri_stream_f32(L, *, trace=None):
     if L.device.type == "cpu":
         return trtri_stream_plain(L)
     W = torch.empty((n, n), dtype=L.dtype, device=L.device)
-    S = torch.empty((n * n // 4,), dtype=L.dtype, device=L.device)
+    # each run's two partial tiles
+    P = torch.empty((2 * WAVE * NB * NB,), dtype=L.dtype, device=L.device)
     info = torch.empty((), dtype=torch.int32, device=L.device)
     err = _build.library().ct_trtri_stream_f32(
-        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), S.data_ptr(),
-        n, info.data_ptr(), trace.data_ptr() if trace is not None else None,
+        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), P.data_ptr(),
+        n, WAVE, STREAM_WHOLE_MIN_TILES, int(STREAM_PDL),
+        int(TRTRI_STREAM_COOP), info.data_ptr(),
+        trace.data_ptr() if trace is not None else None,
         *_build.device_args(L))
     _build.check_launch(err, "trtri_stream_f32")
     trtri_stream_f32.launches += 1
@@ -269,18 +295,71 @@ def lauum_stream_plain(L):
     return torch.tril(T.T @ T)
 
 
+#: k-steps of the 128 tile (csrc/runs128.cuh)
+RUN_STEP = 16
+
+
+def lauum_tiles(n):
+    """lauum_stream_f32's lower NB-tiles at n in the kernel's order, row by
+    row over the triangle, each with its k-steps: ((I, J), steps), tile
+    (I, J) summing over L's rows [NB·I, n)."""
+    nt = n // NB
+    return [((i, j), (n - NB * i) // RUN_STEP)
+            for i in range(nt) for j in range(i + 1)]
+
+
+def lauum_launch_plan(n, *, blocks=None, whole=False):
+    """(q, blocks) of lauum_stream_f32 at n: from STREAM_WHOLE_MIN_TILES
+    tiles (or with ``whole``) q = 0, a block a tile in :func:`lauum_tiles`'
+    order, which is the deepest first; below it (or given ``blocks``) the
+    lower tiles' k-steps in that order cut in equal runs of q, one a block,
+    for one WAVE of blocks (or ``blocks``). The overrides are the A/B of
+    chip_smoke.py."""
+    tiles = lauum_tiles(n)
+    if whole or (blocks is None and len(tiles) >= STREAM_WHOLE_MIN_TILES):
+        return 0, len(tiles)
+    total = sum(steps for _, steps in tiles)
+    q = -(-total // (blocks or WAVE))
+    return q, -(-total // q)
+
+
+def lauum_runs(n, q):
+    """The runs of a plan of q steps: for each block, its parts ((I, J),
+    s0, s1), steps [s0, s1) of tile (I, J), in order. A part that is not a
+    whole tile goes to the block's scratch and is summed with the tile's
+    other parts in run order, which is k order."""
+    runs, u = [], 0
+    for tile, steps in lauum_tiles(n):
+        s = 0
+        while s < steps:
+            b = u // q
+            take = min(steps - s, (b + 1) * q - u)
+            runs += [[] for _ in range(b + 1 - len(runs))]
+            runs[b].append((tile, s, s + take))
+            s += take
+            u += take
+    return runs
+
+
 def lauum_stream_f32(L):
     """tril(LᵀL) for the f32 matrix L, n a multiple of NB up to
     STREAM_MAX_N, unit-stride rows; only the lower triangle of L is read.
     Out of place: returns a new contiguous tensor (n² floats beside the
-    input) with a zero strict upper."""
+    input) with a zero strict upper. The launch also takes n·NB floats of
+    scratch (L's diagonal tiles) and, when its runs split tiles, two NB x
+    NB tiles a block (2·WAVE·NB² floats) on the card, freed on return."""
     n = _check_block(L, "lauum_stream_f32", STREAM_MAX_N, NB)
     if L.device.type == "cpu":
         return lauum_stream_plain(L)
+    q, blocks = lauum_launch_plan(n)
     B = torch.empty((n, n), dtype=L.dtype, device=L.device)
+    D = torch.empty((n, NB), dtype=L.dtype, device=L.device)
+    # where runs split tiles, two partial tiles a block
+    P = (torch.empty((2 * blocks * NB * NB,), dtype=L.dtype,
+                     device=L.device) if q else None)
     err = _build.library().ct_lauum_stream_f32(
-        L.data_ptr(), L.stride(0), B.data_ptr(), B.stride(0), n,
-        *_build.device_args(L))
+        L.data_ptr(), L.stride(0), B.data_ptr(), B.stride(0), n, q, blocks,
+        D.data_ptr(), P.data_ptr() if q else None, *_build.device_args(L))
     _build.check_launch(err, "lauum_stream_f32")
     lauum_stream_f32.launches += 1
     return B

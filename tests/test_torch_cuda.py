@@ -410,6 +410,115 @@ def test_lauum_stream_vs_twin(cuda, n):
     assert_close(B, want, 2 * n + 3, f"lauum_stream n={n}")
 
 
+def dense_factor(n, seed):
+    """A dense f32 Cholesky factor on the card: of G·Gᵀ/n + I/25, G
+    Gaussian, so every entry of it and of its inverse is live."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = torch.randn(n, n, device="cuda", generator=g)
+    A = (G @ G.T).div_(n)
+    A.diagonal().add_(0.04)
+    return torch.linalg.cholesky(A.double()).float()
+
+
+def gate(got, ref64, yard32, what):
+    """got within F32_GATE times an f32 yardstick's error against the f64
+    ref64 (at least an ulp of max|ref64|)."""
+    err = float((got.double() - ref64).abs().max())
+    yard = float((yard32.double() - ref64).abs().max())
+    lim = F32_GATE * max(yard, EPS32 * float(ref64.abs().max()))
+    assert err <= lim, f"{what}: err {err:.3e} > {lim:.3e}"
+
+
+def nan_upper(L):
+    X = L.clone()
+    X[torch.ones_like(X, dtype=torch.bool).triu(1)] = float("nan")
+    return X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 1024, 1152, 8192])
+@pytest.mark.parametrize("form", [{}, {"STREAM_WHOLE_MIN_TILES": 1},
+                                  {"STREAM_WHOLE_MIN_TILES": 1 << 30},
+                                  {"STREAM_PDL": False}],
+                         ids=["rule", "whole", "runs", "no_pdl"])
+def test_trtri_stream_dense_vs_f64(cuda, monkeypatch, n, form):
+    # the leaves and every level, a tile a block or in runs, with a NaN
+    # strict upper, repeated bit for bit
+    for name, value in form.items():
+        monkeypatch.setattr(mega, name, value)
+    L = dense_factor(n, 3)
+    X = nan_upper(L)
+    W, info = kernels.trtri_stream_f32(X)
+    again, _ = kernels.trtri_stream_f32(X)
+    assert int(info) == 0 and torch.equal(W, again)
+    assert bool((torch.triu(W, 1) == 0).all())
+    eye = torch.eye(n, device=cuda)
+    gate(W, torch.linalg.solve_triangular(L.double(), eye.double(),
+                                          upper=False),
+         torch.linalg.solve_triangular(L, eye, upper=False),
+         f"trtri_stream n={n} {form}")
+
+
+@pytest.mark.cuda
+def test_trtri_stream_zero_diagonals_and_unit(cuda):
+    # zeros at 9, 700 and 1200: info the smallest, read as 1, finite, as
+    # the twin; the unit form through unit_inverse, its diagonal passed
+    # through
+    L = dense_factor(2048, 4)
+    Z = L.clone()
+    for z in (9, 700, 1200):
+        Z[z, z] = 0.0
+    W, info = kernels.trtri_stream_f32(Z)
+    want, i_ref = mega.trtri_stream_plain(Z)
+    assert int(info) == int(i_ref) == 10 and bool(torch.isfinite(W).all())
+    assert_close(W, want, 60 * 2048, "trtri_stream zero diagonals")
+    U = L[:1152, :1152] / torch.diagonal(L)[None, :1152]
+    U.diagonal().copy_(torch.diagonal(L)[:1152])
+    W, info = leaf.unit_inverse(kernels.trtri_stream_f32, U)
+    assert int(info) == 0
+    assert torch.equal(torch.diagonal(W), torch.diagonal(U))
+    eye = torch.eye(1152, device=cuda)
+    gate(torch.tril(W, -1),
+         torch.tril(torch.linalg.solve_triangular(
+             U.double(), eye.double(), upper=False, unitriangular=True), -1),
+         torch.tril(torch.linalg.solve_triangular(
+             U, eye, upper=False, unitriangular=True), -1),
+         "trtri_stream unit")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 1024, 1152, 8192])
+@pytest.mark.parametrize("cut", [{}, {"whole": True}, {"blocks": 264}],
+                         ids=["rule", "whole", "runs"])
+def test_lauum_stream_dense_vs_f64(cuda, monkeypatch, n, cut):
+    # the plan's runs or a tile a block, with a NaN strict upper, repeated
+    # bit for bit
+    monkeypatch.setattr(mega, "lauum_launch_plan",
+                        functools.partial(mega.lauum_launch_plan, **cut))
+    L = torch.tril(dense_factor(n, 5))
+    X = nan_upper(L)
+    B = kernels.lauum_stream_f32(X)
+    assert torch.equal(B, kernels.lauum_stream_f32(X))
+    assert bool(torch.isfinite(B).all())
+    assert bool((torch.triu(B, 1) == 0).all())
+    gate(B, torch.tril(L.double().T @ L.double()), torch.tril(L.T @ L),
+         f"lauum_stream n={n} {cut}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,off,extra", [(1152, 5, 37), (2048, 128, 128)])
+def test_lauum_stream_on_a_view(cuda, n, off, extra):
+    # a row longer than n, off and on the 16-byte grid, NaN around the
+    # lower triangle
+    L = torch.tril(dense_factor(n, 6))
+    buf = torch.full((n, n + extra), float("nan"), device=cuda)
+    v = buf[:, off:off + n]
+    v.copy_(L + torch.triu(v, 1))
+    B = kernels.lauum_stream_f32(v)
+    gate(B, torch.tril(L.double().T @ L.double()), torch.tril(L.T @ L),
+         f"lauum_stream view n={n}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [100, 512, 2048])
 def test_lauu2_vs_twin(cuda, n):

@@ -212,6 +212,86 @@ def test_syrk_launch_plan(n, k, strides, ptr, cut, want):
 
 
 # ---------------------------------------------------------------------------
+# lauum_stream_f32's and trtri_stream_f32's plans (csrc/runs128.cuh)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,cut,want", [
+    # runs for one wave below STREAM_WHOLE_MIN_TILES lower tiles ...
+    (128, {}, (1, 8)),
+    (1024, {}, (4, 240)),
+    (1152, {}, (5, 264)),
+    (2048, {}, (25, 262)),
+    # ... a block a tile from there (300 tiles at 3072, 2080 at 8192)
+    (3072, {}, (0, 300)),
+    (8192, {}, (0, 2080)),
+    # the A/B's overrides
+    (8192, {"blocks": 264}, (1387, 264)),
+    (1024, {"whole": True}, (0, 36)),
+])
+def test_lauum_launch_plan(n, cut, want):
+    assert mega.lauum_launch_plan(n, **cut) == want
+
+
+@pytest.mark.parametrize("n,blocks", [(128, None), (256, None),
+                                      (1024, None), (1152, None),
+                                      (1152, 7), (2048, None), (3072, 264)])
+def test_lauum_runs(n, blocks):
+    """Every (lower tile, k-step from its own row block) in exactly one run,
+    the runs equal (q steps, the last one short), a split tile's parts in
+    k order over consecutive runs, Σ_I (I+1)·(n − 128·I)/16 steps in all,
+    and the kernel's closed-form row prefix (LauumPlan::row_start) equal to
+    the running sum."""
+    q, nb = mega.lauum_launch_plan(n, blocks=blocks)
+    runs = mega.lauum_runs(n, q)
+    nt = n // 128
+    total = sum((i + 1) * (n - 128 * i) // 16 for i in range(nt))
+    assert len(runs) == nb == -(-total // q)
+    seen = {}
+    for b, run in enumerate(runs):
+        assert sum(s1 - s0 for _, s0, s1 in run) == (
+            q if b < len(runs) - 1 else total - q * (len(runs) - 1))
+        for tile, s0, s1 in run:
+            seen.setdefault(tile, []).append((b, s0, s1))
+    tiles = mega.lauum_tiles(n)
+    assert list(seen) == [tile for tile, _ in tiles]
+    for tile, steps in tiles:
+        i, j = tile
+        assert j <= i and steps == (n - 128 * i) // 16
+        parts = seen[tile]
+        # consecutive runs, consecutive step ranges from 0 to the depth
+        assert [b for b, _, _ in parts] == list(
+            range(parts[0][0], parts[0][0] + len(parts)))
+        assert parts[0][1] == 0 and parts[-1][2] == steps
+        assert all(a[2] == b[1] for a, b in zip(parts, parts[1:]))
+    prefix = 0
+    for i in range(nt + 1):
+        closed = 8 * ((nt + 1) * i * (i + 1) // 2
+                      - i * (i + 1) * (2 * i + 1) // 6)
+        assert closed == prefix
+        if i < nt:
+            prefix += (i + 1) * 8 * (nt - i)
+    assert prefix == total
+
+
+@pytest.mark.parametrize("n,want", [
+    (128, []),
+    (1152, [(128, False), (256, False), (512, False), (1024, False)]),
+    (4096, [(128, False), (256, False), (512, False), (1024, False),
+            (2048, False)]),
+    (8192, [(128, False), (256, False), (512, False), (1024, False),
+            (2048, True), (4096, True)]),
+])
+def test_trtri_stream_plan(n, want):
+    """A level takes a block a tile from STREAM_WHOLE_MIN_TILES tiles of
+    128 in each product (every pair's s/128 x sc/128), else equal runs with
+    a sum of the split tiles: one trace row a phase."""
+    assert mega.trtri_stream_plan(n) == want
+    phases = mega.trtri_stream_phases(n)
+    assert phases[0] == "leaves" and phases[-1] == "finish"
+    assert len(phases) == 2 + sum(2 if whole else 4 for _, whole in want)
+
+
+# ---------------------------------------------------------------------------
 # potrf_block_f32 — replaces ops/pallas/mega.py:potrf_vmem_f32
 # ---------------------------------------------------------------------------
 
