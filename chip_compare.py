@@ -103,18 +103,28 @@ def main() -> int:
 
     def device_by_kernel(fn, match):
         """fn() under torch.profiler: {kernel: [device ms, launches]} for
-        the CUDA kernels whose name holds ``match``."""
+        the CUDA kernels whose name holds ``match``, and under "busy" the
+        union of their intervals (kernels that overlap, as a launch
+        scheduled early by programmatic dependent launch waits inside its
+        predecessor's run, count once)."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        split = {}
+        split, spans = {}, []
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and match in e.name:
                 row = split.setdefault(kernel_name(e.name), [0.0, 0])
                 row[0] += (e.time_range.end - e.time_range.start) / 1e3
                 row[1] += 1
+                spans.append((e.time_range.start, e.time_range.end))
+        busy, last = 0.0, -math.inf
+        for a, b in sorted(spans):
+            if b > last:
+                busy += b - max(a, last)
+                last = b
+        split["busy"] = [busy / 1e3, len(spans)]
         return split
 
     def trtri_device_ms(fn):
@@ -122,8 +132,7 @@ def main() -> int:
         ms and the launches it made."""
         before = trtri_block_f32.launches
         split = device_by_kernel(fn, "trtri_block")
-        return sum(ms for ms, _ in split.values()), \
-            trtri_block_f32.launches - before
+        return split["busy"][0], trtri_block_f32.launches - before
 
     def per_call(split, calls):
         return {k: [ms / calls, c / calls] for k, (ms, c) in split.items()}
@@ -180,7 +189,7 @@ def main() -> int:
                                  "syrk")
         out[f"{what} {n} block_size=512 syrk device"] = {
             "launches": syrk_lower_f32.launches - before,
-            "ms": sum(ms for ms, _ in split.values()), "kernels": split}
+            "ms": split.pop("busy")[0], "kernels": split}
         del A
     for n in (4096, 8192, 16384):
         A = dense_spd(n)
@@ -255,8 +264,7 @@ def main() -> int:
         before = fn.launches
         split = device_by_kernel(step, match)
         out[f"GP {name}"] = {"launches": fn.launches - before,
-                             "ms": sum(ms for ms, _ in split.values()),
-                             "kernels": split}
+                             "ms": split.pop("busy")[0], "kernels": split}
     print(json.dumps(out))
     return 0
 

@@ -48,10 +48,9 @@ cooperative launch over many) and of ``potrf_stream_f32`` at the
 multiples of 128 that sets its crossover, of ``potf2_f32``'s strip
 width at 16384 and of ``syrk_lower_f32``'s cuts of the depth at 512,
 1024 and 2048, of ``lauum_stream_f32``'s equal runs against a tile a
-block at 1024-8192 and of ``trtri_stream_f32``'s launch form (one
-cooperative launch, or a launch a phase with and without programmatic
-dependent launch) and of the tile count from which its levels take a
-block a tile, at 2048, 4096 and 8192; times ``trti2_f32`` beside
+block at 1024-8192 and of ``trtri_stream_f32``'s launches with and without
+programmatic dependent launch and of the tile count from which its levels
+take a block a tile, at 2048, 4096 and 8192; times ``trti2_f32`` beside
 ``trtri_stream_f32`` at 1152-8192 and the public ``trtri`` at 8192
 beside one ``trtri_stream_f32`` launch; and prints the traces of
 ``potrf_stream_f32``'s panel loop at n = 1024, 4096 and 8192 (per phase
@@ -872,8 +871,7 @@ def stream_form(**settings):
     """trtri_stream_f32's launch form for a while, by its selectors in
     mega (each the only one of its choice): STREAM_WHOLE_MIN_TILES (from
     how many tiles a level, or lauum_stream_f32, takes a block a tile;
-    below it equal runs), STREAM_PDL (programmatic dependent launch),
-    TRTRI_STREAM_COOP (one cooperative launch for the levels)."""
+    below it equal runs), STREAM_PDL (programmatic dependent launch)."""
     keep = {k: getattr(mega, k) for k in settings}
     for k, v in settings.items():
         setattr(mega, k, v)
@@ -911,8 +909,7 @@ def trace_trtri_stream(L, on):
         if name.startswith(f"level {n // 2} "):
             top.append(f"{kind} {w:.1f}")
     print(f"trtri_stream_f32 trace n={n} (levels "
-          f"{mega.trtri_stream_plan(n)}, pdl {mega.STREAM_PDL}, cooperative "
-          f"{mega.TRTRI_STREAM_COOP}): "
+          f"{mega.trtri_stream_plan(n)}, pdl {mega.STREAM_PDL}): "
           f"total {float(t[-1, 1]):.1f} µs; summed over the levels "
           + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
           + f" (the top level: {', '.join(top)}); gaps between phases "
@@ -952,13 +949,13 @@ def check_trtri_stream(gen, rec, on):
         X[torch.ones_like(X, dtype=torch.bool).triu(1)] = math.nan
         for form in ({}, dict(STREAM_WHOLE_MIN_TILES=1),
                      dict(STREAM_WHOLE_MIN_TILES=1 << 30),
-                     dict(TRTRI_STREAM_COOP=True)):
+                     dict(STREAM_PDL=False)):
             with stream_form(**form):
                 W, info = trtri_stream_f32(X)
                 again, _ = trtri_stream_f32(X)
                 what = (f"trtri_stream_f32 n={n} levels (s, whole) "
-                        f"{mega.trtri_stream_plan(n)} cooperative "
-                        f"{mega.TRTRI_STREAM_COOP}")
+                        f"{mega.trtri_stream_plan(n)} pdl "
+                        f"{mega.STREAM_PDL}")
             require(int(info) == 0 and bool((torch.triu(W, 1) == 0).all()),
                     f"{what}: info {int(info)} or strict upper not zero")
             require(torch.equal(W, again), f"{what}: a second call differs")
@@ -1011,12 +1008,11 @@ def check_trtri_stream(gen, rec, on):
           f"10, finite, err vs twin {e_z:.3e}; unit route n=1152: max err vs "
           f"f64 {e_u:.3e} (limit {l_u:.3e}), diagonal passed through; views "
           + "; ".join(views))
-    # the trace and the A/Bs of the launch form, of programmatic dependent
-    # launch and of the cut, in turns
+    # the trace and the A/Bs of programmatic dependent launch and of the
+    # cut, in turns
     for n in (2048, 4096, 8192):
         reps = 20 if n < 8192 else 5
-        forms = (dict(TRTRI_STREAM_COOP=True), dict(STREAM_PDL=True),
-                 dict(STREAM_PDL=False))
+        forms = (dict(STREAM_PDL=True), dict(STREAM_PDL=False))
         for form in forms:
             with stream_form(**form):
                 trace_trtri_stream(Ls[n], on)
@@ -1025,7 +1021,7 @@ def check_trtri_stream(gen, rec, on):
             with stream_form(**form):
                 t.setdefault(plan_name(form), []).append(bench_op(
                     lambda x: trtri_stream_f32(x), Ls[n], reps=reps) * 1e3)
-        print(f"trtri_stream_f32 A/B n={n}, the launch form: "
+        print(f"trtri_stream_f32 A/B n={n}, programmatic dependent launch: "
               + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in t.items())
               + f" ms on {on}")
         t = {}
@@ -1893,10 +1889,22 @@ def print_gemm_census(census, on, top=6):
               f"{lib_ms:.4f} ms on {on}")
 
 
+def busy_ms(intervals) -> float:
+    """The union of (start, end) µs intervals, in ms: kernels that overlap
+    (a launch scheduled early by programmatic dependent launch waits
+    inside its predecessor's run) count once."""
+    total, last = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > last:
+            total += b - max(a, last)
+            last = b
+    return total / 1e3
+
+
 def kernel_census(fn, on, name, match):
     """The launches of kernel ``name`` in one call of fn (its launch
-    counter) and their device time (torch.profiler's CUDA kernels whose
-    name holds ``match``)."""
+    counter) and their device time: the union of the intervals of
+    torch.profiler's CUDA kernels whose name holds ``match``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     wrapper = kernels.KERNELS[name]
@@ -1907,14 +1915,14 @@ def kernel_census(fn, on, name, match):
         fn()
         torch.cuda.synchronize()
     launches = wrapper.launches - before
-    runs = [(e.time_range.end - e.time_range.start) / 1e3
-            for e in prof.events() if e.device_type == DeviceType.CUDA
-            and match in e.name]
+    runs = [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and match in e.name]
     require(launches > 0 and runs, f"{name} census: no launch")
+    busy = busy_ms(runs)
     print(f"{name} census of one GP train step: {launches} launches "
-          f"({len(runs)} kernels in the trace), {sum(runs):.3f} ms of device "
-          f"time, {sum(runs) / launches:.4f} ms a launch on {on}")
-    return launches, sum(runs)
+          f"({len(runs)} kernels in the trace), {busy:.3f} ms of device "
+          f"time, {busy / launches:.4f} ms a launch on {on}")
+    return launches, busy
 
 
 def gp_path(name_power, dev="cuda"):

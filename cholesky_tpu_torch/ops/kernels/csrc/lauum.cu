@@ -17,22 +17,36 @@
 // result goes to a separate buffer (in place, a tile's store would race
 // with other tiles' reads of L). Tile (I, J)'s depth runs from its own row
 // block to n, so the depths of the 2080 lower 128-tiles at 8192 range from
-// 128 to 8192: with a block a tile, the deepest finish alone.
+// 128 to 8192, and of the 36 at 1024 from 128 to 1024: too few tiles for
+// the card, and a deep one last would finish alone.
 //
 // Design (lauum_stream_f32): syrk_lower_f32 of the row-fast view Lᵀ with
 // each tile's depth starting at its own row block, on sgemm128.cuh's
-// 128 x 128 cp.async tile (8 x 8 micro-tiles), cut as runs128.cuh cuts
-// it: the lower tiles' k-steps, row by row over the triangle, in equal
-// runs of q, one a block (the wrapper's plan, ops/kernels/mega.py
-// lauum_launch_plan), a split tile summed in k order by one more launch. Only a tile's first eight k-steps
-// (its own row block) meet L's strict upper: a first launch copies tril of
-// L's diagonal 128-blocks into an n x 128 scratch D, from which those
-// steps are staged, and writes B's strict upper tiles zero; every other
-// step stages L itself, by 16-byte cp.async where L lies on the 16-byte
-// grid. L's strict upper is never read. Diagonal tiles store zero above
-// their diagonal. The previous design, one 256-thread block per 64 x 64
-// tile of sgemm_tile.cuh with masked 4-byte loads of every k-step, took
-// 9.2172-9.2229 ms at 8192 (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W).
+// 128 x 128 cp.async tile (8 x 8 micro-tiles). Below
+// mega.STREAM_WHOLE_MIN_TILES lower tiles (264, one wave of two blocks
+// an SM) the tiles' k-steps, row by row over the triangle, are cut in
+// equal runs of q as runs128.cuh cuts them, one a block, a split tile
+// summed in k order by one more launch; from there a block takes a tile,
+// in the same order, which is the deepest first (the wrapper's plan,
+// ops/kernels/mega.py lauum_launch_plan). Only a tile's first eight
+// k-steps (its own row block) meet L's strict upper: a first launch copies
+// tril of L's diagonal 128-blocks into an n x 128 scratch D, from which
+// those steps are staged, and writes B's strict upper tiles zero; every
+// other step stages L itself, by 16-byte cp.async where L lies on the
+// 16-byte grid. L's strict upper is never read. Diagonal tiles store zero
+// above their diagonal.
+//
+// Measured (chip_smoke.py at commit f78f09b; ms of one call, NVIDIA H100
+// 80GB HBM3, 700 W): equal runs for one wave against a tile a block,
+// 0.0882 / 0.1458-0.1471 at 1024, 0.2343-0.2366 / 0.3290-0.3296 at 2048,
+// 0.7835-0.7997 / 0.7420-0.7558 at 4096, 4.9905-5.0154 / 4.6973-4.7307 at
+// 8192. Past a wave's worth of tiles the deepest-first order balances the
+// card by itself, and runs only add the split tiles' stores and sums. At
+// 8192 a tile a block runs the tile at 38-39 TF/s on the products it
+// does (the diagonal tiles whole: 4.7 % above n³/3 flops). The design
+// before this one, one 256-thread block per 64 x 64 tile of sgemm_tile.cuh
+// with masked 4-byte loads of every k-step, took 9.2172-9.2229 ms at 8192
+// (chip_smoke.py at commit bcdb7f0).
 //
 // lauu2_f32 keeps that 64 x 64 kernel: one 256-thread block per tile of
 // B, the lower tiles first (row-major over the triangle), then the
@@ -181,8 +195,7 @@ lauum_sum(LauumPlan<VEC> p, long long q, const float* P) {
 template <bool VEC>
 cudaError_t launch_stream(const LauumPlan<VEC>& p, long long q, int blocks,
                           float* P, cudaStream_t s) {
-  cudaError_t err = ct::runs::shared_max(lauum_runs<VEC>, SMEM);
-  if (err == cudaSuccess) err = ct::runs::shared_max(lauum_sum<VEC>, 0);
+  const cudaError_t err = ct::runs::allow_smem(lauum_runs<VEC>, SMEM);
   if (err != cudaSuccess) return err;
   lauum_runs<VEC><<<blocks, NT, SMEM, s>>>(p, q, P);
   if (q > 0 && blocks > 1)

@@ -16,11 +16,8 @@
 // (sum_at) then sums each split tile's parts in k order, run b0 first, and
 // stores them (Plan::store4): no float atomics, so a call repeats bit for
 // bit. A split tile is found from the first run boundary b·q inside it, so
-// that launch has (runs − 1) x GROUPS work items, not one a tile. (Summing
-// in the last run to finish a tile, with a counter a tile, saved the
-// launch but put a whole tile's sum on one block: trtri_stream_f32 at 4096
-// took 1.19-1.21 ms against 0.98 with the launch, chip_smoke.py, NVIDIA
-// H100 80GB HBM3, 700 W.)
+// that launch has (runs − 1) x GROUPS work items, not one a tile: a block
+// an item, 1024 of the tile's elements, four a thread.
 #pragma once
 
 #include "sgemm128.cuh"
@@ -34,18 +31,11 @@ constexpr int STEP = t128::BK;     // a k-step
 constexpr int SLOT = E * E;        // floats of a slot
 constexpr int GROUPS = SLOT / (4 * NT);   // a tile's groups of sum_at
 
-// Let kernel k take `bytes` of dynamic shared memory, and ask for the SM's
-// largest shared-memory carveout: then the SM need not change its split of
-// L1 and shared memory between the launches of one call.
+// Let kernel k take `bytes` of dynamic shared memory.
 template <class K>
-inline cudaError_t shared_max(K* k, int bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(k,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  return err;
+inline cudaError_t allow_smem(K* k, int bytes) {
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 // Programmatic dependent launch (Hopper): a kernel launched by launch()

@@ -16,12 +16,12 @@
 // What bounds it on the H100: n^3/6 FFMA (11.5 G at n = 4096) in plain f32
 // (TF32 is not f32-accurate), at best the 67 TFLOP/s vector rate: 0.342 ms
 // at 4096; then the chain of log2(n/128) levels, each waiting for the one
-// before it. The TPU kernel streamed 128-row panels bottom-up through one
-// core's VMEM.
+// before it, and their tiles' uneven depths. The TPU kernel streamed
+// 128-row panels bottom-up through one core's VMEM.
 //
 // Design: the 2 x 2 block identity inv([[A, 0], [B, C]]) = [[A⁻¹, 0],
 // [−C⁻¹·B·A⁻¹, C⁻¹]] applied bottom-up (trtri_block_f32's and trti2_f32's
-// order of work, mega.trtri_levels):
+// order of work, mega.trtri_levels), a launch a phase:
 //   leaves  every 128-wide diagonal tile at once, one block each
 //           (trtri_leaf.cuh, shared with trtri_block.cu and leaf.cu's
 //           trti2_f32); tile 0's block writes info;
@@ -32,32 +32,44 @@
 //           mirror W[a0:c0, c0:c0+sc] of the block it is for, then
 //           W[c0:c0+sc, a0:c0] = −C⁻¹·X with X read back from the mirror.
 //           A⁻¹ and C⁻¹ are lower, so an output tile's depth runs only
-//           where they are live: 128 to s. Each product's tiles of a level
-//           (every pair's) have their k-steps cut in equal runs for one
-//           wave of blocks (runs128.cuh), and a tile split between runs
-//           is summed in k order in a phase of its own;
+//           where they are live: 128 to s. A product of fewer than
+//           whole_min tiles (mega.STREAM_WHOLE_MIN_TILES, one wave of
+//           264 blocks) has its tiles' k-steps, every pair's, cut in equal
+//           runs for one wave (runs128.cuh), and a launch of its own sums
+//           each split tile in k order; from whole_min tiles a block takes
+//           a tile, the deepest first;
 //   finish  W's strict upper right of each row's leaf written zero (the
 //           mirrors).
 // A⁻¹ is read from its diagonal tile on and C⁻¹ up to its diagonal tile,
 // whose upper parts are the leaf's zeros, so no product reads a mirror but
-// the one its level wrote. The leaves run as one launch (a leaf needs
-// 150 KB of shared memory, a product tile 78 KB: two product blocks an
-// SM, one leaf block); the levels and the finish as ONE cooperative
-// launch of two blocks an SM, a grid-wide sync after each phase (four a
-// level) with TRTRI_STREAM_COOP in mega.py, or as a launch per phase.
-// Reads of data other blocks wrote in the launch bypass L1 (cp.async.cg,
-// __ldcg). The previous design, one cooperative launch whose leaves were
-// a forward substitution with one thread a column from device memory and
-// whose levels ran one 64 x 64 tile (sgemm_tile.cuh) a block, took 2.53
-// ms of device time at 4096, 354 µs of it the leaves and 1.33 ms the last
-// level (chip_compare.py's trace; NVIDIA H100 80GB HBM3, 700 W).
+// the one its level wrote. Every launch after the leaves may be scheduled
+// while the one before it ends (programmatic dependent launch, pdl) and
+// waits for it in griddepcontrol.wait; that took the gaps between phases
+// from 183 to 147 µs at 4096.
+//
+// Measured (chip_smoke.py at commit f78f09b; ms of one call, NVIDIA H100
+// 80GB HBM3, 700 W): the levels as ONE cooperative launch of two blocks
+// an SM with a grid sync after each phase (the TPU kernel's one-dispatch
+// shape) 0.3972-0.4103 / 1.1748-1.1788 / 7.1880-7.2337 at 2048 / 4096 /
+// 8192, a launch a phase 0.3577-0.3585 / 1.0418-1.0909 / 5.2839-5.3026,
+// with pdl 0.3325-0.3341 / 0.9831-0.9918 / 5.3935-5.4136: the cooperative
+// kernel held both products and the sums at 128 registers and spilled
+// (216-260 bytes), its products ran 10-30 % slower and its sums, a
+// block's work items in turn, 5x; it went. A tile a block on every level
+// 1.5450-1.6114 at 4096, runs on every level 0.9989-1.0120 and the rule
+// 0.9983-1.0284; at 8192 5.5363-5.6584, 5.7062-5.9246 and 5.2437-5.5053.
+// Device time at 4096 (the trace): 0.947 ms, of which the leaves 17 µs,
+// the products 732, the sums 43, the finish 8, the gaps between launches
+// 147. The design before this one, one cooperative launch whose leaves
+// were a forward substitution with one thread a column from device
+// memory and whose levels ran a 64 x 64 tile (sgemm_tile.cuh) a block,
+// took 2.53 ms at 4096, 354 µs of it the leaves and 1.33 ms the last level
+// (chip_compare.py's trace at commit e3fba80).
 //
 // Trace: given a zeroed buffer of TRACE_SLOTS 64-bit words a phase, in
-// launch order (mega.trtri_stream_phases), the launch records %globaltimer
-// (ns): block 0's entry into the phase, and the latest end of any block's
-// work in it (atomicMax). A null buffer records nothing.
-#include <cooperative_groups.h>
-
+// launch order (mega.trtri_stream_phases), the launches record
+// %globaltimer (ns): block 0's entry into the phase, and the latest end
+// of any block's work in it (atomicMax). A null buffer records nothing.
 #include <algorithm>
 #include <initializer_list>
 #include <utility>
@@ -65,8 +77,6 @@
 #include "runs128.cuh"
 #include "sgemm_tile.cuh"
 #include "trtri_leaf.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -219,41 +229,9 @@ struct LevelPlan {
 };
 
 // The level's tiles of either product: every pair's m x mc.
-__host__ __device__ inline int level_tiles(int n, int s) {
+inline int level_tiles(int n, int s) {
   const int m = s / E, np = pairs(n, s);
-  const int rest = n - (2 * (np - 1) + 1) * s;     // the last pair's C
-  return (np - 1) * m * m + m * ((rest < s ? rest : s) / E);
-}
-
-// Block b's work in one product: tile b of the deepest-first order where
-// the level takes a block a tile (runs = 0), else run b of `runs` equal
-// runs, its parts in two slots of P.
-template <bool FIRST, bool VEC>
-__device__ void product(const LevelPlan<FIRST, VEC>& p, int b, int runs,
-                        float* P, float* sm) {
-  long long u, u1;
-  if (runs == 0) {
-    int t;
-    if (!p.whole_tile(b, t)) return;
-    u = p.start(t);
-    u1 = u + p.steps(t);
-  } else {
-    const long long total = p.total(), q = (total + runs - 1) / runs;
-    u = b * q;
-    u1 = min(u + q, total);
-  }
-  float* const slots = P + 2LL * b * ct::runs::SLOT;
-  ct::runs::run(p, u, u1, slots, slots + ct::runs::SLOT, sm);
-}
-
-// W's strict upper right of each row's leaf zero (the mirrors): rows
-// first, first + stride, ...
-__device__ void finish_rows(float* W, long long ldw, int n, int first,
-                            int stride) {
-  for (int r = first; r < n; r += stride)
-    for (int c = (r / E + 1) * E + 4 * threadIdx.x; c < n; c += 4 * NT)
-      *reinterpret_cast<float4*>(W + r * ldw + c) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
+  return (np - 1) * m * m + m * (std::min(s, n - (2 * np - 1) * s) / E);
 }
 
 // The launches, one a phase: the leaves ...
@@ -268,7 +246,9 @@ trtri_stream_leaf(const float* __restrict__ L, long long ldl, float* W,
   stamp_end(trace, 0);
 }
 
-// ... one product of level s, a block a tile or a run ...
+// ... one product of level s: tile blockIdx.x of the deepest-first order
+// where the level takes a block a tile (runs = 0), else run blockIdx.x of
+// `runs` equal runs, its parts in two slots of P ...
 template <bool FIRST, bool VEC>
 __global__ void __launch_bounds__(NT, 2)
 trtri_stream_runs(const float* __restrict__ L, long long ldl, float* W,
@@ -279,7 +259,18 @@ trtri_stream_runs(const float* __restrict__ L, long long ldl, float* W,
   ct::runs::release();
   ct::runs::depend();
   stamp_entry(trace, phase);
-  product(p, blockIdx.x, runs, P, sm);
+  long long u = 0, u1 = 0;         // none: a block past the last pair's C
+  int t;
+  if (runs > 0) {
+    const long long total = p.total(), q = (total + runs - 1) / runs;
+    u = blockIdx.x * q;
+    u1 = min(u + q, total);
+  } else if (p.whole_tile(blockIdx.x, t)) {
+    u = p.start(t);
+    u1 = u + p.steps(t);
+  }
+  float* const slots = P + 2LL * blockIdx.x * ct::runs::SLOT;
+  ct::runs::run(p, u, u1, slots, slots + ct::runs::SLOT, sm);
   stamp_end(trace, phase);
 }
 
@@ -298,83 +289,18 @@ trtri_stream_sum(const float* __restrict__ L, long long ldl, float* W,
   stamp_end(trace, phase);
 }
 
-// ... and the finish, a block a row.
+// ... and the finish, W's strict upper right of each row's leaf zero (the
+// mirrors), a block a row.
 __global__ void __launch_bounds__(NT)
 trtri_stream_finish(float* W, long long ldw, int n,
                     unsigned long long* trace, int phase) {
   ct::runs::depend();
   stamp_entry(trace, phase);
-  finish_rows(W, ldw, n, blockIdx.x, gridDim.x);
+  for (int r = blockIdx.x; r < n; r += gridDim.x)
+    for (int c = (r / E + 1) * E + 4 * threadIdx.x; c < n; c += 4 * NT)
+      *reinterpret_cast<float4*>(W + r * ldw + c) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
   stamp_end(trace, phase);
-}
-
-// The same phases in ONE cooperative launch, a grid-wide sync after each
-// (the A/B of chip_smoke.py): a product's tiles or runs, and its sums, the
-// blocks taking the work items in turn.
-template <bool FIRST, bool VEC>
-__device__ void coop_product(const LevelPlan<FIRST, VEC>& p, bool whole,
-                             int tiles, float* P, float* sm,
-                             unsigned long long* trace, int& phase,
-                             cg::grid_group& grid) {
-  const int g = gridDim.x;
-  stamp_entry(trace, phase);
-  for (int b = blockIdx.x; b < (whole ? tiles : g); b += g)
-    product(p, b, whole ? 0 : g, P, sm);
-  stamp_end(trace, phase++);
-  grid.sync();
-  if (whole) return;
-  stamp_entry(trace, phase);
-  const long long q = (p.total() + g - 1) / g;
-  for (int i = blockIdx.x; i < g * ct::runs::GROUPS; i += g)
-    ct::runs::sum_at(p, i / ct::runs::GROUPS,
-                     i % ct::runs::GROUPS * NT + threadIdx.x, q, P);
-  stamp_end(trace, phase++);
-  grid.sync();
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(NT, 2)
-trtri_stream_coop(const float* __restrict__ L, long long ldl, float* W,
-                  long long ldw, int n, int whole_min, float* P,
-                  unsigned long long* trace) {
-  extern __shared__ __align__(16) float sm[];
-  cg::grid_group grid = cg::this_grid();
-  int phase = 1;
-  for (int s = E; s < n; s *= 2) {
-    const bool whole = level_tiles(n, s) >= whole_min;
-    const int tiles = pairs(n, s) * (s / E) * (s / E);
-    coop_product(LevelPlan<true, VEC>(L, ldl, W, ldw, n, s), whole, tiles,
-                 P, sm, trace, phase, grid);
-    coop_product(LevelPlan<false, VEC>(L, ldl, W, ldw, n, s), whole, tiles,
-                 P, sm, trace, phase, grid);
-  }
-  stamp_entry(trace, phase);
-  finish_rows(W, ldw, n, blockIdx.x, gridDim.x);
-  stamp_end(trace, phase);
-}
-
-template <bool VEC>
-cudaError_t launch_coop(const float* L, long long ldl, float* W,
-                        long long ldw, int n, float* P, int blocks,
-                        int whole_min, unsigned long long* trace, int device,
-                        cudaStream_t st) {
-  const auto k = trtri_stream_coop<VEC>;
-  cudaError_t err = ct::runs::shared_max(k, SMEM);
-  int coop = 0, nsm = 0, per_sm = 0;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, NT, SMEM);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  const int grid = std::min(blocks, nsm * per_sm);
-  void* args[] = {&L, &ldl, &W, &ldw, &n, &whole_min, &P, &trace};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(k),
-                                     dim3(grid), dim3(NT), args, SMEM, st);
 }
 
 template <bool VEC>
@@ -386,11 +312,8 @@ cudaError_t launch_levels(const float* L, long long ldl, float* W,
   const auto w = trtri_stream_runs<false, VEC>;
   const auto xs = trtri_stream_sum<true, VEC>;
   const auto ws = trtri_stream_sum<false, VEC>;
-  cudaError_t err = ct::runs::shared_max(x, SMEM);
-  if (err == cudaSuccess) err = ct::runs::shared_max(w, SMEM);
-  if (err == cudaSuccess) err = ct::runs::shared_max(xs, 0);
-  if (err == cudaSuccess) err = ct::runs::shared_max(ws, 0);
-  if (err == cudaSuccess) err = ct::runs::shared_max(trtri_stream_finish, 0);
+  cudaError_t err = ct::runs::allow_smem(x, SMEM);
+  if (err == cudaSuccess) err = ct::runs::allow_smem(w, SMEM);
   const dim3 sums(blocks, ct::runs::GROUPS);
   int phase = 1;
   for (int s = E; s < n && err == cudaSuccess; s *= 2) {
@@ -423,11 +346,10 @@ cudaError_t launch_levels(const float* L, long long ldl, float* W,
 // A level whose products have whole_min tiles of 128 or more takes a
 // block a tile, deepest first; a smaller one `blocks` equal runs. P: two
 // 128 x 128 slots a run. pdl: the launches after the first by
-// programmatic dependent launch; coop: the levels in one cooperative
-// launch instead. W is the wrapper's own n x n buffer.
+// programmatic dependent launch. W is the wrapper's own n x n buffer.
 CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
                                   long long ldw, float* P, int n, int blocks,
-                                  int whole_min, int pdl, int coop, int* info,
+                                  int whole_min, int pdl, int* info,
                                   unsigned long long* trace, int device,
                                   void* stream) {
   if (n < E || n > MAX_N || n % E != 0 || ldl < n || ldw < n ||
@@ -436,7 +358,7 @@ CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = ct::runs::shared_max(trtri_stream_leaf, ct::tleaf::LEAF_SMEM);
+  err = ct::runs::allow_smem(trtri_stream_leaf, ct::tleaf::LEAF_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto st = static_cast<cudaStream_t>(stream);
   trtri_stream_leaf<<<n / E, NT, ct::tleaf::LEAF_SMEM, st>>>(L, ldl, W, ldw,
@@ -445,16 +367,10 @@ CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec =
       reinterpret_cast<unsigned long long>(L) % 16 == 0 && ldl % 4 == 0;
-  if (coop)
-    err = vec ? launch_coop<true>(L, ldl, W, ldw, n, P, blocks, whole_min,
-                                  trace, device, st)
-              : launch_coop<false>(L, ldl, W, ldw, n, P, blocks, whole_min,
-                                   trace, device, st);
-  else
-    err = vec ? launch_levels<true>(L, ldl, W, ldw, n, P, blocks, whole_min,
-                                    pdl != 0, trace, st)
-              : launch_levels<false>(L, ldl, W, ldw, n, P, blocks, whole_min,
-                                     pdl != 0, trace, st);
+  err = vec ? launch_levels<true>(L, ldl, W, ldw, n, P, blocks, whole_min,
+                                  pdl != 0, trace, st)
+            : launch_levels<false>(L, ldl, W, ldw, n, P, blocks, whole_min,
+                                   pdl != 0, trace, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -226,10 +226,6 @@ STREAM_WHOLE_MIN_TILES = WAVE
 #: dependent launch, so that it is scheduled while the one before it ends
 #: (the A/B of chip_smoke.py's phase 3)
 STREAM_PDL = True
-#: trtri_stream_f32 runs its levels as one cooperative launch with a grid
-#: sync after each phase (True) or as a launch a phase (False): the A/B of
-#: chip_smoke.py's phase 3
-TRTRI_STREAM_COOP = False
 
 
 def trtri_stream_plan(n):
@@ -279,8 +275,7 @@ def trtri_stream_f32(L, *, trace=None):
     info = torch.empty((), dtype=torch.int32, device=L.device)
     err = _build.library().ct_trtri_stream_f32(
         L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), P.data_ptr(),
-        n, WAVE, STREAM_WHOLE_MIN_TILES, int(STREAM_PDL),
-        int(TRTRI_STREAM_COOP), info.data_ptr(),
+        n, WAVE, STREAM_WHOLE_MIN_TILES, int(STREAM_PDL), info.data_ptr(),
         trace.data_ptr() if trace is not None else None,
         *_build.device_args(L))
     _build.check_launch(err, "trtri_stream_f32")

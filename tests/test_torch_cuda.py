@@ -417,7 +417,7 @@ def dense_factor(n, seed):
     G = torch.randn(n, n, device="cuda", generator=g)
     A = (G @ G.T).div_(n)
     A.diagonal().add_(0.04)
-    return torch.linalg.cholesky(A.double()).float()
+    return torch.linalg.cholesky(A.double()).float().contiguous()
 
 
 def gate(got, ref64, yard32, what):

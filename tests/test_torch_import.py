@@ -81,6 +81,22 @@ def test_chip_smoke_names_the_kernels_in_ptxas_log(mangled, name):
     assert chip_smoke.short_name(mangled) == name
 
 
+@pytest.mark.parametrize("intervals,ms", [
+    ([], 0.0),
+    ([(0.0, 1000.0)], 1.0),
+    # a launch scheduled early waits inside its predecessor's run
+    ([(0.0, 1000.0), (400.0, 2500.0)], 2.5),
+    ([(3000.0, 3500.0), (0.0, 1000.0), (200.0, 300.0)], 1.5),
+])
+def test_chip_smoke_busy_ms(intervals, ms):
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    assert chip_smoke.busy_ms(intervals) == pytest.approx(ms)
+
+
 def test_public_api():
     routines = ["potrf", "potf2", "logdet", "trtri", "trtri2", "trti2",
                 "lauum", "lauu2", "potri", "gemm", "syrk", "trmm", "trmm2",
