@@ -48,8 +48,7 @@ cooperative launch over many) and of ``potrf_stream_f32`` at the
 multiples of 128 that sets its crossover, of ``potf2_f32``'s strip
 width at 16384 and of ``syrk_lower_f32``'s cuts of the depth at 512,
 1024 and 2048, of ``lauum_stream_f32``'s equal runs against a tile a
-block at 1024-8192 and of ``trtri_stream_f32``'s launches with and without
-programmatic dependent launch and of the tile count from which its levels
+block at 1024-8192 and of the tile count from which ``trtri_stream_f32``'s levels
 take a block a tile, at 2048, 4096 and 8192; times ``trti2_f32`` beside
 ``trtri_stream_f32`` at 1152-8192 and the public ``trtri`` at 8192
 beside one ``trtri_stream_f32`` launch; and prints the traces of
@@ -867,19 +866,16 @@ def check_trtri_block(gen, rec, on):
 
 
 @contextlib.contextmanager
-def stream_form(**settings):
-    """trtri_stream_f32's launch form for a while, by its selectors in
-    mega (each the only one of its choice): STREAM_WHOLE_MIN_TILES (from
-    how many tiles a level, or lauum_stream_f32, takes a block a tile;
-    below it equal runs), STREAM_PDL (programmatic dependent launch)."""
-    keep = {k: getattr(mega, k) for k in settings}
-    for k, v in settings.items():
-        setattr(mega, k, v)
+def whole_min(tiles: int):
+    """The tile count from which lauum_stream_f32 and a trtri_stream_f32
+    level take a block a tile (below it equal runs) for a while:
+    mega.STREAM_WHOLE_MIN_TILES, their only selector."""
+    keep = mega.STREAM_WHOLE_MIN_TILES
+    mega.STREAM_WHOLE_MIN_TILES = tiles
     try:
         yield
     finally:
-        for k, v in keep.items():
-            setattr(mega, k, v)
+        mega.STREAM_WHOLE_MIN_TILES = keep
 
 
 #: the A/B's settings of STREAM_WHOLE_MIN_TILES: every level a tile a block,
@@ -909,7 +905,7 @@ def trace_trtri_stream(L, on):
         if name.startswith(f"level {n // 2} "):
             top.append(f"{kind} {w:.1f}")
     print(f"trtri_stream_f32 trace n={n} (levels "
-          f"{mega.trtri_stream_plan(n)}, pdl {mega.STREAM_PDL}): "
+          f"{mega.trtri_stream_plan(n)}): "
           f"total {float(t[-1, 1]):.1f} µs; summed over the levels "
           + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items())
           + f" (the top level: {', '.join(top)}); gaps between phases "
@@ -947,15 +943,13 @@ def check_trtri_stream(gen, rec, on):
         del F
         X = L.clone()
         X[torch.ones_like(X, dtype=torch.bool).triu(1)] = math.nan
-        for form in ({}, dict(STREAM_WHOLE_MIN_TILES=1),
-                     dict(STREAM_WHOLE_MIN_TILES=1 << 30),
-                     dict(STREAM_PDL=False)):
-            with stream_form(**form):
+        rule = mega.STREAM_WHOLE_MIN_TILES
+        for tiles in (rule, 1, 1 << 30):
+            with whole_min(tiles):
                 W, info = trtri_stream_f32(X)
                 again, _ = trtri_stream_f32(X)
                 what = (f"trtri_stream_f32 n={n} levels (s, whole) "
-                        f"{mega.trtri_stream_plan(n)} pdl "
-                        f"{mega.STREAM_PDL}")
+                        f"{mega.trtri_stream_plan(n)}")
             require(int(info) == 0 and bool((torch.triu(W, 1) == 0).all()),
                     f"{what}: info {int(info)} or strict upper not zero")
             require(torch.equal(W, again), f"{what}: a second call differs")
@@ -964,7 +958,7 @@ def check_trtri_stream(gen, rec, on):
                   f"{err:.3e}, solve_triangular's {yard:.3e} (limit "
                   f"{lim:.3e}, 1/{rms / lim:.0f} of the strict lower's RMS "
                   f"{rms:.3e}); a second call equal bit for bit")
-            if n == 4096 and not form:
+            if n == 4096 and tiles == rule:
                 err_4096 = err
             del W, again
         del X
@@ -1008,26 +1002,14 @@ def check_trtri_stream(gen, rec, on):
           f"10, finite, err vs twin {e_z:.3e}; unit route n=1152: max err vs "
           f"f64 {e_u:.3e} (limit {l_u:.3e}), diagonal passed through; views "
           + "; ".join(views))
-    # the trace and the A/Bs of programmatic dependent launch and of the
-    # cut, in turns
+    # the trace, and the A/B of the cut in turns
     for n in (2048, 4096, 8192):
         reps = 20 if n < 8192 else 5
-        forms = (dict(STREAM_PDL=True), dict(STREAM_PDL=False))
-        for form in forms:
-            with stream_form(**form):
-                trace_trtri_stream(Ls[n], on)
+        trace_trtri_stream(Ls[n], on)
         t = {}
-        for form in forms + forms[::-1]:
-            with stream_form(**form):
-                t.setdefault(plan_name(form), []).append(bench_op(
-                    lambda x: trtri_stream_f32(x), Ls[n], reps=reps) * 1e3)
-        print(f"trtri_stream_f32 A/B n={n}, programmatic dependent launch: "
-              + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in t.items())
-              + f" ms on {on}")
-        t = {}
-        for whole_min in WHOLE_AB + WHOLE_AB[::-1]:
-            with stream_form(STREAM_WHOLE_MIN_TILES=whole_min):
-                t.setdefault(whole_min, []).append(bench_op(
+        for tiles in WHOLE_AB + WHOLE_AB[::-1]:
+            with whole_min(tiles):
+                t.setdefault(tiles, []).append(bench_op(
                     lambda x: trtri_stream_f32(x), Ls[n], reps=reps) * 1e3)
         print(f"trtri_stream_f32 A/B n={n}, a tile a block from this many "
               "tiles of a level, below it runs for one wave: "

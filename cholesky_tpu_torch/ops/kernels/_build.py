@@ -120,7 +120,7 @@ def library() -> ctypes.CDLL:
             "ct_potrf_block_f32": [P, LL, I, P, I, I, P],
             "ct_potrf_stream_f32": [P, LL, P, P, P, I, P, P, I, P],
             "ct_trtri_block_f32": [P, LL, P, LL, P, I, P, I, P],
-            "ct_trtri_stream_f32": [P, LL, P, LL, P, I, I, I, I, P, P, I, P],
+            "ct_trtri_stream_f32": [P, LL, P, LL, P, I, I, I, P, P, I, P],
             "ct_lauum_stream_f32": [P, LL, P, LL, I, LL, I, P, P, I, P],
             "ct_lauu2_f32": [P, LL, P, LL, I, I, P],
             "ct_potf2_f32": [P, LL, P, P, I, I, I, P, I, P],

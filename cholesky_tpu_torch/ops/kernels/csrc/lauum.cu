@@ -195,7 +195,8 @@ lauum_sum(LauumPlan<VEC> p, long long q, const float* P) {
 template <bool VEC>
 cudaError_t launch_stream(const LauumPlan<VEC>& p, long long q, int blocks,
                           float* P, cudaStream_t s) {
-  const cudaError_t err = ct::runs::allow_smem(lauum_runs<VEC>, SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(
+      lauum_runs<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   lauum_runs<VEC><<<blocks, NT, SMEM, s>>>(p, q, P);
   if (q > 0 && blocks > 1)

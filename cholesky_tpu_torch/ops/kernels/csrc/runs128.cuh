@@ -31,18 +31,11 @@ constexpr int STEP = t128::BK;     // a k-step
 constexpr int SLOT = E * E;        // floats of a slot
 constexpr int GROUPS = SLOT / (4 * NT);   // a tile's groups of sum_at
 
-// Let kernel k take `bytes` of dynamic shared memory.
-template <class K>
-inline cudaError_t allow_smem(K* k, int bytes) {
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
 // Programmatic dependent launch (Hopper): a kernel launched by launch()
-// with pdl may be scheduled while the kernel before it on the stream still
-// runs, once every block of that one has called release(); depend() then
-// waits until it has finished and its stores are visible. Without pdl
-// both are no-ops.
+// may be scheduled while the kernel before it on the stream still runs,
+// once every block of that one has called release(); depend() then waits
+// until it has finished and its stores are visible. In a kernel launched
+// otherwise both are no-ops.
 __device__ __forceinline__ void release() {
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
@@ -53,7 +46,7 @@ __device__ __forceinline__ void depend() {
 
 template <class... Params, class... Args>
 cudaError_t launch(void (*k)(Params...), dim3 grid, int smem,
-                   cudaStream_t st, bool pdl, Args... args) {
+                   cudaStream_t st, Args... args) {
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
@@ -63,7 +56,7 @@ cudaError_t launch(void (*k)(Params...), dim3 grid, int smem,
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = st;
   cfg.attrs = &attr;
-  cfg.numAttrs = pdl ? 1 : 0;
+  cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, k, args...);
 }
 

@@ -199,10 +199,9 @@ __device__ __forceinline__ void stage_mma(const float* Xs, const float* Ys,
 
 // acc[i][j] += Σ_k X[r0 + row_of(i), k]·Y[c0 + col_of(j), k] over k in
 // [0, K), rows and cols bounding X's and Y's rows. smem holds
-// smem_floats<XKF, YKF>() floats, 16-byte aligned. VEC stages X (and Y,
-// unless YVEC says otherwise) by 16-byte copies. Ends with a barrier, so
-// the caller may reuse smem.
-template <bool XKF, bool YKF, bool VEC, bool YVEC = VEC>
+// smem_floats<XKF, YKF>() floats, 16-byte aligned. Ends with a barrier,
+// so the caller may reuse smem.
+template <bool XKF, bool YKF, bool VEC>
 __device__ __forceinline__ void tile_xyt(const float* __restrict__ X,
                                          long long sx_r, long long sx_k,
                                          int r0, int rows,
@@ -220,7 +219,7 @@ __device__ __forceinline__ void tile_xyt(const float* __restrict__ X,
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) {
       stage_load<XKF, VEC>(X, sx_r, sx_k, r0, rows, s * BK, K, Xs + s * XF);
-      stage_load<YKF, YVEC>(Y, sy_r, sy_k, c0, cols, s * BK, K, Ys + s * YF);
+      stage_load<YKF, VEC>(Y, sy_r, sy_k, c0, cols, s * BK, K, Ys + s * YF);
     }
     cp_commit();
   }
@@ -233,7 +232,7 @@ __device__ __forceinline__ void tile_xyt(const float* __restrict__ X,
       const int ns = (slot + STAGES - 1) % STAGES;
       stage_load<XKF, VEC>(X, sx_r, sx_k, r0, rows, next * BK, K,
                            Xs + ns * XF);
-      stage_load<YKF, YVEC>(Y, sy_r, sy_k, c0, cols, next * BK, K,
+      stage_load<YKF, VEC>(Y, sy_r, sy_k, c0, cols, next * BK, K,
                            Ys + ns * YF);
     }
     cp_commit();

@@ -43,16 +43,17 @@
 // A⁻¹ is read from its diagonal tile on and C⁻¹ up to its diagonal tile,
 // whose upper parts are the leaf's zeros, so no product reads a mirror but
 // the one its level wrote. Every launch after the leaves may be scheduled
-// while the one before it ends (programmatic dependent launch, pdl) and
-// waits for it in griddepcontrol.wait; that took the gaps between phases
-// from 183 to 147 µs at 4096.
+// while the one before it ends (programmatic dependent launch) and waits
+// for it in griddepcontrol.wait; that took the gaps between phases from
+// 183 to 147 µs at 4096.
 //
 // Measured (chip_smoke.py at commit f78f09b; ms of one call, NVIDIA H100
 // 80GB HBM3, 700 W): the levels as ONE cooperative launch of two blocks
 // an SM with a grid sync after each phase (the TPU kernel's one-dispatch
 // shape) 0.3972-0.4103 / 1.1748-1.1788 / 7.1880-7.2337 at 2048 / 4096 /
 // 8192, a launch a phase 0.3577-0.3585 / 1.0418-1.0909 / 5.2839-5.3026,
-// with pdl 0.3325-0.3341 / 0.9831-0.9918 / 5.3935-5.4136: the cooperative
+// with programmatic dependent launch 0.3325-0.3341 / 0.9831-0.9918 /
+// 5.3935-5.4136 (kept: ahead at the GP step's 4096): the cooperative
 // kernel held both products and the sums at 128 registers and spilled
 // (216-260 bytes), its products ran 10-30 % slower and its sums, a
 // block's work items in turn, 5x; it went. A tile a block on every level
@@ -114,7 +115,8 @@ __host__ __device__ inline int pairs(int n, int s) {
 // of W21 (sc x s, depth 8·(ti + 1)). m = s / 128, mc = sc / 128 (m but
 // for the last pair). Tiles pair by pair, in a pair row tile by row tile:
 // pair p's tiles start at p·m², its steps at p·(a full pair's steps).
-// VEC: L on the 16-byte grid (W, the wrapper's own, always is).
+// VEC: L on the 16-byte grid (W, the wrapper's own, always is; off it,
+// the first product stages both operands by 4-byte copies).
 template <bool FIRST, bool VEC>
 struct LevelPlan {
   const float* L;
@@ -194,7 +196,7 @@ struct LevelPlan {
       // Xᵀ[r][c] = Σ_k A⁻¹[k][r]·B[c][k]: A⁻¹ row-fast from W, B k-fast
       // from L, k from row 128·ti of A⁻¹
       const long long k0 = E * ti + s0 * ct::runs::STEP;
-      ct::t128::tile_xyt<false, true, true, VEC>(
+      ct::t128::tile_xyt<false, true, VEC>(
           W + (a0 + k0) * ldw + a0 + E * ti, 1, ldw, 0, E,
           L + (c0 + E * tj) * ldl + a0 + k0, ldl, 1, 0, E, K, sm, acc);
     } else {
@@ -306,14 +308,18 @@ trtri_stream_finish(float* W, long long ldw, int n,
 template <bool VEC>
 cudaError_t launch_levels(const float* L, long long ldl, float* W,
                           long long ldw, int n, float* P, int blocks,
-                          int whole_min, bool pdl,
-                          unsigned long long* trace, cudaStream_t st) {
+                          int whole_min, unsigned long long* trace,
+                          cudaStream_t st) {
   const auto x = trtri_stream_runs<true, VEC>;
   const auto w = trtri_stream_runs<false, VEC>;
   const auto xs = trtri_stream_sum<true, VEC>;
   const auto ws = trtri_stream_sum<false, VEC>;
-  cudaError_t err = ct::runs::allow_smem(x, SMEM);
-  if (err == cudaSuccess) err = ct::runs::allow_smem(w, SMEM);
+  cudaError_t err =
+      cudaFuncSetAttribute(x, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(w, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
   const dim3 sums(blocks, ct::runs::GROUPS);
   int phase = 1;
   for (int s = E; s < n && err == cudaSuccess; s *= 2) {
@@ -321,23 +327,23 @@ cudaError_t launch_levels(const float* L, long long ldl, float* W,
     if (level_tiles(n, s) >= whole_min) {
       for (const auto k : {x, w})
         if (err == cudaSuccess)
-          err = ct::runs::launch(k, np * m * m, SMEM, st, pdl, L, ldl, W,
+          err = ct::runs::launch(k, np * m * m, SMEM, st, L, ldl, W,
                                  ldw, n, s, 0, P, trace, phase++);
       continue;
     }
     for (const auto [k, ks] : {std::pair(x, xs), std::pair(w, ws)}) {
       if (err == cudaSuccess)
-        err = ct::runs::launch(k, blocks, SMEM, st, pdl, L, ldl, W, ldw, n,
+        err = ct::runs::launch(k, blocks, SMEM, st, L, ldl, W, ldw, n,
                                s, blocks, P, trace, phase++);
       if (err == cudaSuccess)
-        err = ct::runs::launch(ks, sums, 0, st, pdl, L, ldl, W, ldw, n, s,
+        err = ct::runs::launch(ks, sums, 0, st, L, ldl, W, ldw, n, s,
                                blocks, static_cast<const float*>(P), trace,
                                phase++);
     }
   }
   if (err == cudaSuccess)
-    err = ct::runs::launch(trtri_stream_finish, std::min(n, 4096), 0, st,
-                           pdl, W, ldw, n, trace, phase);
+    err = ct::runs::launch(trtri_stream_finish, std::min(n, 4096), 0, st, W,
+                           ldw, n, trace, phase);
   return err;
 }
 
@@ -345,11 +351,10 @@ cudaError_t launch_levels(const float* L, long long ldl, float* W,
 
 // A level whose products have whole_min tiles of 128 or more takes a
 // block a tile, deepest first; a smaller one `blocks` equal runs. P: two
-// 128 x 128 slots a run. pdl: the launches after the first by
-// programmatic dependent launch. W is the wrapper's own n x n buffer.
+// 128 x 128 slots a run. W is the wrapper's own n x n buffer.
 CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
                                   long long ldw, float* P, int n, int blocks,
-                                  int whole_min, int pdl, int* info,
+                                  int whole_min, int* info,
                                   unsigned long long* trace, int device,
                                   void* stream) {
   if (n < E || n > MAX_N || n % E != 0 || ldl < n || ldw < n ||
@@ -358,7 +363,9 @@ CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = ct::runs::allow_smem(trtri_stream_leaf, ct::tleaf::LEAF_SMEM);
+  err = cudaFuncSetAttribute(trtri_stream_leaf,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ct::tleaf::LEAF_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto st = static_cast<cudaStream_t>(stream);
   trtri_stream_leaf<<<n / E, NT, ct::tleaf::LEAF_SMEM, st>>>(L, ldl, W, ldw,
@@ -368,9 +375,9 @@ CT_EXPORT int ct_trtri_stream_f32(const float* L, long long ldl, float* W,
   const bool vec =
       reinterpret_cast<unsigned long long>(L) % 16 == 0 && ldl % 4 == 0;
   err = vec ? launch_levels<true>(L, ldl, W, ldw, n, P, blocks, whole_min,
-                                  pdl != 0, trace, st)
+                                  trace, st)
             : launch_levels<false>(L, ldl, W, ldw, n, P, blocks, whole_min,
-                                   pdl != 0, trace, st);
+                                   trace, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

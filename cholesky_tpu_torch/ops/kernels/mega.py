@@ -222,12 +222,6 @@ TRTRI_TRACE_SLOTS = 2
 STREAM_WHOLE_MIN_TILES = WAVE
 
 
-#: trtri_stream_f32 launches each phase after the first by programmatic
-#: dependent launch, so that it is scheduled while the one before it ends
-#: (the A/B of chip_smoke.py's phase 3)
-STREAM_PDL = True
-
-
 def trtri_stream_plan(n):
     """trtri_stream_f32's levels at n: [(s, whole)], whole when each of the
     level's two products has STREAM_WHOLE_MIN_TILES NB-tiles or more."""
@@ -275,7 +269,7 @@ def trtri_stream_f32(L, *, trace=None):
     info = torch.empty((), dtype=torch.int32, device=L.device)
     err = _build.library().ct_trtri_stream_f32(
         L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), P.data_ptr(),
-        n, WAVE, STREAM_WHOLE_MIN_TILES, int(STREAM_PDL), info.data_ptr(),
+        n, WAVE, STREAM_WHOLE_MIN_TILES, info.data_ptr(),
         trace.data_ptr() if trace is not None else None,
         *_build.device_args(L))
     _build.check_launch(err, "trtri_stream_f32")
