@@ -80,7 +80,8 @@ struct LauumPlan {
   // the steps of rows 0 .. I − 1: Σ_{a=1}^{I} a·8·(nt + 1 − a)
   __device__ long long row_start(int I) const {
     const long long a = I;
-    return DSTEPS * ((nt + 1) * a * (a + 1) / 2 - a * (a + 1) * (2 * a + 1) / 6);
+    return DSTEPS *
+           ((nt + 1) * a * (a + 1) / 2 - a * (a + 1) * (2 * a + 1) / 6);
   }
   __device__ long long total() const { return row_start(nt); }
   __device__ int steps(int t) const {
