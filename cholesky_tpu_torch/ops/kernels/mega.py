@@ -304,10 +304,13 @@ def lauum_launch_plan(n, *, blocks=None, whole=False):
     lower tiles' k-steps in that order cut in equal runs of q, one a block,
     for one WAVE of blocks (or ``blocks``). The overrides are the A/B of
     chip_smoke.py."""
-    tiles = lauum_tiles(n)
-    if whole or (blocks is None and len(tiles) >= STREAM_WHOLE_MIN_TILES):
-        return 0, len(tiles)
-    total = sum(steps for _, steps in tiles)
+    nt = n // NB
+    tiles = nt * (nt + 1) // 2
+    if whole or (blocks is None and tiles >= STREAM_WHOLE_MIN_TILES):
+        return 0, tiles
+    # row i's i + 1 tiles of (n − NB·i) / RUN_STEP steps, without listing
+    # the tiles: this runs on every call
+    total = sum((i + 1) * (n - NB * i) // RUN_STEP for i in range(nt))
     q = -(-total // (blocks or WAVE))
     return q, -(-total // q)
 
