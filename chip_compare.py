@@ -2,6 +2,7 @@
 """Time the port's leaf kernels and the GP step of one checkout on the card.
 
     python3 chip_compare.py [--tree DIR] [TAG]
+    python3 chip_compare.py [--tree DIR] --fills [TAG]
 
 Imports ``cholesky_tpu_torch`` from DIR (default: this script's checkout),
 so that two trees, for example a change and its parent unpacked with
@@ -33,6 +34,15 @@ them, so two trees' splits can differ):
   with the ``trtri_block_f32``, ``trtri_stream_f32`` and
   ``lauum_stream_f32`` launches it makes and their device time.
 
+With ``--fills`` it times only the device fills at 8192², each in a
+process of its own (``--fill NAME`` runs one), so that no earlier work
+shapes the reading: ``uniform_fill_f64`` and ``uniform_fill_f32`` (the
+tree's kernels, from the seeds ``chip_smoke.py`` gives them) and
+``torch.rand`` in f64 and f32 on a CUDA generator. Each reading gives
+the CUDA-event time of one call (FILL_REPS calls: median, min, max) and
+the device time of each launch under torch.profiler (FILL_REPS launches:
+median, 10th and 90th percentile, and the kernels' names).
+
 Prints the card's name and power limit, then one JSON line. Needs one
 CUDA card.
 """
@@ -55,6 +65,92 @@ def kernel_name(name: str) -> str:
     return name.split("(", 1)[0].rsplit("::", 1)[-1]
 
 
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+FILL_N = 8192
+FILL_REPS = 30
+FILLS = ("uniform_fill_f64", "torch.rand f64", "uniform_fill_f32",
+         "torch.rand f32")
+
+
+def quantile(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+
+def fill_alone(name: str) -> dict:
+    """One fill of FILL_N² timed in this process, after two warm-up
+    calls: CUDA events around each of FILL_REPS calls, then the device
+    time of each of FILL_REPS launches under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cholesky_tpu_torch.ops.kernels import prng
+    from cholesky_tpu_torch.rng import device as rng_device
+
+    n = FILL_N
+    dtype = torch.float64 if name.endswith("f64") else torch.float32
+    if name.startswith("torch.rand"):
+        g = torch.Generator(device="cuda").manual_seed(0)
+
+        def call():
+            return torch.rand(n, n, generator=g, device="cuda", dtype=dtype)
+    else:
+        fill = getattr(prng, name)
+        salt = rng_device.SALT_F64 if dtype == torch.float64 else 0
+        seeds = rng_device._mix_seeds(11, n // 256, salt).cuda()
+
+        def call():
+            return fill(seeds, n, n)
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(FILL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(FILL_REPS):
+            call()
+        torch.cuda.synchronize()
+    dev, names = [], set()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            dev.append((e.time_range.end - e.time_range.start) / 1e3)
+            names.add(kernel_name(e.name))
+    return {"ms": [quantile(times, 0.5), min(times), max(times)],
+            "device ms": [quantile(dev, 0.5), quantile(dev, 0.1),
+                          quantile(dev, 0.9)],
+            "launches": len(dev), "kernels": sorted(names)}
+
+
+def fills(tree: str, tag: str) -> int:
+    """Each of FILLS alone in a fresh process of this script."""
+    print(card())
+    out = {"tree": tree, "tag": tag}
+    for name in FILLS:
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--tree", tree, "--fill", name],
+                             capture_output=True, text=True)
+        if run.returncode:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return run.returncode
+        out[name] = json.loads(run.stdout.strip().splitlines()[-1])
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     tree = os.path.dirname(os.path.abspath(__file__))
@@ -65,6 +161,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device", file=sys.stderr)
         return 1
+    if args[:1] == ["--fills"]:
+        return fills(tree, args[1] if len(args) > 1 else "")
+    if args[:1] == ["--fill"]:
+        print(json.dumps(fill_alone(args[1])))
+        return 0
     import cholesky_tpu_torch  # noqa: F401  (TF32 off)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -76,9 +177,7 @@ def main() -> int:
                                                 trtri_stream_f32)
     from cholesky_tpu_torch.utils.benchlib import bench_op
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+    print(card())
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def dense_spd(n):
