@@ -30,6 +30,13 @@ them, so two trees' splits can differ):
   the tree's ``trtri_stream_f32`` takes ``trace=``, one traced launch's
   phases (µs from block 0's entry to the last block's end, and to the
   next phase's entry);
+- ``lauu2_f32`` at n = 128, 368, 512, 1000 and 2048: ms of one call, the
+  host's ms to enqueue it, its kernels' device time by name, beside
+  ``torch.matmul(Lᵀ, L)``, at 2048 in turns with ``lauum_stream_f32`` on
+  the same L; and ``lauum(block_size=512)`` at 2048,
+  ``lauum(block_size=2048)`` at 4096, ``potri`` at 512 and 6000, each
+  with its ``lauu2_f32`` launches and the device time of the lauum
+  kernels by name;
 - one GP train step at n = 8192, d = 8 (as in ``chip_smoke.py`` phase 5)
   with the ``trtri_block_f32``, ``trtri_stream_f32`` and
   ``lauum_stream_f32`` launches it makes and their device time.
@@ -330,6 +337,55 @@ def main() -> int:
         out[f"matmul LtL {n}"] = bench_op(lambda x: torch.matmul(x.T, x), L,
                                           reps=reps) * 1e3
         del L, eye
+
+    # lauu2_f32: call, host enqueue and device ms by kernel name (the PR
+    # 10 tree's 64 x 64 kernel or the 128-tile launches), beside
+    # torch.matmul(Lᵀ, L) and, at 2048, lauum_stream_f32 on the same L
+    from cholesky_tpu_torch.ops.kernels import lauu2_f32
+
+    def host_ms(fn, reps=20):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return sorted(times)[reps // 2]
+
+    for n in (128, 368, 512, 1000, 2048):
+        L = torch.tril(torch.linalg.cholesky(dense_spd(n)))
+        out[f"lauu2_f32 {n}"] = bench_op(lambda x: lauu2_f32(x), L,
+                                         reps=20) * 1e3
+        out[f"lauu2_f32 {n} host"] = host_ms(lambda: lauu2_f32(L))
+        out[f"lauu2_f32 {n} device"] = per_call(device_by_kernel(
+            lambda: [lauu2_f32(L) for _ in range(10)], "lau"), 10)
+        out[f"matmul LtL {n}"] = bench_op(lambda x: torch.matmul(x.T, x), L,
+                                          reps=20) * 1e3
+        if n == 2048:
+            t = [bench_op(fn, L, reps=20) * 1e3 for fn in (
+                lauu2_f32, lauum_stream_f32, lauum_stream_f32, lauu2_f32)]
+            out[f"lauu2_f32 {n} in turns"] = [t[0], t[3]]
+            out[f"lauum_stream_f32 {n} same L"] = [t[1], t[2]]
+        del L
+    # the paths that reach lauu2_f32 (or, potri at 6000, do not): call ms,
+    # its launches and the device time of every lauum kernel by name
+    for what, n, bs in (("lauum", 2048, 512), ("lauum", 4096, 2048),
+                        ("potri", 512, None), ("potri", 6000, None)):
+        L = torch.tril(torch.linalg.cholesky(dense_spd(n)))
+        call = getattr(cholesky_tpu_torch, what)
+
+        def path():
+            return call("L", L, block_size=bs)
+        path()
+        before = lauu2_f32.launches
+        split = device_by_kernel(path, "lau")
+        out[f"{what} {n} block_size={bs} lauu2"] = {
+            "launches": lauu2_f32.launches - before,
+            "ms": bench_op(lambda _: path(), L, reps=10) * 1e3,
+            "lau device ms": split.pop("busy")[0], "kernels": split}
+        del L
 
     # the GP train step of chip_smoke.py phase 5
     n, d = 8192, 8

@@ -48,8 +48,17 @@ cooperative launch over many) and of ``potrf_stream_f32`` at the
 multiples of 128 that sets its crossover, of ``potf2_f32``'s strip
 width at 16384 and of ``syrk_lower_f32``'s cuts of the depth at 512,
 1024 and 2048, of ``lauum_stream_f32``'s equal runs against a tile a
-block at 1024-8192 and of the tile count from which ``trtri_stream_f32``'s levels
-take a block a tile, at 2048, 4096 and 8192; times ``trti2_f32`` beside
+block at 1024-8192, of ``lauu2_f32``'s plans (its rule, runs for one
+wave or one block an SM, a tile a block) at 128-2048, and of the tile
+count from which ``trtri_stream_f32``'s levels take a block a tile, at
+2048, 4096 and 8192; holds ``lauu2_f32`` on dense factors at n = 1-2048
+(contiguous and views on and off the 16-byte grid, a NaN strict upper
+of many payloads passed through bit for bit, repeats bit for bit, one
+launch counted a call) and times it (call, host enqueue and device
+time) beside ``torch.matmul(Lᵀ, L)`` and, at 2048, ``lauum_stream_f32``;
+drives ``lauum(block_size=2048)`` at 4096 (two ``lauu2_f32`` launches)
+and ``potri`` at 6000 (no ``lauu2_f32`` launch: its padded working copy
+goes to the whole-matrix kernels); times ``trti2_f32`` beside
 ``trtri_stream_f32`` at 1152-8192 and the public ``trtri`` at 8192
 beside one ``trtri_stream_f32`` launch; and prints the traces of
 ``potrf_stream_f32``'s panel loop at n = 1024, 4096 and 8192 (per phase
@@ -1160,32 +1169,188 @@ def check_lauum_stream(gen, rec, on):
                 library_ms=lib_ms, **rl)
 
 
+#: lauu2_f32's sizes: one row, ragged single tiles, a tile and the ragged
+#: sizes around it, the recursion's leaves (368, 512) and a ragged and a
+#: whole multi-tile block
+LAUU2_SIZES = (1, 7, 127, 128, 129, 368, 512, 1000, 2048)
+#: the plans of lauu2_f32's A/B: the rule (leaf.lauu2_launch_plan), runs
+#: for one wave and for one block an SM, and a tile a block (no sum
+#: launch)
+LAUU2_PLANS = ({}, dict(blocks=ksyrk.WAVE), dict(blocks=ksyrk.WAVE // 2),
+               dict(whole=True))
+
+
+def lauu2_plan_on(**plan):
+    """lauu2_f32's plan forced to mega.lauum_launch_plan with these
+    overrides (none: the rule), through leaf.lauu2_launch_plan, its only
+    selector, for a while. Returns the plan to put back."""
+    keep = leaf.lauu2_launch_plan
+    if plan:
+        leaf.lauu2_launch_plan = functools.partial(mega.lauum_launch_plan,
+                                                   **plan)
+    return keep
+
+
+def nan_upper(n, seed):
+    """An n x n int32 pattern of NaNs of many payloads, both signs, quiet
+    and signalling, as f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bits = torch.randint(1, 1 << 22, (n, n), device="cuda", generator=g,
+                         dtype=torch.int32)
+    bits = bits | (0x7F800000 | (bits & 1) << 22)   # exponent all ones
+    sign = torch.randint(0, 2, (n, n), device="cuda", generator=g,
+                         dtype=torch.int32).bool()
+    return torch.where(sign, bits | (-(1 << 31)), bits).view(torch.float32)
+
+
+def lauu2_leaf(L, layout):
+    """L (lower) with a NaN strict upper of many payloads, laid out as the
+    leaf a caller passes: a contiguous block, or a view of a wider buffer
+    on the 16-byte grid (row stride a multiple of 4) or off it (5 floats
+    in, an odd row stride), NaN around the view."""
+    n = L.shape[0]
+    up = torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1)
+    if layout == "contiguous":
+        X = torch.empty_like(L)
+    else:
+        off, width = (4, -(-(n + 8) // 4) * 4) if layout == "on grid" \
+            else (5, (n + 8) | 1)
+        X = torch.full((n, width), math.nan, device="cuda")[:, off:off + n]
+    X.copy_(torch.where(up, nan_upper(n, n), L))
+    return X
+
+
+def lauu2_device_ms(X, calls=20):
+    """Device ms of one lauu2_f32 call: the union of its kernels' intervals
+    under torch.profiler over ``calls`` calls, over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lauu2_f32(X)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            lauu2_f32(X)
+        torch.cuda.synchronize()
+    return busy_ms([(e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and "lau" in e.name]) / calls
+
+
+def host_ms(fn, X, reps=20):
+    """Median host ms to enqueue one fn(X), the card idle before each."""
+    fn(X)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(X)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2]
+
+
 def check_lauu2(gen, rec, on):
-    for n in (128, 512, 2048):
-        # a leaf of the working buffer: a view with a longer row
-        buf = torch.randn(n, 2 * n, device="cuda", generator=gen)
-        A = buf[:, n // 2:n // 2 + n]
-        B = lauu2_f32(A)
-        want = lauu2_plain(A)
-        err = max_err(torch.tril(B), torch.tril(want))
-        b = bound(2 * n + 3, float(want.abs().max()))
-        require(err <= b, f"lauu2_f32 n={n}: err {err} > {b}")
+    """The leaf lauum (lauum_stream_f32's kernel at any n) on dense
+    factors against f64, gated on the f32 matmul's error, at each of
+    LAUU2_SIZES under each of LAUU2_PLANS, for a contiguous leaf and views
+    on and off the 16-byte grid, each with a NaN strict upper of many
+    payloads that must come back bit for bit (as int32), each call
+    repeated bit for bit and counted once; the A/B of the plans in turns
+    (call and device ms); host, call and device ms beside torch.matmul(Lᵀ,
+    L); at 2048 lauum_stream_f32 on the same L; then the lauum and potri
+    paths that reach it."""
+    Ls = {}
+    for n in LAUU2_SIZES:
+        F, info = ct.potrf("L", dense_spd(gen, n))
+        require(int(info) == 0, f"lauu2 input factor n={n}")
+        L = Ls[n] = torch.tril(F)
+        ref = torch.tril(L.double().T @ L.double())
+        yard = max_err(torch.tril(lauu2_plain(L)), ref)
+        # one element has no strict lower: its RMS is the element's
+        rms = strict_rms(ref) if n > 1 else float(ref.abs().max())
         up = torch.ones(n, n, dtype=torch.bool, device="cuda").triu(1)
-        require(torch.equal(B[up], A[up]),
-                f"lauu2_f32 n={n}: strict upper not passed through")
-        ms = bench_op(lambda x: lauu2_f32(x), A) * 1e3
-        plain_ms = bench_op(lambda x: lauu2_plain(x), A) * 1e3
-        print(f"lauu2_f32 n={n}: max err {err:.3e} (bound {b:.3e}), strict "
-              f"upper passed through bit for bit; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms on {on}")
+        for layout in ("contiguous", "on grid", "off grid"):
+            X = lauu2_leaf(L, layout)
+            for plan in LAUU2_PLANS:
+                keep = lauu2_plan_on(**plan)
+                try:
+                    took = leaf.lauu2_launch_plan(n)
+                    before = lauu2_f32.launches
+                    B = lauu2_f32(X)
+                    again = lauu2_f32(X)
+                    counted = lauu2_f32.launches - before
+                finally:
+                    leaf.lauu2_launch_plan = keep
+                what = f"lauu2_f32 n={n} {layout} plan (q, blocks) {took}"
+                require(B.is_contiguous() and B.shape == (n, n),
+                        f"{what}: not a contiguous n x n result")
+                require(counted == 2, f"{what}: {counted} launches counted "
+                        "for two calls")
+                require(torch.equal(B.view(torch.int32)[up],
+                                    X.view(torch.int32)[up]),
+                        f"{what}: strict upper not passed through bit for "
+                        "bit")
+                require(torch.equal(B.view(torch.int32),
+                                    again.view(torch.int32)),
+                        f"{what}: a second call differs")
+                err, lim, _ = gated(what, torch.tril(B), ref, yard, rms=rms)
+                if n == 2048 and layout == "contiguous" and not plan:
+                    err_2048 = err
+            print(f"lauu2_f32 n={n} {layout} (dense factor, NaN strict upper "
+                  f"of many payloads), plans {len(LAUU2_PLANS)}: max err vs "
+                  f"f64 {err:.3e}, matmul's {yard:.3e} (limit {lim:.3e}, "
+                  f"1/{rms / lim:.0f} of the reference's RMS {rms:.3e}); "
+                  "strict upper bit for bit, a second call equal bit for "
+                  "bit, one launch counted a call")
+            del X, B, again
+        del ref
+    # the A/B of the plans, in turns: call and device ms
+    ab = LAUU2_PLANS
+    for n in (768, 1536):
+        Ls[n] = torch.tril(ct.potrf("L", dense_spd(gen, n))[0])
+    for n in (128, 368, 512, 768, 1000, 1536, 2048):
+        t, dev = {}, {}
+        for plan in ab + ab[::-1]:
+            keep = lauu2_plan_on(**plan)
+            try:
+                name = plan_name(plan) or "rule"
+                t.setdefault(name, []).append(
+                    bench_op(lambda x: lauu2_f32(x), Ls[n], reps=20) * 1e3)
+                dev.setdefault(name, []).append(lauu2_device_ms(Ls[n]))
+            finally:
+                leaf.lauu2_launch_plan = keep
+        print(f"lauu2_f32 A/B n={n}: call / device ms "
+              + ", ".join(f"{p} {v[0]:.4f}/{v[1]:.4f} / "
+                          f"{dev[p][0]:.4f}/{dev[p][1]:.4f}"
+                          for p, v in t.items())
+              + f"; the rule takes (q, blocks) {leaf.lauu2_launch_plan(n)} "
+              f"on {on}")
+    for n in (128, 368, 512, 1000, 2048):
+        L = Ls[n]
+        ms = bench_op(lambda x: lauu2_f32(x), L, reps=20) * 1e3
+        dev_ms = lauu2_device_ms(L)
+        enq = host_ms(lauu2_f32, L)
+        plain_ms = bench_op(lambda x: lauu2_plain(x), L, reps=20) * 1e3
+        lib_ms = bench_op(lambda x: torch.matmul(x.T, x), L, reps=20) * 1e3
+        # the strict upper passes through: the whole block in and out
+        rl = roofline(n ** 3 / 3, "f32", 2 * n * n * 4)
+        stream = ""
         if n == 2048:
-            lib_ms = bench_op(lambda x: torch.matmul(x.T, x), torch.tril(A)) \
-                * 1e3
-            print(f"  torch.matmul(Lᵀ, L) n={n}: {lib_ms:.4f} ms")
-            # the strict upper passes through: the whole block in and out
+            st = [bench_op(fn, L, reps=20) * 1e3 for fn in (
+                lauu2_f32, lauum_stream_f32, lauum_stream_f32, lauu2_f32)]
+            stream = (f"; in turns with lauum_stream_f32 on the same L: "
+                      f"lauu2_f32 {st[0]:.4f}/{st[3]:.4f}, lauum_stream_f32 "
+                      f"{st[1]:.4f}/{st[2]:.4f} ms")
+        print(f"lauu2_f32 n={n}: kernel {ms:.4f} ms (device {dev_ms:.4f}, "
+              f"host enqueue {enq:.4f}), plain {plain_ms:.4f} ms, "
+              f"torch.matmul(Lᵀ, L) {lib_ms:.4f} ms, bound "
+              f"{rl['bound_ms']:.4f} ms ({rl['bound_by']}){stream} on {on}")
+        if n == 2048:
             rec["lauu2_f32"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                **roofline(n ** 3 / 3, "f32", 2 * n * n * 4))
+                max_abs_err=err_2048, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, **rl)
     # lauum with 2048 leaves at 4096: two lauu2_f32 launches, above the
     # 1024 the kernel took before
     F, info = ct.potrf("L", spd(gen, 4096))
@@ -1198,6 +1363,21 @@ def check_lauu2(gen, rec, on):
     require(e4 <= b4, f"lauum block_size=2048 n=4096: err {e4} > {b4}")
     print(f"lauum n=4096 block_size=2048 (two lauu2_f32 leaves): max err "
           f"{e4:.3e} against the twin (bound {b4:.3e})")
+    # potri at 6000: the working copy is padded to 6144, a multiple of
+    # 128, which the whole-matrix kernels take (two trtri_stream_f32 at
+    # 3072 under trtri_f32's mega_max_n, one lauum_stream_f32): no leaf
+    F6 = torch.tril(ct.potrf("L", dense_spd(gen, 6000, 30.0))[0])
+    (inv6, info6), _ = run_path("potri n=6000", lambda: ct.potri("L", F6),
+                                {"lauu2_f32": 0})
+    require(int(info6) == 0, "potri n=6000 info")
+    low = torch.ones(6000, 6000, dtype=torch.bool, device="cuda").tril_()
+    inv64 = torch.cholesky_inverse(F6.double())
+    d = torch.where(low, inv6.double() - inv64, 0.0)
+    r6 = float(d.norm() / torch.where(low, inv64, 0.0).norm())
+    require(r6 <= 1e-4, f"potri n=6000: relative error {r6} > 1e-4")
+    print(f"potri n=6000: relative Frobenius error {r6:.3e} vs f64 "
+          "cholesky_inverse (limit 1e-4)")
+    del F6, inv6, inv64, d, low
 
 
 def check_potf2(gen, rec, on):
@@ -2700,6 +2880,7 @@ PATHS = {
     "spotf2": ("potf2_f32",),
     "strtri block_size=8192": ("trti2_f32",),
     "lauum block_size=2048": ("lauu2_f32",),
+    "potri n=6000": ("trtri_stream_f32", "gemm_f32", "lauum_stream_f32"),
     "z": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
           "trtri_block_f32"),
     "ztrsm": ("uniform_fill_f64", "peel_f32pair", "mm_groups_f32pair",

@@ -122,7 +122,7 @@ def library() -> ctypes.CDLL:
             "ct_trtri_block_f32": [P, LL, P, LL, P, I, P, I, P],
             "ct_trtri_stream_f32": [P, LL, P, LL, P, I, I, I, P, P, I, P],
             "ct_lauum_stream_f32": [P, LL, P, LL, I, LL, I, P, P, I, P],
-            "ct_lauu2_f32": [P, LL, P, LL, I, I, P],
+            "ct_lauu2_f32": [P, LL, P, LL, I, LL, I, P, I, P],
             "ct_potf2_f32": [P, LL, P, P, I, I, I, P, I, P],
             "ct_trti2_f32": [P, LL, P, LL, I, I, I, P, I, P],
             "ct_trmm_lln_f32": [P, LL, LL, P, LL, LL, P, LL, I, I, F, I, I,
@@ -164,5 +164,8 @@ def writable_2d(t) -> bool:
 
 def device_args(t) -> tuple[int, int]:
     """(device index, current stream) of CUDA tensor ``t``: the last two
-    arguments of every C entry point."""
-    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+    arguments of every C entry point. The stream's handle comes straight
+    from torch's C layer, as its compiled kernels fetch it: a
+    torch.cuda.Stream object costs microseconds of host time a launch."""
+    index = t.get_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)

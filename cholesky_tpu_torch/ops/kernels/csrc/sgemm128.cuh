@@ -103,12 +103,15 @@ __device__ __forceinline__ void cp_wait() {
 
 // Issue the copies of rows [r0, r0 + BM) x k [k0, k0 + BK) of X into one
 // stage S. Each thread copies two 16-byte chunks (four elements each);
-// consecutive threads walk the unit-stride axis.
-template <bool KF, bool VEC>
+// consecutive threads walk the unit-stride axis. TRI (row-fast only): of
+// k's elements only rows r <= k + tri are live, the rest zero-filled
+// like a ragged edge: a lower triangle staged without reading above it.
+template <bool KF, bool VEC, bool TRI = false>
 __device__ __forceinline__ void stage_load(const float* __restrict__ X,
                                            long long s_r, long long s_k,
                                            int r0, int rows, int k0, int K,
-                                           float* S) {
+                                           float* S, int tri = 0) {
+  static_assert(!(TRI && KF), "a triangle is staged row-fast");
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int c = threadIdx.x + h * NT;
@@ -118,9 +121,10 @@ __device__ __forceinline__ void stage_load(const float* __restrict__ X,
     const int k = KF ? 4 * (c % (BK / 4)) : c / (BM / 4);
     const int gr = r0 + r, gk = k0 + k;
     float* const dst = KF ? S + r * LDK + k : S + k * BM + r;
-    // elements of the chunk inside rows x K
+    // elements of the chunk inside rows x K (and the triangle)
+    const int lim = TRI ? min(rows, gk + tri + 1) : rows;
     const int live = KF ? (gr < rows ? min(4, max(0, K - gk)) : 0)
-                        : (gk < K ? min(4, max(0, rows - gr)) : 0);
+                        : (gk < K ? min(4, max(0, lim - gr)) : 0);
     const float* const src = live ? X + gr * s_r + gk * s_k : X;
     if (VEC) {
       cp_async16(dst, src, 4 * live);
@@ -200,15 +204,17 @@ __device__ __forceinline__ void stage_mma(const float* Xs, const float* Ys,
 // acc[i][j] += Σ_k X[r0 + row_of(i), k]·Y[c0 + col_of(j), k] over k in
 // [0, K), rows and cols bounding X's and Y's rows. smem holds
 // smem_floats<XKF, YKF>() floats, 16-byte aligned. Ends with a barrier,
-// so the caller may reuse smem.
-template <bool XKF, bool YKF, bool VEC>
+// so the caller may reuse smem. TRI: X's row r and Y's row c enter at k
+// only for r <= k + trix and c <= k + triy (stage_load).
+template <bool XKF, bool YKF, bool VEC, bool TRI = false>
 __device__ __forceinline__ void tile_xyt(const float* __restrict__ X,
                                          long long sx_r, long long sx_k,
                                          int r0, int rows,
                                          const float* __restrict__ Y,
                                          long long sy_r, long long sy_k,
                                          int c0, int cols, int K, float* smem,
-                                         float (&acc)[8][8]) {
+                                         float (&acc)[8][8], int trix = 0,
+                                         int triy = 0) {
   constexpr int XF = stage_floats<XKF>(), YF = stage_floats<YKF>();
   float* const Xs = smem;
   float* const Ys = smem + STAGES * XF;
@@ -218,8 +224,10 @@ __device__ __forceinline__ void tile_xyt(const float* __restrict__ X,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) {
-      stage_load<XKF, VEC>(X, sx_r, sx_k, r0, rows, s * BK, K, Xs + s * XF);
-      stage_load<YKF, VEC>(Y, sy_r, sy_k, c0, cols, s * BK, K, Ys + s * YF);
+      stage_load<XKF, VEC, TRI>(X, sx_r, sx_k, r0, rows, s * BK, K,
+                                Xs + s * XF, trix);
+      stage_load<YKF, VEC, TRI>(Y, sy_r, sy_k, c0, cols, s * BK, K,
+                                Ys + s * YF, triy);
     }
     cp_commit();
   }
@@ -230,10 +238,10 @@ __device__ __forceinline__ void tile_xyt(const float* __restrict__ X,
     const int next = kt + STAGES - 1;
     if (next < nk) {
       const int ns = (slot + STAGES - 1) % STAGES;
-      stage_load<XKF, VEC>(X, sx_r, sx_k, r0, rows, next * BK, K,
-                           Xs + ns * XF);
-      stage_load<YKF, VEC>(Y, sy_r, sy_k, c0, cols, next * BK, K,
-                           Ys + ns * YF);
+      stage_load<XKF, VEC, TRI>(X, sx_r, sx_k, r0, rows, next * BK, K,
+                                Xs + ns * XF, trix);
+      stage_load<YKF, VEC, TRI>(Y, sy_r, sy_k, c0, cols, next * BK, K,
+                                Ys + ns * YF, triy);
     }
     cp_commit();
     if (XKF || YKF) {              // the k-major copies, read after kt - 1

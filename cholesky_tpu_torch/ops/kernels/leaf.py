@@ -6,8 +6,8 @@
   with no upper cap. They take the blocks the whole-matrix kernels refuse
   (ops/blocked.py ``_KernelTiles``) and the public potf2 above them;
 - lauu2_f32 (csrc/lauum.cu) replaces ``leaf.py:lauu2_f32``, the leaf of the
-  lauum recursion. The strict upper of the result is the input's, bit for
-  bit, as in LAPACK's xlauu2.
+  lauum recursion: lauum_stream_f32's kernel and plan at any n. The strict
+  upper of the result is the input's, bit for bit, as in LAPACK's xlauu2.
 
 A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
 raises.
@@ -18,10 +18,11 @@ from __future__ import annotations
 import torch
 
 from cholesky_tpu_torch.ops import lapack_ref
-from cholesky_tpu_torch.ops.kernels import _build
+from cholesky_tpu_torch.ops.kernels import _build, mega
 from cholesky_tpu_torch.ops.kernels.gemm import GEMM128_MIN_TILES
 from cholesky_tpu_torch.ops.kernels.mega import (NB, _check_block,
                                                  trtri_block_plain)
+from cholesky_tpu_torch.ops.kernels.syrk import WAVE
 from cholesky_tpu_torch.utils.errors import check
 
 
@@ -154,17 +155,36 @@ def lauu2_plain(A):
     return torch.where(lower, T.T @ T, A)
 
 
+def lauu2_launch_plan(n):
+    """(q, blocks) of lauu2_f32 at n: lauum_stream_f32's plan
+    (mega.lauum_launch_plan), but below WAVE // 2 lower tiles the runs are
+    cut for one block an SM, not two: a leaf's few tiles cut for a whole
+    wave split each into twice the parts, and the sums of the parts cost
+    more than the second block an SM gains (chip_smoke.py's A/B:
+    PERF.md)."""
+    nt = -(-n // NB)
+    return mega.lauum_launch_plan(
+        n, blocks=WAVE // 2 if nt * (nt + 1) // 2 < WAVE // 2 else None)
+
+
 def lauu2_f32(A):
     """Lower triangle of tril(A)ᵀ·tril(A) for the f32 block A (any n,
-    unit-stride rows), strict upper passed through from A. Returns a new
-    contiguous tensor; A is not modified."""
+    unit-stride rows), strict upper passed through from A bit for bit.
+    Returns a new contiguous tensor; A is not modified. The launch is
+    lauum_stream_f32's tile and plan at any n (:func:`lauu2_launch_plan`);
+    when its runs split tiles it also takes two NB x NB tiles of scratch a
+    block on the card, freed on return."""
     n = _check_block(A, "lauu2_f32", LEAF_MAX_N)
     if A.device.type == "cpu":
         return lauu2_plain(A)
+    q, blocks = lauu2_launch_plan(n)
     B = torch.empty((n, n), dtype=A.dtype, device=A.device)
+    # where runs split tiles, two partial tiles a block
+    P = (torch.empty((2 * blocks * NB * NB,), dtype=A.dtype,
+                     device=A.device) if q and blocks > 1 else None)
     err = _build.library().ct_lauu2_f32(
-        A.data_ptr(), A.stride(0), B.data_ptr(), B.stride(0), n,
-        *_build.device_args(A))
+        A.data_ptr(), A.stride(0), B.data_ptr(), n, n, q, blocks,
+        P.data_ptr() if P is not None else None, *_build.device_args(A))
     _build.check_launch(err, "lauu2_f32")
     lauu2_f32.launches += 1
     return B

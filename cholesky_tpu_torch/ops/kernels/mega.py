@@ -36,6 +36,12 @@ POTRF_STREAM_MIN_N = 512
 
 
 def _check_block(A, name, max_n=MAX_N, multiple=1):
+    # the common case first, with no message built: this runs on every call
+    if (A.ndim == 2 and A.dtype == torch.float32 and A.stride(1) == 1
+            and 1 <= (n := A.shape[0]) <= max_n and A.shape[1] == n
+            and n % multiple == 0 and A.stride(0) >= n
+            and A.device.type in ("cpu", "cuda")):
+        return n
     check(A.ndim == 2 and A.shape[0] == A.shape[1], name, 1,
           f"expected a square block, got {tuple(A.shape)}")
     n = A.shape[0]
@@ -289,28 +295,34 @@ RUN_STEP = 16
 
 
 def lauum_tiles(n):
-    """lauum_stream_f32's lower NB-tiles at n in the kernel's order, row by
-    row over the triangle, each with its k-steps: ((I, J), steps), tile
-    (I, J) summing over L's rows [NB·I, n)."""
-    nt = n // NB
-    return [((i, j), (n - NB * i) // RUN_STEP)
+    """The lower NB-tiles of lauum_stream_f32 (and of lauu2_f32, at any n:
+    the last row and column block partial) at n in the kernel's order, row
+    by row over the triangle, each with its k-steps: ((I, J), steps), tile
+    (I, J) summing over L's rows [NB·I, n) in steps of RUN_STEP, the last
+    one short where n − NB·I is not a multiple of RUN_STEP."""
+    nt = -(-n // NB)
+    return [((i, j), -(-(n - NB * i) // RUN_STEP))
             for i in range(nt) for j in range(i + 1)]
 
 
 def lauum_launch_plan(n, *, blocks=None, whole=False):
-    """(q, blocks) of lauum_stream_f32 at n: from STREAM_WHOLE_MIN_TILES
+    """(q, blocks) of lauum_stream_f32 at n, and of lauu2_f32 at any n:
+    from STREAM_WHOLE_MIN_TILES
     tiles (or with ``whole``) q = 0, a block a tile in :func:`lauum_tiles`'
     order, which is the deepest first; below it (or given ``blocks``) the
     lower tiles' k-steps in that order cut in equal runs of q, one a block,
     for one WAVE of blocks (or ``blocks``). The overrides are the A/B of
     chip_smoke.py."""
-    nt = n // NB
+    nt = -(-n // NB)
     tiles = nt * (nt + 1) // 2
     if whole or (blocks is None and tiles >= STREAM_WHOLE_MIN_TILES):
         return 0, tiles
-    # row i's i + 1 tiles of (n − NB·i) / RUN_STEP steps, without listing
-    # the tiles: this runs on every call
-    total = sum((i + 1) * (n - NB * i) // RUN_STEP for i in range(nt))
+    # row i's i + 1 tiles of 8·(nt − i) − f steps (f the steps a partial
+    # last row block lacks), in closed form, without listing the tiles:
+    # this runs on every call
+    f = (NB * nt - n) // RUN_STEP
+    total = (NB // RUN_STEP) * nt * (nt + 1) * (nt + 2) // 6 \
+        - f * nt * (nt + 1) // 2
     q = -(-total // (blocks or WAVE))
     return q, -(-total // q)
 

@@ -518,15 +518,39 @@ def test_lauum_stream_on_a_view(cuda, n, off, extra):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [100, 512, 2048])
-def test_lauu2_vs_twin(cuda, n):
-    W = rand((n, n + 40), 6).to(cuda)
-    A = W[:, 20:20 + n]                  # a leaf of a wider buffer
-    B = kernels.lauu2_f32(A)
-    want = leaf.lauu2_plain(A)
-    assert_close(torch.tril(B), torch.tril(want), 2 * n + 3, f"lauu2 n={n}")
+@pytest.mark.parametrize("n", [1, 7, 100, 129, 368, 512, 1000, 2048])
+@pytest.mark.parametrize("layout", ["contiguous", "on_grid", "off_grid"])
+@pytest.mark.parametrize("plan", [{}, {"whole": True}],
+                         ids=["rule", "whole"])
+def test_lauu2_vs_twin(cuda, monkeypatch, n, layout, plan):
+    # a dense factor under a NaN strict upper of many payloads, as a
+    # contiguous leaf or a leaf of a wider buffer on or off the 16-byte
+    # grid with NaN around it; the upper comes back bit for bit
+    if plan:
+        monkeypatch.setattr(leaf, "lauu2_launch_plan", functools.partial(
+            mega.lauum_launch_plan, **plan))
+    L = torch.tril(dense_factor(n, 5))
+    g = torch.Generator(device="cuda").manual_seed(n)
+    bits = torch.randint(1, 1 << 22, (n, n), device=cuda, generator=g,
+                         dtype=torch.int32) | 0x7F800000
+    bits[::2] |= -(1 << 31)
     up = torch.ones(n, n, dtype=torch.bool, device=cuda).triu(1)
-    assert torch.equal(B[up], A[up])
+    if layout == "contiguous":
+        A = torch.empty_like(L)
+    else:
+        off, width = (4, -(-(n + 8) // 4) * 4) if layout == "on_grid" \
+            else (5, (n + 8) | 1)
+        A = torch.full((n, width), float("nan"), device=cuda)[:, off:off + n]
+    A.copy_(torch.where(up, bits.view(torch.float32), L))
+    before = kernels.launch_counts()["lauu2_f32"]
+    B = kernels.lauu2_f32(A)
+    assert kernels.launch_counts()["lauu2_f32"] == before + 1
+    assert B.is_contiguous() and B.shape == (n, n)
+    gate(torch.tril(B), torch.tril(L.double().T @ L.double()),
+         torch.tril(leaf.lauu2_plain(L)), f"lauu2 n={n} {layout}")
+    assert torch.equal(B.view(torch.int32)[up], A.view(torch.int32)[up])
+    assert torch.equal(B.view(torch.int32),
+                       kernels.lauu2_f32(A).view(torch.int32))
 
 
 @pytest.mark.cuda

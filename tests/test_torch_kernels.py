@@ -25,6 +25,8 @@ from cholesky_tpu_torch.ops.kernels import (gemm_f32, potrf_block_f32,
                                             trtri_block_f32)
 from cholesky_tpu_torch.ops import lapack_ref
 from cholesky_tpu_torch.ops.kernels import gemm as kgemm
+from cholesky_tpu_torch.ops.kernels import leaf
+from cholesky_tpu_torch.ops.kernels.leaf import lauu2_plain
 from cholesky_tpu_torch.ops.kernels import mega
 from cholesky_tpu_torch.ops.kernels import syrk as ksyrk
 from tests.util import assert_close
@@ -271,6 +273,86 @@ def test_lauum_runs(n, blocks):
         if i < nt:
             prefix += (i + 1) * 8 * (nt - i)
     assert prefix == total
+
+
+@pytest.mark.parametrize("n,cut,want", [
+    # lauu2_f32 at any n: ⌈(n − 128·i) / 16⌉ steps a tile of row i
+    (1, {}, (1, 1)),
+    (100, {}, (1, 7)),
+    (129, {}, (1, 11)),
+    (368, {}, (1, 74)),
+    (512, {}, (1, 160)),
+    (1000, {}, (4, 231)),
+    (368, {"whole": True}, (0, 6)),
+])
+def test_lauum_launch_plan_ragged(n, cut, want):
+    assert mega.lauum_launch_plan(n, **cut) == want
+
+
+@pytest.mark.parametrize("n,want", [
+    # below WAVE // 2 lower tiles, runs for one block an SM ...
+    (1, (1, 1)), (128, (1, 8)), (368, (1, 74)), (512, (2, 80)),
+    (1000, (7, 132)), (1536, (23, 127)),
+    # ... from there lauum_stream_f32's rule (136 tiles at 2048)
+    (2048, (25, 262)), (4096, (0, 528)),
+])
+def test_lauu2_launch_plan(n, want):
+    assert leaf.lauu2_launch_plan(n) == want
+
+
+@pytest.mark.parametrize("n,blocks", [(1, None), (100, None), (129, None),
+                                      (368, None), (1000, None),
+                                      (1000, 33), (368, 5)])
+def test_lauu2_runs(n, blocks):
+    """lauu2_f32's plan at any n (its rule, or runs for ``blocks``): every
+    (lower tile, k-step) in exactly one run, a split tile's parts in k
+    order over consecutive runs, the runs equal (the last one short) and
+    within one wave, the kernel's
+    closed-form row prefix (LauumPlan::row_start, f steps short) equal to
+    the running sum; and the runs' partial products, each clipped at row
+    n, summed tile by tile in plan order (as the sum launch does) equal to
+    lauu2_plain's lower triangle."""
+    q, nb = (mega.lauum_launch_plan(n, blocks=blocks) if blocks
+             else leaf.lauu2_launch_plan(n))
+    assert nb <= (blocks or ksyrk.WAVE)
+    runs = mega.lauum_runs(n, q)
+    tiles = mega.lauum_tiles(n)
+    total = sum(steps for _, steps in tiles)
+    assert len(runs) == nb == -(-total // q)
+    seen = {}
+    for b, run in enumerate(runs):
+        assert sum(s1 - s0 for _, s0, s1 in run) == (
+            q if b < len(runs) - 1 else total - q * (len(runs) - 1))
+        for tile, s0, s1 in run:
+            seen.setdefault(tile, []).append((b, s0, s1))
+    assert list(seen) == [tile for tile, _ in tiles]
+    for (i, j), steps in tiles:
+        assert j <= i and steps == -(-(n - 128 * i) // 16)
+        parts = seen[(i, j)]
+        assert [b for b, _, _ in parts] == list(
+            range(parts[0][0], parts[0][0] + len(parts)))
+        assert parts[0][1] == 0 and parts[-1][2] == steps
+        assert all(a[2] == b[1] for a, b in zip(parts, parts[1:]))
+    nt, prefix = -(-n // 128), 0
+    f = (128 * nt - n) // 16
+    for i in range(nt + 1):
+        closed = 8 * ((nt + 1) * i * (i + 1) // 2
+                      - i * (i + 1) * (2 * i + 1) // 6) - f * i * (i + 1) // 2
+        assert closed == prefix
+        if i < nt:
+            prefix += (i + 1) * (8 * (nt - i) - f)
+    assert prefix == total
+    A = torch.from_numpy(rand((n, n), n))
+    T = torch.tril(A)
+    B = torch.zeros(n, n)
+    for run in runs:
+        for (i, j), s0, s1 in run:
+            k0, k1 = 128 * i + 16 * s0, min(n, 128 * i + 16 * s1)
+            r = slice(128 * i, min(n, 128 * i + 128))
+            c = slice(128 * j, 128 * j + 128)
+            B[r, c] += T[k0:k1, r].T @ T[k0:k1, c]
+    assert_close(torch.tril(B).numpy(), torch.tril(lauu2_plain(A)).numpy(),
+                 F32, 2 * n + 3, f"lauu2 runs n={n}")
 
 
 @pytest.mark.parametrize("n,want", [

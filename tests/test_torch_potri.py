@@ -159,8 +159,8 @@ def test_lauum_stream_twin_vs_pallas():
     assert_close(got, ref, F32, 2 * n + 3, "lauum_stream")
 
 
-def test_lauu2_twin_vs_pallas():
-    n = 128
+@pytest.mark.parametrize("n", [128, 100, 200])
+def test_lauu2_twin_vs_pallas(n):
     A = factor_np(n)
     got = kernels.lauu2_f32(torch.from_numpy(A)).numpy()
     ref = np.asarray(pleaf.lauu2_f32(jnp.asarray(A)))
