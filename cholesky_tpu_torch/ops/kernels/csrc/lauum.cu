@@ -172,27 +172,41 @@ struct LauumPlan {
     return c < n ? L[r * ldl + c] : 0.f;
   }
   // four elements of row r, columns c .. c + 3, of tile t into B; above a
-  // diagonal tile's diagonal zero, or (LEAF) A's values
+  // diagonal tile's diagonal zero, or (LEAF) A's values. The two forms
+  // stay apart: written as one, the float4 stores of lauum_stream_f32's
+  // diagonal tiles compiled to four 4-byte stores each (its runs 10 %
+  // slower at 2048).
   __device__ void put4(int t, int r, int c, float4 v) const {
     int I, J;
     ct::tri_tile(t, I, J);
-    const long long gr = static_cast<long long>(E) * I + r;
-    const long long gc = static_cast<long long>(E) * J + c;
-    if (LEAF && gr >= n) return;
-    if (I == J) {
-      if (c > r) v.x = LEAF ? upper(gr, gc) : 0.f;
-      if (c + 1 > r) v.y = LEAF ? upper(gr, gc + 1) : 0.f;
-      if (c + 2 > r) v.z = LEAF ? upper(gr, gc + 2) : 0.f;
-      if (c + 3 > r) v.w = LEAF ? upper(gr, gc + 3) : 0.f;
-    }
-    float* const b = B + gr * ldb + gc;
-    if (!LEAF || (vecb && gc + 3 < n)) {
-      *reinterpret_cast<float4*>(b) = v;
+    if constexpr (!LEAF) {
+      if (I == J) {
+        if (c > r) v.x = 0.f;
+        if (c + 1 > r) v.y = 0.f;
+        if (c + 2 > r) v.z = 0.f;
+        if (c + 3 > r) v.w = 0.f;
+      }
+      *reinterpret_cast<float4*>(
+          B + (static_cast<long long>(E) * I + r) * ldb + E * J + c) = v;
     } else {
-      if (gc < n) b[0] = v.x;
-      if (gc + 1 < n) b[1] = v.y;
-      if (gc + 2 < n) b[2] = v.z;
-      if (gc + 3 < n) b[3] = v.w;
+      const long long gr = static_cast<long long>(E) * I + r;
+      const long long gc = static_cast<long long>(E) * J + c;
+      if (gr >= n) return;
+      if (I == J) {
+        if (c > r) v.x = upper(gr, gc);
+        if (c + 1 > r) v.y = upper(gr, gc + 1);
+        if (c + 2 > r) v.z = upper(gr, gc + 2);
+        if (c + 3 > r) v.w = upper(gr, gc + 3);
+      }
+      float* const b = B + gr * ldb + gc;
+      if (vecb && gc + 3 < n) {
+        *reinterpret_cast<float4*>(b) = v;
+      } else {
+        if (gc < n) b[0] = v.x;
+        if (gc + 1 < n) b[1] = v.y;
+        if (gc + 2 < n) b[2] = v.z;
+        if (gc + 3 < n) b[3] = v.w;
+      }
     }
   }
   __device__ void store(int t, const float (&acc)[8][8]) const {
