@@ -65,10 +65,13 @@
 // cut for one block an SM, not two: cut for a whole wave a leaf's few
 // tiles split into twice the parts, whose sums cost more than a second
 // block an SM gains (device µs of a call, runs for 264 / 132 blocks: 25
-// / 18 at 512, 44 / 37 at 1000, 141-145 / 155-156 at 2048, where the rule
-// takes 264; chip_smoke.py's A/B, NVIDIA H100 80GB HBM3, 700 W). At leaf
-// sizes a call is bound by the host's launch path as much as by the card
-// (host enqueue 32-44 µs, device 9-18 µs at 128-512). It replaced
+// / 18 at 512, 44-45 / 37 at 1000, 141-145 / 152-156 at 2048, where the
+// rule takes 264; chip_smoke.py's A/B at commit ab8a088, NVIDIA H100 80GB
+// HBM3, 700 W). At leaf sizes a call is bound by the host's launch path
+// as much as by the card (host enqueue 22-35 µs, device 9-18 µs at
+// 128-512). At 2048 it took 0.1656-0.1811 ms, 2-9 % behind
+// lauum_stream_f32 on the same L in turns, its device time 142.5 µs
+// against 125.1 (chip_compare.py, same commit and card). It replaced
 // one 256-thread block per 64 x 64 tile of sgemm_tile.cuh, with masked
 // 4-byte loads of every k-step: 0.3382-0.3722 ms at 2048 (chip_smoke.py
 // at commit 9a8ed17, NVIDIA H100 80GB HBM3, 700 W).
