@@ -3,6 +3,7 @@
 
     python3 chip_compare.py [--tree DIR] [TAG]
     python3 chip_compare.py [--tree DIR] --fills [TAG]
+    python3 chip_compare.py [--tree DIR] --paths [TAG]
 
 Imports ``cholesky_tpu_torch`` from DIR (default: this script's checkout),
 so that two trees, for example a change and its parent unpacked with
@@ -49,6 +50,15 @@ tree's kernels, from the seeds ``chip_smoke.py`` gives them) and
 the CUDA-event time of one call (FILL_REPS calls: median, min, max) and
 the device time of each launch under torch.profiler (FILL_REPS launches:
 median, 10th and 90th percentile, and the kernels' names).
+
+With ``--paths`` it times only the public paths that the tuning table
+routes, under the table in force in DIR (its path, or DEFAULTS, is in the
+line): the GP train step at n = 8192, d = 8 (host clock, a synchronize
+after each step), spotrf at 1024, 4096, 8192 and 16384, ``strtri`` at
+8192 with and without ``block_size=8192``, ``strsm`` of one column at
+8192, ``potri`` at 4096 and 6000 and ``cpotri`` at 4096 (CUDA events
+around one call), each as [median, min, max] ms of PATH_REPS calls with
+the launches of one call by kernel.
 
 Prints the card's name and power limit, then one JSON line. Needs one
 CUDA card.
@@ -142,6 +152,101 @@ def fill_alone(name: str) -> dict:
             "launches": len(dev), "kernels": sorted(names)}
 
 
+PATH_REPS = 9
+
+
+def public_paths(tree: str, tag: str) -> int:
+    """The table-routed public paths of the package at ``tree``."""
+    import torch
+
+    import cholesky_tpu_torch as ct
+    from cholesky_tpu_torch.models import gp
+    from cholesky_tpu_torch.ops import kernels
+    from cholesky_tpu_torch.rng import latmc
+    from cholesky_tpu_torch.tuning import table
+
+    print(card())
+    path = table.table_path(torch.cuda.get_device_name(0))
+    out = {"tree": tree, "tag": tag,
+           "table": str(path) if path.exists() else "DEFAULTS"}
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def summary(times):
+        times = sorted(times)
+        return [times[len(times) // 2], times[0], times[-1]]
+
+    def launches(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        return {k: v for k, v in kernels.launch_counts().items() if v}
+
+    def timed(name, fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(PATH_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = {"ms": summary(times), "launches": launches(fn)}
+
+    def factor(n, dtype=torch.float32):
+        F, info = ct.potrf("L", latmc(g, n, 100.0, dtype))
+        if int(info):
+            raise RuntimeError(f"factor n={n}: info {int(info)}")
+        return torch.tril(F)
+
+    for n in (1024, 4096, 8192, 16384):
+        A = latmc(g, n, 100.0, torch.float32)
+        timed(f"spotrf {n}", lambda: ct.potrf("L", A))
+        del A
+    L = factor(8192)
+    timed("strtri 8192", lambda: ct.strtri("L", "N", L))
+    timed("strtri 8192 block_size=8192",
+          lambda: ct.strtri("L", "N", L, block_size=8192))
+    b = torch.randn(8192, 1, device="cuda", generator=g)
+    timed("strsm 8192 x 1", lambda: ct.strsm("L", "L", "N", "N", 1.0, L, b))
+    del L
+    for n in (4096, 6000):
+        L = factor(n)
+        timed(f"spotri {n}", lambda: ct.spotri("L", L))
+        del L
+    Lc = factor(4096, torch.complex64)
+    timed("cpotri 4096", lambda: ct.cpotri("L", Lc))
+    del Lc
+
+    n, d = 8192, 8
+    gg = torch.Generator(device="cuda").manual_seed(1)
+    X = torch.rand(n, d, device="cuda", generator=gg) * 2.0 - 1.0
+    w = torch.randn(d, device="cuda", generator=gg)
+    y = torch.sin(3.0 * X @ w / math.sqrt(d)) + 0.1 * torch.randn(
+        n, device="cuda", generator=gg)
+    p0 = gp.GPParams.init(device="cuda")
+    _, g0, _ = gp.gp_nll_and_grads(p0, X, y)
+    lr = 0.05 / max(abs(float(v)) for v in g0)
+
+    def step():
+        gp.gp_train_step(p0, X, y, lr=lr)
+
+    step()
+    times = []
+    for _ in range(PATH_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["GP step 8192"] = {"ms": summary(times), "launches": launches(step)}
+    print(json.dumps(out))
+    return 0
+
+
 def fills(tree: str, tag: str) -> int:
     """Each of FILLS alone in a fresh process of this script."""
     print(card())
@@ -173,6 +278,8 @@ def main() -> int:
     if args[:1] == ["--fill"]:
         print(json.dumps(fill_alone(args[1])))
         return 0
+    if args[:1] == ["--paths"]:
+        return public_paths(tree, args[1] if len(args) > 1 else "")
     import cholesky_tpu_torch  # noqa: F401  (TF32 off)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

@@ -1,10 +1,13 @@
 """Tuning table: per-device-kind kernel parameters.
 
 The counterpart of ``cholesky_tpu/tuning/table.py``, with the same key set
-(``matmul_f32``, ``syrk_f32``, ``potrf_f32.{leaf_nb,mega_max_n}``,
-``{trtri,lauum}_f32.mega_max_n``, ``ozaki_f64.hoist_min_n``). Tables are JSON files in ``tables/`` keyed by
-the slug of ``torch.cuda.get_device_name()``; none is shipped until a value
-has been measured on its card, so DEFAULTS apply everywhere.
+(``matmul_f32``, ``syrk_f32``, ``trmm_f32``,
+``potrf_f32.{leaf_nb,mega_max_n}``, ``{trtri,lauum}_f32.mega_max_n``,
+``ozaki_f64.hoist_min_n``). Tables are JSON files in ``tables/`` keyed by
+the slug of ``torch.cuda.get_device_name()``, written on their card by
+``python -m cholesky_tpu_torch.tuning.autotune``; a value a table does not
+give, and every value on a card without a table (or on the CPU), comes
+from DEFAULTS.
 """
 
 from __future__ import annotations
@@ -22,9 +25,11 @@ _TABLES_DIR = Path(__file__).parent / "tables"
 DEFAULTS = {
     # kept so the key set matches the JAX package's; the CUDA gemm_f32
     # and syrk_lower_f32 pick their tiles per launch (ops/kernels/gemm.py
-    # and syrk.py, launch_plan) and read nothing here
+    # and syrk.py, launch_plan) and trmm_lln_f32 has one 128 x 128 tile
+    # (csrc/trmm.cu): none of them reads anything here
     "matmul_f32": {"bm": 64, "bn": 64, "bk": 16},
     "syrk_f32": {"bn": 64, "bk": 16},
+    "trmm_f32": {"bn": 128, "bm": 128},
     # mega_max_n: largest block factored/inverted/squared by ONE
     # whole-matrix kernel (ops/kernels/mega.py); above it the blocked
     # recursion runs with leaf_nb leaves. The values are the JAX DEFAULTS:

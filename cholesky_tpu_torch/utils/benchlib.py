@@ -12,8 +12,9 @@ from __future__ import annotations
 import torch
 
 
-def bench_op(op_fn, x, *, warmup: int = 2, reps: int = 10) -> float:
-    """Median seconds per ``op_fn(x)`` call, ``x`` a CUDA tensor."""
+def event_times(op_fn, x, *, warmup: int = 2, reps: int = 10) -> list:
+    """Seconds of each of ``reps`` ``op_fn(x)`` calls, sorted, ``x`` a
+    CUDA tensor."""
     if x.device.type != "cuda":
         raise ValueError("bench_op times the card: pass a CUDA tensor")
     for _ in range(warmup):
@@ -28,4 +29,10 @@ def bench_op(op_fn, x, *, warmup: int = 2, reps: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
-    return sorted(times)[len(times) // 2]
+    return sorted(times)
+
+
+def bench_op(op_fn, x, *, warmup: int = 2, reps: int = 10) -> float:
+    """Median seconds per ``op_fn(x)`` call, ``x`` a CUDA tensor."""
+    times = event_times(op_fn, x, warmup=warmup, reps=reps)
+    return times[len(times) // 2]

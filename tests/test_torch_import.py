@@ -33,6 +33,8 @@ def test_import_loads_neither_jax_nor_triton():
         "import cholesky_tpu_torch.ops.kernels.prng\n"
         "import cholesky_tpu_torch.rng.device\n"
         "import cholesky_tpu_torch.utils.benchlib\n"
+        "import cholesky_tpu_torch.tuning.autotune\n"
+        "import bench_torch\n"
         "bad = [m for m in ('jax', 'triton', 'cholesky_tpu')\n"
         "       if m in sys.modules]\n"
         "assert not bad, bad\n"
@@ -52,6 +54,16 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_bench_torch_fails_without_a_card():
+    # the headline bench prints no number from a machine with no card
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    out = subprocess.run([sys.executable, "bench_torch.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"value"' not in out.stdout
 
 
 def test_chip_compare_fails_without_a_card():
@@ -178,14 +190,23 @@ def test_error_handler_hook():
     assert seen == [("cudaMalloc", 2, "out of memory", "potrf", "")]
 
 
-def test_tuning_defaults_and_mega_routing():
-    assert get_params("potrf_f32") == {"leaf_nb": 512, "mega_max_n": 8192}
-    assert get_params("trtri_f32") == {"mega_max_n": 4096}
-    assert get_params("lauum_f32") == {"mega_max_n": 8192}
-    assert get_params("ozaki_f64") == {"hoist_min_n": 7168}
-    assert set(DEFAULTS) == {"matmul_f32", "syrk_f32", "potrf_f32",
-                             "trtri_f32", "lauum_f32", "ozaki_f64"}
+def test_tuning_defaults_and_mega_routing(monkeypatch):
+    # the shipped DEFAULTS, and _mega_ok's routes under them: pinned, so
+    # that the test means the same on a card whose own table differs
+    assert DEFAULTS["potrf_f32"] == {"leaf_nb": 512, "mega_max_n": 8192}
+    assert DEFAULTS["trtri_f32"] == {"mega_max_n": 4096}
+    assert DEFAULTS["lauum_f32"] == {"mega_max_n": 8192}
+    assert DEFAULTS["ozaki_f64"] == {"hoist_min_n": 7168}
+    assert set(DEFAULTS) == {"matmul_f32", "syrk_f32", "trmm_f32",
+                             "potrf_f32", "trtri_f32", "lauum_f32",
+                             "ozaki_f64"}
+    # a card without a table reads DEFAULTS
+    for op in DEFAULTS:
+        assert get_params(op, "No Such Card") == DEFAULTS[op]
     assert get_params("no_such_op") == {}
+    monkeypatch.setattr(blocked, "get_params",
+                        lambda op, device_kind=None: dict(DEFAULTS.get(op,
+                                                                       {})))
     assert blocked._mega_ok(1024) and blocked._mega_ok(100)
     assert not blocked._mega_ok(1025) and not blocked._mega_ok(200)
     assert not blocked._mega_ok(0)
