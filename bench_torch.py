@@ -45,14 +45,15 @@ import torch
 
 BASELINE_GFLOPS = 175.0
 PROJ_TOL = 1e-5     # projection residual, bench.py:195
-FULL_TOL = 1e-5     # full backward residual at N_FIRST, bench.py:367
+FULL_TOL = 1e-5     # full backward residual at N_FIRST, bench.py:357
 N_QUICK = 1024
 N_FIRST = 4096      # the reference's headline size
 LADDER = (8192, 16384, 24576)
 DEADLINE_S = 560.0
 #: seconds a ladder point may take (input, first call, check, timing,
-#: cholesky_ex), about twice what each took on an H100 80GB HBM3 at 700 W
-STAGE_BUDGET_S = {8192: 20.0, 16384: 40.0, 24576: 90.0}
+#: cholesky_ex): a few times what each took on an NVIDIA H100 80GB HBM3 at
+#: 700 W in this script's first run there (1.8, 0.6 and 1.8 s)
+STAGE_BUDGET_S = {8192: 5.0, 16384: 5.0, 24576: 10.0}
 REPS = {1024: 20, 4096: 10, 8192: 5}
 
 

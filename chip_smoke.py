@@ -28,10 +28,13 @@ show that the path went through each of its kernels:
   n = m = 8192 in six forms (one ``trmm_lln_f32`` launch each, no
   ``gemm_f32``), ``sgemm`` 8192³ and ``ssyrk`` n = k = 8192, ``dtrmm`` at
   8192 under ``auto`` (the Ozaki kernels only), ``spotf2`` at n = 16384
-  (one ``potf2_f32`` launch, above the whole-matrix kernels' 8192 cap) and
-  ``strtri(block_size=8192)`` at 8192, unit and not (one ``trti2_f32``
-  launch each, above ``trtri_f32.mega_max_n``), each held in f64 and timed
-  beside one PyTorch call;
+  (one ``potf2_f32`` launch, above the whole-matrix kernels' 8192 cap),
+  ``strtri(block_size=8192)`` at 8192 (one launch of the kernel the
+  tuning table routes the block to: ``trtri_stream_f32`` where
+  ``trtri_f32.mega_max_n`` reaches 8192, else ``trti2_f32``) and
+  ``strtri(block_size=8000)`` at 8000 (one ``trti2_f32`` launch: no
+  whole-matrix kernel takes a block off the 128 grid), unit and not, each
+  held in f64 and timed beside one PyTorch call;
 - phase 8, the c/z tier through the real embedding at n = 4096 complex
   (8192 real) on cond-100 HPD inputs: ``zpotrf``, ``zlogdet`` and
   ``zpotri`` on an (re, im) pair under ``auto`` (the Ozaki kernels and the
@@ -40,7 +43,13 @@ show that the path went through each of its kernels:
   against cuSOLVER's, ``ztrsm``/``ctrsm`` on right-hand sides made by the
   device fills as (re, im) pairs, and ``cgemm``, ``cherk`` and ``ctrmm``
   at 2048 (``gemm_f32`` only), each held in c128 on the card and timed
-  beside a c64/c128 ``torch.linalg`` or ``matmul`` call.
+  beside a c64/c128 ``torch.linalg`` or ``matmul`` call;
+- phase 9, the headline bench: ``bench_torch.py``'s ladder (spotrf at
+  1024-24576, each factor verified) and its JSON line.
+
+The kernels of ``strtri(block_size=8192)``, ``potri`` at 6000 and
+``cpotri`` depend on the tuning table in force (``routed_paths``), which
+is printed first, with the routes it gives those paths.
 
 Phase 3 also runs the A/B of ``gemm_f32``'s two tiles at the paths'
 shapes, of ``potrf_block_f32``'s two launches (one thread block, or one
@@ -59,8 +68,9 @@ time) beside ``torch.matmul(Lᵀ, L)`` and, at 2048, ``lauum_stream_f32``;
 drives ``lauum(block_size=2048)`` at 4096 (two ``lauu2_f32`` launches)
 and ``potri`` at 6000 (no ``lauu2_f32`` launch: its padded working copy
 goes to the whole-matrix kernels); times ``trti2_f32`` beside
-``trtri_stream_f32`` at 1152-8192 and the public ``trtri`` at 8192
-beside one ``trtri_stream_f32`` launch; and prints the traces of
+``trtri_stream_f32`` at 1152-8192 and the public ``trtri`` at 8192 (on
+the tuning table's route, and under a 4096 cap) beside one
+``trtri_stream_f32`` launch; and prints the traces of
 ``potrf_stream_f32``'s panel loop at n = 1024, 4096 and 8192 (per phase
 the sum over panels, F's mean, the first panel whose F is not hidden
 behind the trailing update) and of ``trtri_stream_f32``'s phases at
@@ -92,9 +102,10 @@ import time
 
 import torch
 
+import bench_torch
 import cholesky_tpu_torch as ct
 from cholesky_tpu_torch.models import gp
-from cholesky_tpu_torch.ops import kernels, ozaki
+from cholesky_tpu_torch.ops import blocked, kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import _build, leaf, mega
 from cholesky_tpu_torch.ops.kernels import gemm as kgemm
 from cholesky_tpu_torch.ops.kernels import syrk as ksyrk
@@ -126,6 +137,8 @@ from cholesky_tpu_torch.ops.kernels.trmm import trmm_lln_f32, trmm_lln_plain
 from cholesky_tpu_torch.rng import (Interval, latmc, latmc_pair,
                                     uniform_device, uniform_device64)
 from cholesky_tpu_torch.rng import device as rng_device
+from cholesky_tpu_torch.tuning import DEFAULTS, get_params
+from cholesky_tpu_torch.tuning.autotune import standing_in
 from cholesky_tpu_torch.utils.benchlib import bench_op
 
 EPS32 = float(torch.finfo(torch.float32).eps)
@@ -942,8 +955,9 @@ def check_trtri_stream(gen, rec, on):
     the phase trace; the A/B of the tile count from which a level takes a
     block a tile; the times beside solve_triangular(L, I) and trti2_f32 on
     the same factor; and for the routing, trti2_f32 beside it at 1152-4096 and,
-    at 8192, the recursion the public trtri takes (two launches at 4096
-    and two gemm_f32 products)."""
+    at 8192, the public trtri on the route the tuning table gives it, the
+    recursion of a 4096 cap (two launches at 4096 and two gemm_f32
+    products) and one launch."""
     Ls = {}
     for n in (128, 1024, 1152, 2048, 4096, 8192):
         F, info = ct.potrf("L", dense_spd(gen, n))
@@ -1047,7 +1061,8 @@ def check_trtri_stream(gen, rec, on):
                 library_ms=lib_ms, **rl)
         del eye
     # records for the routing: trti2_f32 where _KernelTiles.trti2 takes this
-    # kernel, and at 8192 the public trtri's recursion against one launch
+    # kernel, and at 8192 the public trtri (the table's route and a 4096
+    # cap's recursion) against one launch
     for n in (1152, 2048, 3072, 4096):
         Lm = Ls[8192][:n, :n].contiguous()
         t = [bench_op(fn, Lm, reps=10) * 1e3
@@ -1056,17 +1071,32 @@ def check_trtri_stream(gen, rec, on):
         print(f"routing record n={n}: trti2_f32 {t[0]:.4f}/{t[3]:.4f} ms, "
               f"trtri_stream_f32 {t[1]:.4f}/{t[2]:.4f} ms on {on}")
     L = Ls[8192]
-    kernels.reset_launch_counts()
-    ct.trtri("L", "N", L)
-    counts = kernels.launch_counts()
-    require(counts["trtri_stream_f32"] == 2 and counts["gemm_f32"] == 2,
-            f"trtri n=8192: launches {counts}")
+    cap4096 = {"trtri_f32": {"mega_max_n": 4096}}
+    for what, params in (("table", {}), ("cap 4096", cap4096)):
+        with standing_in(params):
+            kernels.reset_launch_counts()
+            ct.trtri("L", "N", L)
+            counts = kernels.launch_counts()
+            whole = blocked._mega_ok(8192, "trtri")
+        want = only(trtri_stream_f32=1) if whole else only(
+            trtri_stream_f32=2, gemm_f32=2)
+        require(counts == want, f"trtri n=8192 ({what}): launches {counts}")
+
+    def recursion(x):
+        with standing_in(cap4096):
+            return ct.trtri("L", "N", x)
+
+    route = ("one trtri_stream_f32" if blocked._mega_ok(8192, "trtri")
+             else "two trtri_stream_f32 at 4096, two gemm_f32 4096³")
     t = [bench_op(fn, L, reps=5) * 1e3
-         for fn in (lambda x: ct.trtri("L", "N", x), trtri_stream_f32,
-                    trtri_stream_f32, lambda x: ct.trtri("L", "N", x))]
-    print(f"routing record n=8192: the public trtri (two trtri_stream_f32 "
-          f"at 4096, two gemm_f32 4096³) {t[0]:.4f}/{t[3]:.4f} ms, one "
-          f"trtri_stream_f32 {t[1]:.4f}/{t[2]:.4f} ms on {on}")
+         for fn in (lambda x: ct.trtri("L", "N", x), recursion,
+                    trtri_stream_f32, trtri_stream_f32, recursion,
+                    lambda x: ct.trtri("L", "N", x))]
+    print(f"routing record n=8192: the public trtri under the table "
+          f"({route}) {t[0]:.4f}/{t[5]:.4f} ms, under a 4096 cap (two "
+          f"trtri_stream_f32 at 4096, two gemm_f32 4096³) "
+          f"{t[1]:.4f}/{t[4]:.4f} ms, one trtri_stream_f32 "
+          f"{t[2]:.4f}/{t[3]:.4f} ms on {on}")
 
 
 def lauum_plan_on(**plan):
@@ -1364,8 +1394,9 @@ def check_lauu2(gen, rec, on):
     print(f"lauum n=4096 block_size=2048 (two lauu2_f32 leaves): max err "
           f"{e4:.3e} against the twin (bound {b4:.3e})")
     # potri at 6000: the working copy is padded to 6144, a multiple of
-    # 128, which the whole-matrix kernels take (two trtri_stream_f32 at
-    # 3072 under trtri_f32's mega_max_n, one lauum_stream_f32): no leaf
+    # 128, which the whole-matrix kernels take (one trtri_stream_f32, or
+    # two at 3072 and two gemm_f32 under a trtri_f32 cap below 6144, and
+    # one lauum_stream_f32): no leaf
     F6 = torch.tril(ct.potrf("L", dense_spd(gen, 6000, 30.0))[0])
     (inv6, info6), _ = run_path("potri n=6000", lambda: ct.potri("L", F6),
                                 {"lauu2_f32": 0})
@@ -1505,11 +1536,12 @@ def check_trti2(gen, rec, on):
     against an f64 inverse of a dense factor, gated on its twin's error
     (the same order of work in torch), non-unit and unit, with a NaN strict
     upper, at n = 100 (one short leaf), 384 and 1280 (an unpaired block at
-    a level, a short last pair), 1024 and 8192; zero diagonals (info the
+    a level, a short last pair), 1024, 8000 (the strtri path's block, off
+    the 128 grid) and 8192; zero diagonals (info the
     smallest, past the first 1024 at 8192; with unit, info 0 and the zero
     passed through); the times at 1024 and 8192 beside solve_triangular(L,
     I), and beside trtri_stream_f32 at 2048, 4096 and 8192."""
-    for n in (100, 384, 1280, 1024, 8192):
+    for n in (100, 384, 1280, 1024, TRTI2_N, 8192):
         F, info = ct.potrf("L", dense_spd(gen, n))
         require(int(info) == 0, f"trti2 input factor n={n}")
         L = torch.tril(F)
@@ -2437,6 +2469,7 @@ def d_path(gen, name_power):
 # ---------------------------------------------------------------------------
 
 B_N = 8192
+TRTI2_N = 8000      # off the 128 grid: no whole-matrix kernel takes it
 ONLY = dict.fromkeys(kernels.KERNELS, 0)
 
 
@@ -2581,39 +2614,45 @@ def blas_path(gen, name_power):
           f"leading block max|LLᵀ-A| {be:.3e}, cuSOLVER f32's {be_lib:.3e}")
     del A, F, lead
 
-    # strtri with block_size=8192: one trti2_f32 launch, unit and not, on
-    # a dense factor, gated on f32 solve_triangular's error
+    # strtri with one block: at 8192 one launch of the kernel the tuning
+    # table routes a block of 8192 to (PATHS), at 8000, off the 128 grid,
+    # one trti2_f32 launch; unit and not, on a dense factor, gated on f32
+    # solve_triangular's error
     F, info = ct.potrf("L", dense_spd(gen, B_N))
-    L = torch.tril(F)
+    L8 = torch.tril(F)
     del F
-    eye32 = torch.eye(B_N, device="cuda")
-    for diag in ("N", "U"):
-        X = L if diag == "N" else unit_form(L)
-        (W, info), launches = run_path(
-            "strtri block_size=8192",
-            lambda: ct.strtri("L", diag, X, block_size=B_N),
-            only(trti2_f32=1))
-        runs.setdefault("strtri block_size=8192", launches)
-        require(int(info) == 0, f"strtri {diag}: info {int(info)}")
-        ref = inverse64(X, diag == "U")
-        lib = torch.linalg.solve_triangular(X, eye32, upper=False,
-                                            unitriangular=diag == "U")
-        if diag == "U":
-            lib.diagonal().copy_(torch.diagonal(X))
-        e_lib = max_err(lib, ref)
-        del lib
-        err, lim, rms = gated(f"strtri {diag} block_size={B_N}",
-                              torch.tril(W), ref, e_lib)
-        del W, ref
-        t = bench_op(lambda x: ct.strtri("L", diag, x, block_size=B_N), X,
-                     reps=3)
-        t_lib = bench_op(lambda x: torch.linalg.solve_triangular(
-            x, eye32, upper=False, unitriangular=diag == "U"), X, reps=3)
-        print(f"strtri L,{diag} n={B_N} block_size={B_N}: max err vs f64 "
-              f"{err:.3e}, f32 solve_triangular's {e_lib:.3e} (limit "
-              f"{lim:.3e}, 1/{rms / lim:.0f} of the strict lower's RMS "
-              f"{rms:.3e}); {t * 1e3:.3f} ms, f32 solve_triangular(L, I) "
-              f"{t_lib * 1e3:.3f} ms on {name_power}")
+    for n, path in ((B_N, "strtri block_size=8192"),
+                    (TRTI2_N, "strtri n=8000 block_size=8000")):
+        L = L8[:n, :n].contiguous()
+        eye32 = torch.eye(n, device="cuda")
+        for diag in ("N", "U"):
+            X = L if diag == "N" else unit_form(L)
+            (W, info), launches = run_path(
+                path, lambda: ct.strtri("L", diag, X, block_size=n),
+                only(**dict.fromkeys(PATHS[path], 1)))
+            runs.setdefault(path, launches)
+            require(int(info) == 0, f"strtri {diag} n={n}: info {int(info)}")
+            ref = inverse64(X, diag == "U")
+            lib = torch.linalg.solve_triangular(X, eye32, upper=False,
+                                                unitriangular=diag == "U")
+            if diag == "U":
+                lib.diagonal().copy_(torch.diagonal(X))
+            e_lib = max_err(lib, ref)
+            del lib
+            err, lim, rms = gated(f"strtri {diag} n={n} block_size={n}",
+                                  torch.tril(W), ref, e_lib)
+            del W, ref
+            t = bench_op(lambda x: ct.strtri("L", diag, x, block_size=n), X,
+                         reps=3)
+            t_lib = bench_op(lambda x: torch.linalg.solve_triangular(
+                x, eye32, upper=False, unitriangular=diag == "U"), X, reps=3)
+            print(f"strtri L,{diag} n={n} block_size={n} ("
+                  f"{', '.join(PATHS[path])}): max err vs f64 {err:.3e}, "
+                  f"f32 solve_triangular's {e_lib:.3e} (limit {lim:.3e}, "
+                  f"1/{rms / lim:.0f} of the strict lower's RMS "
+                  f"{rms:.3e}); {t * 1e3:.3f} ms, f32 solve_triangular(L, "
+                  f"I) {t_lib * 1e3:.3f} ms on {name_power}")
+        del L, eye32
     return runs
 
 
@@ -2878,15 +2917,13 @@ PATHS = {
     "ssyrk": ("syrk_lower_f32",),
     "dtrmm": ("peel_f32pair", "mm_groups_f32pair"),
     "spotf2": ("potf2_f32",),
-    "strtri block_size=8192": ("trti2_f32",),
+    "strtri n=8000 block_size=8000": ("trti2_f32",),
     "lauum block_size=2048": ("lauu2_f32",),
-    "potri n=6000": ("trtri_stream_f32", "gemm_f32", "lauum_stream_f32"),
     "z": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
           "trtri_block_f32"),
     "ztrsm": ("uniform_fill_f64", "peel_f32pair", "mm_groups_f32pair",
               "trtri_block_f32"),
     "cpotrf": ("potrf_stream_f32",),
-    "cpotri": ("trtri_stream_f32", "gemm_f32", "lauum_stream_f32"),
     "ctrsm": ("uniform_fill_f32", "trtri_block_f32", "gemm_f32"),
     "cgemm": ("gemm_f32",),
     "cherk": ("gemm_f32",),
@@ -2923,7 +2960,7 @@ SOURCES = {
                   "cholesky_tpu/ops/pallas/leaf.py:146", "spotf2"),
     "trti2_f32": ("cholesky_tpu_torch/ops/kernels/csrc/leaf.cu",
                   "cholesky_tpu/ops/pallas/leaf.py:263",
-                  "strtri block_size=8192"),
+                  "strtri n=8000 block_size=8000"),
     "trmm_lln_f32": ("cholesky_tpu_torch/ops/kernels/csrc/trmm.cu",
                      "cholesky_tpu/ops/pallas/trmm.py:66", "strmm"),
     "uniform_fill_f32": ("cholesky_tpu_torch/ops/kernels/csrc/prng.cu",
@@ -2931,6 +2968,34 @@ SOURCES = {
     "uniform_fill_f64": ("cholesky_tpu_torch/ops/kernels/csrc/prng.cu",
                          "cholesky_tpu/rng/pallas_prng.py:106", "ztrsm"),
 }
+
+
+def trtri_kernels(n: int, nb: int) -> tuple:
+    """The kernels a trtri working copy of n launches on the card with
+    leaves of nb, as ``blocked._trtri_lower`` routes it under the tuning
+    table in force: one whole-matrix kernel where ``_mega_ok`` takes the
+    block, trti2_f32 for a leaf it refuses, else the halves and two
+    gemm_f32 products."""
+    if blocked._mega_ok(n, "trtri"):
+        return ("trtri_block_f32" if n <= mega.MAX_N else
+                "trtri_stream_f32",)
+    if n <= nb:
+        return ("trti2_f32",)
+    n1 = blocked._split(n, nb)
+    return tuple(dict.fromkeys(("gemm_f32", *trtri_kernels(n1, nb),
+                                *trtri_kernels(n - n1, nb))))
+
+
+def routed_paths() -> dict:
+    """The paths whose kernels the tuning table in force decides:
+    ``strtri(block_size=8192)`` at 8192, ``potri`` at 6000 (its working
+    copy padded to 6144) and ``cpotri`` at 4096 (8192 embedded)."""
+    nb = blocked._KernelTiles().default_nb
+    return {
+        "strtri block_size=8192": trtri_kernels(B_N, B_N),
+        "potri n=6000": (*trtri_kernels(6144, nb), "lauum_stream_f32"),
+        "cpotri": (*trtri_kernels(2 * CZ_N, nb), "lauum_stream_f32"),
+    }
 
 
 def short_name(mangled: str) -> str:
@@ -2962,6 +3027,12 @@ def main() -> int:
     print(f"TF32: matmul {tf32[0]}, cudnn {tf32[1]}, float32 matmul "
           f"precision {torch.get_float32_matmul_precision()}")
     require(tf32 == (False, False), "TF32 must be off")
+    print(f"tuning table: {bench_torch.table_in_force()}; in force: "
+          + "; ".join(f"{op} {get_params(op)}" for op in DEFAULTS))
+    routed = routed_paths()
+    PATHS.update(routed)
+    for name, ks in routed.items():
+        print(f"  path {name!r} under the table: {', '.join(ks)}")
 
     # 2. build
     b = _build.build()
@@ -3009,6 +3080,12 @@ def main() -> int:
 
     # 8. the c/z tier through the real embedding
     runs.update(cz_path(gen, name_power))
+
+    # 9. the headline bench, bench_torch.py's ladder
+    t_phase = time.perf_counter()
+    line = bench_torch.run(log=print)
+    print(f"bench_torch.py headline: {json.dumps(line)} on {name_power} "
+          f"({time.perf_counter() - t_phase:.1f} s)")
     require("jax" not in sys.modules, "jax was imported")
     require(set(SOURCES) == set(kernels.KERNELS),
             "a kernel is missing from the kernels line")

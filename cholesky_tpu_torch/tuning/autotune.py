@@ -22,8 +22,10 @@ under a candidate table that stands in for ``ops.blocked.get_params``
 - ``potrf_f32.leaf_nb``: the leaf of every recursion ``auto`` runs above
   the caps and of every f32 trsm. Candidates are timed, under the caps
   this run found, on the GP train step at n = 8192 (d = 8, its two
-  one-column solves), spotrf at 16384 and strsm of one column at 8192
-  (``choose_leaf_nb``).
+  one-column solves), spotrf at 16384 and strsm of one column at 8192.
+  The fastest on the GP step is taken unless on another point it is
+  slower than that point's fastest by more than both spreads together;
+  then the value in force stays (``choose_leaf_nb``).
 - ``ozaki_f64.hoist_min_n``, only with ``--ozaki``: dpotrf with the d
   tier's hoisted peel forced on and off (``blocked._OZAKI_HOIST_OVERRIDE``)
   at 4096-10240, the JAX package's midpoint rule (``hoist_min_n``).
@@ -95,23 +97,26 @@ def crossover_cap(readings, floor: int = mega.MAX_N,
     return cap
 
 
-def choose_leaf_nb(rows: dict, primary: str = LEAF_PRIMARY) -> int:
+def losses(rows: dict, candidate, primary: str) -> dict:
+    """The points other than ``primary`` where ``candidate`` is slower
+    than the fastest candidate by more than both spreads together: {point:
+    (the fastest candidate, ms lost)}."""
+    out = {}
+    for point, (m, s) in rows[candidate].items():
+        best = min(rows, key=lambda c: rows[c][point][0])
+        mb, sb = rows[best][point]
+        if point != primary and m - mb > s + sb:
+            out[point] = (best, m - mb)
+    return out
+
+
+def choose_leaf_nb(rows: dict, incumbent: int,
+                   primary: str = LEAF_PRIMARY) -> int:
     """leaf_nb from ``rows``, {candidate: {point: (median, spread)}}: the
-    fastest candidate on ``primary``, unless on another point it is
-    slower than that point's fastest by more than both spreads together;
-    then the next fastest on ``primary`` that loses nowhere, and the
-    fastest on ``primary`` when every candidate loses somewhere."""
-    order = sorted(rows, key=lambda c: rows[c][primary][0])
-
-    def loses(c, point):
-        best = min(rows, key=lambda d: rows[d][point][0])
-        (m, s), (mb, sb) = rows[c][point], rows[best][point]
-        return m - mb > s + sb
-
-    for c in order:
-        if not any(loses(c, p) for p in rows[c] if p != primary):
-            return c
-    return order[0]
+    fastest candidate on ``primary``, unless it loses on another point
+    (:func:`losses`); then ``incumbent``, the value in force, stays."""
+    best = min(rows, key=lambda c: rows[c][primary][0])
+    return incumbent if losses(rows, best, primary) else best
 
 
 def separated(readings) -> bool:
@@ -272,7 +277,7 @@ def gp_step(gen, n, d=8):
     return lambda: gp.gp_train_step(p0, X, y, lr=lr)
 
 
-def tune_leaf(gen, caps: dict, quick: bool):
+def tune_leaf(gen, caps: dict, incumbent: int, quick: bool):
     """leaf_nb and its rows {candidate: {point: [median, spread]}}."""
     import cholesky_tpu_torch as ct
 
@@ -295,9 +300,13 @@ def tune_leaf(gen, caps: dict, quick: bool):
         log(f"  leaf_nb={leaf}: " + "; ".join(
             f"{p} {m:.4f} ms (spread {s:.4f})"
             for p, (m, s) in rows[leaf].items()))
-    best = choose_leaf_nb(rows, LEAF_PRIMARY)
-    log(f"potrf leaf_nb={best} (fastest on {LEAF_PRIMARY} unless it loses "
-        "elsewhere by more than both spreads)")
+    fastest = min(rows, key=lambda c: rows[c][LEAF_PRIMARY][0])
+    lost = losses(rows, fastest, LEAF_PRIMARY)
+    best = choose_leaf_nb(rows, incumbent, LEAF_PRIMARY)
+    log(f"potrf leaf_nb={best}: {fastest} is the fastest on {LEAF_PRIMARY}"
+        + "".join(f"; it loses {ms:.4f} ms to {c} on {p}"
+                  for p, (c, ms) in lost.items())
+        + (f", more than both spreads: {incumbent} stays" if lost else ""))
     return best, rows
 
 
@@ -385,7 +394,7 @@ def main(argv=None) -> int:
         cap, readings[f"{op}_f32.mega_max_n"] = tune_crossover(
             gen, op, leaf_nb, args.quick)
         new[f"{op}_f32"] = {"mega_max_n": cap}
-    leaf, readings["potrf_f32.leaf_nb"] = tune_leaf(gen, dict(new),
+    leaf, readings["potrf_f32.leaf_nb"] = tune_leaf(gen, dict(new), leaf_nb,
                                                     args.quick)
     new["potrf_f32"]["leaf_nb"] = leaf
     if args.ozaki:

@@ -338,14 +338,23 @@ def test_potrf_stream_trace(cuda):
 @pytest.mark.parametrize("n,uplo", [(1000, "L"), (1536, "U"), (2048, "L")])
 def test_potrf_main_path(cuda, n, uplo):
     # one whole-matrix kernel on the block padded to a multiple of 128
-    # (1000 to 1024): potrf_stream_f32 from 512, potrf_block_f32 below
+    # (1000 to 1024): potrf_stream_f32 from 512, potrf_block_f32 below;
+    # where the tuning table in force caps potrf below the block, the
+    # recursion, whose diagonal blocks go to the same kernel
     A = spd(n)
     kernels.reset_launch_counts()
     F, info = ct.potrf(uplo, A.to(cuda))
     assert int(info) == 0
     counts = kernels.launch_counts()
-    stream = -(-n // 128) * 128 >= mega.POTRF_STREAM_MIN_N
-    assert counts["potrf_stream_f32" if stream else "potrf_block_f32"] == 1
+    p = -(-n // 128) * 128
+    stream = p >= mega.POTRF_STREAM_MIN_N
+    kernel = "potrf_stream_f32" if stream else "potrf_block_f32"
+    if blocked._mega_ok(p):
+        assert counts[kernel] == 1, counts
+        assert counts["gemm_f32"] == counts["syrk_lower_f32"] == 0, counts
+    else:
+        assert all(counts[k] > 0 for k in (kernel, "gemm_f32",
+                                           "syrk_lower_f32")), counts
     ref = torch.linalg.cholesky(A.double())
     got = torch.tril(F) if uplo == "L" else torch.triu(F).T
     assert_close(got, ref, 8 * n, f"potrf n={n} {uplo}")
@@ -568,6 +577,10 @@ def test_potri_on_the_card(cuda, n, bs, uplo):
         assert counts["lauum_stream_f32"] > 0, counts
         assert counts["trtri_stream_f32" if n > 1024 else
                       "trtri_block_f32"] > 0, counts
+        if blocked._mega_ok(n, "trtri"):
+            # one whole-matrix inverse under the tuning table in force
+            assert counts["trtri_stream_f32"] == 1, counts
+            assert counts["gemm_f32"] == 0, counts
     else:
         assert counts["lauu2_f32"] > 0, counts
     ref = torch.cholesky_inverse(L)
@@ -589,7 +602,14 @@ def test_trsm_on_the_card(cuda, side, uplo, trans, diag):
     X = ct.trsm(side, uplo, trans, diag, 0.5, A.float().to(cuda),
                 B.to(cuda))
     counts = kernels.launch_counts()
-    assert counts["trtri_block_f32"] > 0 and counts["gemm_f32"] > 0
+    # the leaves are the tuning table's leaf_nb (one leaf of the padded
+    # block when it is larger than n), inverted whole
+    nb = blocked._KernelTiles().default_nb
+    leaf = min(nb, -(-n // nb) * nb)
+    kernel = ("trtri_block_f32" if leaf <= mega.MAX_N else
+              "trtri_stream_f32" if blocked._mega_ok(leaf, "trtri") else
+              "trti2_f32")
+    assert counts[kernel] > 0 and counts["gemm_f32"] > 0, counts
     ref = ct.trsm(side, uplo, trans, diag, 0.5, A, B.double(), backend="ref")
     assert_close(X, ref, 60 * n, f"trsm {side}{uplo}{trans}{diag}")
 
