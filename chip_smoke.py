@@ -351,8 +351,9 @@ def check_gemm(gen, rec, on):
     T = torch.randn(512, 512, device="cuda", generator=gen)
     err, lim, _ = gemm_gated("gemm_f32 (4096x512)·(512x512)ᵀ", gemm_f32(X, T.T),
                              X, T.T)
-    # potri's trtri recursion at 8192: M' = -W2·M·W1 on 4096 halves, all
-    # three views of one 8192 buffer
+    # trtri's recursion at 8192 under a 4096 cap (DEFAULTS; the GP step's
+    # potri where no table raises the cap): M' = -W2·M·W1 on 4096 halves,
+    # all three views of one 8192 buffer
     L = torch.randn(8192, 8192, device="cuda", generator=gen) / 64.0
     W2, M, W1 = L[4096:, 4096:], L[4096:, :4096], L[:4096, :4096]
     Mp = gemm_f32(W2, M)
