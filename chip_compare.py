@@ -56,9 +56,10 @@ routes, under the table in force in DIR (its path, or DEFAULTS, is in the
 line): the GP train step at n = 8192, d = 8 (host clock, a synchronize
 after each step), spotrf at 1024, 4096, 8192 and 16384, ``strtri`` at
 8192 with and without ``block_size=8192``, ``strsm`` of one column at
-8192, ``potri`` at 4096 and 6000 and ``cpotri`` at 4096 (CUDA events
-around one call), each as [median, min, max] ms of PATH_REPS calls with
-the launches of one call by kernel.
+8192, ``potri`` at 4096 and 6000, ``cpotri`` at 4096, ``dpotrf`` at 4096
+and 6144 and ``dpotri`` at 4096 (CUDA events around one call), each as
+[median, min, max] ms of PATH_REPS calls with the launches of one call
+by kernel.
 
 Prints the card's name and power limit, then one JSON line. Needs one
 CUDA card.
@@ -220,6 +221,15 @@ def public_paths(tree: str, tag: str) -> int:
     Lc = factor(4096, torch.complex64)
     timed("cpotri 4096", lambda: ct.cpotri("L", Lc))
     del Lc
+    # the d tier (host-bound): the hoisted peel or not, as the table's
+    # ozaki_f64.hoist_min_n decides per call
+    for n in (4096, 6144):
+        A = latmc(g, n, 100.0, torch.float64)
+        timed(f"dpotrf {n}", lambda: ct.dpotrf("L", A))
+        del A
+    Ld = factor(4096, torch.float64)
+    timed("dpotri 4096", lambda: ct.dpotri("L", Ld))
+    del Ld
 
     n, d = 8192, 8
     gg = torch.Generator(device="cuda").manual_seed(1)

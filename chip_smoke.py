@@ -32,8 +32,8 @@ show that the path went through each of its kernels:
   ``strtri(block_size=8192)`` at 8192 (one launch of the kernel the
   tuning table routes the block to: ``trtri_stream_f32`` where
   ``trtri_f32.mega_max_n`` reaches 8192, else ``trti2_f32``) and
-  ``strtri(block_size=8000)`` at 8000 (one ``trti2_f32`` launch: no
-  whole-matrix kernel takes a block off the 128 grid), unit and not, each
+  ``strtri(block_size=8320)`` at 8320 (one ``trti2_f32`` launch: no
+  whole-matrix kernel takes a block past 8192), unit and not, each
   held in f64 and timed beside one PyTorch call;
 - phase 8, the c/z tier through the real embedding at n = 4096 complex
   (8192 real) on cond-100 HPD inputs: ``zpotrf``, ``zlogdet`` and
@@ -1537,8 +1537,8 @@ def check_trti2(gen, rec, on):
     against an f64 inverse of a dense factor, gated on its twin's error
     (the same order of work in torch), non-unit and unit, with a NaN strict
     upper, at n = 100 (one short leaf), 384 and 1280 (an unpaired block at
-    a level, a short last pair), 1024, 8000 (the strtri path's block, off
-    the 128 grid) and 8192; zero diagonals (info the
+    a level, a short last pair), 1024, 8320 (the strtri path's block, past
+    the whole-matrix kernels' cap) and 8192; zero diagonals (info the
     smallest, past the first 1024 at 8192; with unit, info 0 and the zero
     passed through); the times at 1024 and 8192 beside solve_triangular(L,
     I), and beside trtri_stream_f32 at 2048, 4096 and 8192."""
@@ -2470,7 +2470,7 @@ def d_path(gen, name_power):
 # ---------------------------------------------------------------------------
 
 B_N = 8192
-TRTI2_N = 8000      # off the 128 grid: no whole-matrix kernel takes it
+TRTI2_N = 8320      # past STREAM_MAX_N: no whole-matrix kernel takes it
 ONLY = dict.fromkeys(kernels.KERNELS, 0)
 
 
@@ -2616,15 +2616,17 @@ def blas_path(gen, name_power):
     del A, F, lead
 
     # strtri with one block: at 8192 one launch of the kernel the tuning
-    # table routes a block of 8192 to (PATHS), at 8000, off the 128 grid,
-    # one trti2_f32 launch; unit and not, on a dense factor, gated on f32
+    # table routes a block of 8192 to (PATHS), at 8320, past the
+    # whole-matrix kernels' cap, one trti2_f32 launch; unit and not, on a
+    # dense factor (its leading block at 8192), gated on f32
     # solve_triangular's error
-    F, info = ct.potrf("L", dense_spd(gen, B_N))
-    L8 = torch.tril(F)
+    F, info = ct.potrf("L", dense_spd(gen, TRTI2_N))
+    require(int(info) == 0, f"strtri input factor: info {int(info)}")
+    Lw = torch.tril(F)
     del F
     for n, path in ((B_N, "strtri block_size=8192"),
-                    (TRTI2_N, "strtri n=8000 block_size=8000")):
-        L = L8[:n, :n].contiguous()
+                    (TRTI2_N, "strtri n=8320 block_size=8320")):
+        L = Lw[:n, :n].contiguous()
         eye32 = torch.eye(n, device="cuda")
         for diag in ("N", "U"):
             X = L if diag == "N" else unit_form(L)
@@ -2918,7 +2920,7 @@ PATHS = {
     "ssyrk": ("syrk_lower_f32",),
     "dtrmm": ("peel_f32pair", "mm_groups_f32pair"),
     "spotf2": ("potf2_f32",),
-    "strtri n=8000 block_size=8000": ("trti2_f32",),
+    "strtri n=8320 block_size=8320": ("trti2_f32",),
     "lauum block_size=2048": ("lauu2_f32",),
     "z": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
           "trtri_block_f32"),
@@ -2961,7 +2963,7 @@ SOURCES = {
                   "cholesky_tpu/ops/pallas/leaf.py:146", "spotf2"),
     "trti2_f32": ("cholesky_tpu_torch/ops/kernels/csrc/leaf.cu",
                   "cholesky_tpu/ops/pallas/leaf.py:263",
-                  "strtri n=8000 block_size=8000"),
+                  "strtri n=8320 block_size=8320"),
     "trmm_lln_f32": ("cholesky_tpu_torch/ops/kernels/csrc/trmm.cu",
                      "cholesky_tpu/ops/pallas/trmm.py:66", "strmm"),
     "uniform_fill_f32": ("cholesky_tpu_torch/ops/kernels/csrc/prng.cu",

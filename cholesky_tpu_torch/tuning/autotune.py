@@ -28,7 +28,9 @@ under a candidate table that stands in for ``ops.blocked.get_params``
   then the value in force stays (``choose_leaf_nb``).
 - ``ozaki_f64.hoist_min_n``, only with ``--ozaki``: dpotrf with the d
   tier's hoisted peel forced on and off (``blocked._OZAKI_HOIST_OVERRIDE``)
-  at 4096-10240, the JAX package's midpoint rule (``hoist_min_n``).
+  at 4096-10240, the two variants called in turns, and the JAX package's
+  midpoint rule where they separate by more than their spreads
+  (``hoist_min_n``).
 - ``_meta``: the card, its power limit, the commit, the rates of
   ``gemm_f32``, ``syrk_lower_f32`` and ``trmm_lln_f32`` at 4096, spotrf and
   ``torch.linalg.cholesky_ex`` at 4096, and every reading above.
@@ -65,6 +67,7 @@ QUICK_LEAVES = (512, 1024)
 GP_N, POTRF_N, TRSM_N = 8192, 16384, 8192
 LEAF_PRIMARY = f"GP step {GP_N}"
 HOIST_SIZES = (4096, 6144, 8192, 10240)
+HOIST_REPS = 6             # calls of each variant a size, in turns
 RATES_N = 4096
 HOIST_OFF = 1 << 30        # hoisted never won: the JAX package's "off"
 NOTE = ("matmul_f32, syrk_f32 and trmm_f32 get no keys: gemm_f32 and "
@@ -315,16 +318,28 @@ def tune_ozaki_hoist(gen, default: int):
     import cholesky_tpu_torch as ct
     from cholesky_tpu_torch.ops import blocked
 
+    def call(hoisted):
+        blocked._OZAKI_HOIST_OVERRIDE = hoisted
+        try:
+            ct.potrf("L", A)
+            torch.cuda.synchronize()
+        finally:
+            blocked._OZAKI_HOIST_OVERRIDE = None
+
     readings = []
     for n in HOIST_SIZES:
         A = spd(gen, n, torch.float64)
-        got = {}
-        for hoisted in (True, False):
-            blocked._OZAKI_HOIST_OVERRIDE = hoisted
-            try:
-                got[hoisted] = wall_stats(lambda: ct.potrf("L", A), reps=3)
-            finally:
-                blocked._OZAKI_HOIST_OVERRIDE = None
+        times = {True: [], False: []}
+        for hoisted in (True, False):       # warm-up
+            call(hoisted)
+        # in turns (H P P H ...): a drift of the host's pace, which sets
+        # the d tier's time, reaches both variants alike
+        for order in [(True, False), (False, True)] * (HOIST_REPS // 2):
+            for hoisted in order:
+                t0 = time.perf_counter()
+                call(hoisted)
+                times[hoisted].append((time.perf_counter() - t0) * 1e3)
+        got = {h: stats(t) for h, t in times.items()}
         log(f"  ozaki hoist n={n}: hoisted {got[True][0]:.1f} ms (spread "
             f"{got[True][1]:.1f}) vs per call {got[False][0]:.1f} ms "
             f"(spread {got[False][1]:.1f})")

@@ -90,6 +90,7 @@ def test_trtri_at_8192_under_the_h100_table(monkeypatch):
     whole = h100_params("trtri_f32")["mega_max_n"] >= 8192
     assert tblocked._mega_ok(8192, "trtri") == whole
     assert not tblocked._mega_ok(8000, "trtri")
+    assert not tblocked._mega_ok(8320, "trtri")
 
 
 def defaults_params(op, device_kind=None):
