@@ -37,7 +37,6 @@ fallback and compilation cache, which served a remotely attached TPU.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -75,13 +74,6 @@ def result_line(n: int, gflops: float, verify: str) -> dict:
 
 class BenchFailure(RuntimeError):
     """A point whose factor did not verify."""
-
-
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[0]
 
 
 def table_in_force() -> str:
@@ -140,6 +132,8 @@ def measure(n: int, full: bool, log=log) -> float:
 
 def run(log=log) -> dict:
     """The ladder; returns the JSON line. Raises BenchFailure."""
+    from cholesky_tpu_torch.utils.benchlib import card
+
     start = time.perf_counter()
     log(f"card: {card()}; tuning table: {table_in_force()}")
     measure(N_QUICK, full=False, log=log)

@@ -156,12 +156,29 @@ def fill_alone(name: str) -> dict:
 PATH_REPS = 9
 
 
+def gp_step(n=8192, d=8):
+    """One GP train step of chip_smoke.py phase 5 (n points, d features,
+    seed 1) on the package imported, as a function of no arguments."""
+    import torch
+
+    from cholesky_tpu_torch.models import gp
+
+    gg = torch.Generator(device="cuda").manual_seed(1)
+    X = torch.rand(n, d, device="cuda", generator=gg) * 2.0 - 1.0
+    w = torch.randn(d, device="cuda", generator=gg)
+    y = torch.sin(3.0 * X @ w / math.sqrt(d)) + 0.1 * torch.randn(
+        n, device="cuda", generator=gg)
+    p0 = gp.GPParams.init(device="cuda")
+    _, g0, _ = gp.gp_nll_and_grads(p0, X, y)
+    lr = 0.05 / max(abs(float(v)) for v in g0)
+    return lambda: gp.gp_train_step(p0, X, y, lr=lr)
+
+
 def public_paths(tree: str, tag: str) -> int:
     """The table-routed public paths of the package at ``tree``."""
     import torch
 
     import cholesky_tpu_torch as ct
-    from cholesky_tpu_torch.models import gp
     from cholesky_tpu_torch.ops import kernels
     from cholesky_tpu_torch.rng import latmc
     from cholesky_tpu_torch.tuning import table
@@ -231,19 +248,7 @@ def public_paths(tree: str, tag: str) -> int:
     timed("dpotri 4096", lambda: ct.dpotri("L", Ld))
     del Ld
 
-    n, d = 8192, 8
-    gg = torch.Generator(device="cuda").manual_seed(1)
-    X = torch.rand(n, d, device="cuda", generator=gg) * 2.0 - 1.0
-    w = torch.randn(d, device="cuda", generator=gg)
-    y = torch.sin(3.0 * X @ w / math.sqrt(d)) + 0.1 * torch.randn(
-        n, device="cuda", generator=gg)
-    p0 = gp.GPParams.init(device="cuda")
-    _, g0, _ = gp.gp_nll_and_grads(p0, X, y)
-    lr = 0.05 / max(abs(float(v)) for v in g0)
-
-    def step():
-        gp.gp_train_step(p0, X, y, lr=lr)
-
+    step = gp_step()
     step()
     times = []
     for _ in range(PATH_REPS):
@@ -294,7 +299,6 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from cholesky_tpu_torch.models import gp
     from cholesky_tpu_torch.ops.kernels import (lauum_stream_f32, mega,
                                                 potf2_f32, syrk_lower_f32,
                                                 trti2_f32, trtri_block_f32,
@@ -504,20 +508,7 @@ def main() -> int:
             "lau device ms": split.pop("busy")[0], "kernels": split}
         del L
 
-    # the GP train step of chip_smoke.py phase 5
-    n, d = 8192, 8
-    gg = torch.Generator(device="cuda").manual_seed(1)
-    X = torch.rand(n, d, device="cuda", generator=gg) * 2.0 - 1.0
-    w = torch.randn(d, device="cuda", generator=gg)
-    y = torch.sin(3.0 * X @ w / math.sqrt(d)) + 0.1 * torch.randn(
-        n, device="cuda", generator=gg)
-    p0 = gp.GPParams.init(device="cuda")
-    _, g0, _ = gp.gp_nll_and_grads(p0, X, y)
-    lr = 0.05 / max(abs(float(v)) for v in g0)
-
-    def step():
-        gp.gp_train_step(p0, X, y, lr=lr)
-
+    step = gp_step()
     step()
     torch.cuda.synchronize()
     times = []

@@ -96,7 +96,6 @@ import contextlib
 import functools
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -139,7 +138,7 @@ from cholesky_tpu_torch.rng import (Interval, latmc, latmc_pair,
 from cholesky_tpu_torch.rng import device as rng_device
 from cholesky_tpu_torch.tuning import DEFAULTS, get_params
 from cholesky_tpu_torch.tuning.autotune import standing_in
-from cholesky_tpu_torch.utils.benchlib import bench_op
+from cholesky_tpu_torch.utils.benchlib import bench_op, card
 
 EPS32 = float(torch.finfo(torch.float32).eps)
 #: the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W):
@@ -186,14 +185,6 @@ def max_err(a, b) -> float:
     else:
         a, b = a.double(), b.double()
     return float((a - b).abs().max())
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def spd(gen, n: int, cond: float = 100.0):

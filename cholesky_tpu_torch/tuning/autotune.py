@@ -47,7 +47,6 @@ import argparse
 import contextlib
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -55,6 +54,7 @@ import torch
 
 from cholesky_tpu_torch.ops.kernels import mega
 from cholesky_tpu_torch.tuning import table
+from cholesky_tpu_torch.utils.benchlib import card, event_times
 
 CROSSOVER_SIZES = {"potrf": (2048, 3072, 4096, 6144, 8192),
                    "trtri": (2048, 3072, 4096, 6144, 8192),
@@ -193,8 +193,6 @@ def stats(times) -> tuple:
 
 def event_stats(fn, x, reps: int) -> tuple:
     """(median, spread) in ms of ``fn(x)`` between CUDA events."""
-    from cholesky_tpu_torch.utils.benchlib import event_times
-
     return stats([t * 1e3 for t in event_times(fn, x, reps=reps)])
 
 
@@ -374,14 +372,6 @@ def rates(gen) -> dict:
             "trmm_useful_tflops": round(n ** 3 / t_tr / 1e12, 2),
             "potrf_gflops": round(fl / t_po / 1e9, 1),
             "cholesky_ex_gflops": round(fl / t_ch / 1e9, 1)}
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:

@@ -9,7 +9,21 @@ forced is not needed here: ``torch.cuda.synchronize()`` waits for the card.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them (card 0): the
+    label every measurement is kept with, since a card set below 700 W
+    runs slower under load."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def event_times(op_fn, x, *, warmup: int = 2, reps: int = 10) -> list:
