@@ -45,7 +45,16 @@ show that the path went through each of its kernels:
   at 2048 (``gemm_f32`` only), each held in c128 on the card and timed
   beside a c64/c128 ``torch.linalg`` or ``matmul`` call;
 - phase 9, the headline bench: ``bench_torch.py``'s ladder (spotrf at
-  1024-24576, each factor verified) and its JSON line.
+  1024-24576, each factor verified) and its JSON line;
+- phase 10, the block-cyclic tier (``cholesky_tpu_torch.parallel``) on a
+  one-rank NCCL group: ``potrf_sharded`` and ``logdet_dist`` at
+  n = 16384, nb = 256 with lookahead (``potrf_block_f32`` and
+  ``trtri_block_f32`` once per block, ``gemm_f32``, no
+  ``potrf_stream_f32``), ``trsm_factor_dist`` N and T with 16
+  right-hand sides, ``potri_sharded`` at 8192, f64 ``potrf_sharded`` at
+  4096 under ``auto`` (the Ozaki kernels) and a non-PD f32 input, each
+  with its collective counts and timed beside ``ct.potrf``/``ct.logdet``/
+  ``ct.potri`` and cuSOLVER. One card: no scaling is measured.
 
 The kernels of ``strtri(block_size=8192)``, ``potri`` at 6000 and
 ``cpotri`` depend on the tuning table in force (``routed_paths``), which
@@ -100,9 +109,11 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 import bench_torch
 import cholesky_tpu_torch as ct
+from cholesky_tpu_torch import parallel as par
 from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import blocked, kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import _build, leaf, mega
@@ -133,6 +144,8 @@ from cholesky_tpu_torch.ops.kernels.prng import (uniform_fill_f32,
 from cholesky_tpu_torch.ops.kernels.syrk import (syrk_lower_f32,
                                                  syrk_lower_plain)
 from cholesky_tpu_torch.ops.kernels.trmm import trmm_lln_f32, trmm_lln_plain
+from cholesky_tpu_torch.parallel import comm as par_comm
+from cholesky_tpu_torch.parallel import launch
 from cholesky_tpu_torch.rng import (Interval, latmc, latmc_pair,
                                     uniform_device, uniform_device64)
 from cholesky_tpu_torch.rng import device as rng_device
@@ -2895,6 +2908,184 @@ def cz_path(gen, name_power):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the block-cyclic tier (cholesky_tpu_torch.parallel) on one
+# NCCL rank: potrf/logdet at n = 16384, trsm with 16 right-hand sides,
+# potri at 8192, f64 potrf at 4096 under auto, a non-PD input
+# ---------------------------------------------------------------------------
+
+DIST_N, DIST_NB, DIST_NRHS, DIST_POTRI_N, DIST_D_N = 16384, 256, 16, 8192, 4096
+
+
+def dist_blocks(n: int) -> int:
+    """nblk of a world of one: n padded to a multiple of nb. Every step
+    factors one diagonal block (potrf_block_f32, the block-0 prologue and
+    one lookahead per step but the last) and inverts it (trtri_block_f32):
+    nblk launches of each per factorization; trtri_dist inverts each
+    diagonal block once: nblk trtri_block_f32 launches."""
+    return -(-n // DIST_NB)
+
+
+def run_dist(name, fn, exact):
+    """run_path with the collective counts at 0 before and printed after."""
+    par_comm.reset_counts()
+    out, launches = run_path(name, fn, exact)
+    print(f"{name} collectives: {par_comm.counts()}")
+    return out, launches
+
+
+def dist_path(gen, name_power):
+    """The block-cyclic tier through its entry points on a one-rank NCCL
+    group (the card machine has one card: no scaling is measured), each
+    call on its own launch counters and beside the single-device driver
+    and cuSOLVER at the same n."""
+    t_phase = time.perf_counter()
+    launch.init_single("cuda")
+    try:
+        runs = dist_calls(gen, name_power)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+def dist_calls(gen, name_power):
+    n, nb, nblk = DIST_N, DIST_NB, dist_blocks(DIST_N)
+    A = dense_spd(gen, n)
+    one = {"potrf_block_f32": nblk, "trtri_block_f32": nblk,
+           "potrf_stream_f32": 0}
+    (F, info), launches = run_dist(
+        "dist potrf", lambda: par.potrf_sharded("L", A, nb=nb), one)
+    require(int(info) == 0, f"potrf_sharded n={n}: info {int(info)}")
+    be = backward_error(F, A)
+    b = bound(n, float(A.abs().max()))
+    require(be <= b, f"potrf_sharded n={n}: backward error {be} > {b}")
+    bc = par.distribute(A, nb=nb)
+    (ld, info_ld), _ = run_dist("dist logdet",
+                                lambda: par.logdet_dist(bc), one)
+    ld_ref, info_ref = ct.logdet("L", A)
+    rel = abs(float(ld) - float(ld_ref)) / abs(float(ld_ref))
+    require(int(info_ld) == int(info_ref) == 0 and rel <= n * EPS32,
+            f"logdet_dist n={n}: info {int(info_ld)}, rel err {rel}")
+    print(f"potrf_sharded n={n} nb={nb} (one NCCL rank, lookahead): info 0,"
+          f" max|LLᵀ-A| {be:.3e} (bound {b:.3e}); logdet_dist "
+          f"{float(ld):.6f} vs ct.logdet {float(ld_ref):.6f}, rel err "
+          f"{rel:.3e} (bound n·eps {n * EPS32:.3e})")
+
+    # solves through the distributed factor, 16 right-hand sides
+    fbc, _ = par.potrf_dist(bc)
+    B = torch.randn(n, DIST_NRHS, device="cuda", generator=gen)
+    L64 = torch.tril(F).double()
+    sols = {}
+    for trans in ("N", "T"):
+        X, _ = run_dist(f"dist trsm {trans}", lambda: par.trsm_factor_dist(
+            fbc, B, trans), {k: 0 for k in kernels.KERNELS})
+        ref = torch.linalg.solve_triangular(
+            L64 if trans == "N" else L64.T, B.double(), upper=trans == "T")
+        err, lim = max_err(X, ref), bound(60 * n, float(ref.abs().max()))
+        require(err <= lim, f"trsm_factor_dist {trans} n={n}: err {err} > "
+                f"{lim}")
+        sols[trans] = (err, lim)
+    print(f"trsm_factor_dist n={n} nrhs={DIST_NRHS}: N err {sols['N'][0]:.3e}"
+          f" (bound 60n {sols['N'][1]:.3e}), T err {sols['T'][0]:.3e} "
+          f"(bound {sols['T'][1]:.3e}) against f64 triangular solves of the "
+          "same factor")
+    del L64
+
+    times = {
+        "potrf_sharded": bench_op(lambda a: par.potrf_sharded(
+            "L", a, nb=nb), A, reps=5),
+        "potrf_dist": bench_op(lambda a: par.potrf_dist(bc), A, reps=5),
+        "logdet_dist": bench_op(lambda a: par.logdet_dist(bc), A, reps=5),
+        "ct.potrf": bench_op(lambda a: ct.potrf("L", a), A, reps=5),
+        "ct.logdet": bench_op(lambda a: ct.logdet("L", a), A, reps=5),
+        "cholesky_ex": bench_op(lambda a: torch.linalg.cholesky_ex(a), A,
+                                reps=5),
+        "trsm_factor_dist N": bench_op(
+            lambda x: par.trsm_factor_dist(fbc, x, "N"), B, reps=5),
+        "trsm_factor_dist T": bench_op(
+            lambda x: par.trsm_factor_dist(fbc, x, "T"), B, reps=5),
+        "solve_triangular": bench_op(
+            lambda x: torch.linalg.solve_triangular(F, x, upper=False), B,
+            reps=5),
+    }
+    print(f"phase 10 times at n={n}, nb={nb}, ms (CUDA events, median of 5):"
+          + "".join(f" {k} {v * 1e3:.4f};" for k, v in times.items())
+          + f" on {name_power}")
+    # where one potrf_dist's time goes
+    wall, busy, idle, count, rows = profile_table(lambda: par.potrf_dist(bc),
+                                                  top=8)
+    print(f"potrf_dist n={n} under torch.profiler: wall {wall:.3f} ms, "
+          f"device busy {busy:.3f} ms, idle share {idle:.4f}, {count} "
+          "operations on the device; by device time:")
+    for name, count, ms in rows:
+        print(f"  {ms:10.3f} ms  {count:6d}  {name[:160]}")
+    del fbc, bc, F, A, B
+
+    # potri at 8192 from a factor of the single-device driver
+    n2 = DIST_POTRI_N
+    A2 = dense_spd(gen, n2)
+    F2, _ = ct.potrf("L", A2)
+    (Inv, info), potri = run_dist(
+        "dist potri", lambda: par.potri_sharded("L", F2, nb=nb),
+        {"trtri_block_f32": dist_blocks(n2), "potrf_block_f32": 0,
+         "potrf_stream_f32": 0})
+    ref, info_ref = ct.potri("L", F2)
+    low = torch.ones(n2, n2, dtype=torch.bool, device="cuda").tril_()
+    err = float(torch.where(low, Inv.double() - ref.double(), 0.0).abs()
+                .max())
+    lim = bound(3000 * n2, float(ref.abs().max()))
+    require(int(info) == int(info_ref) == 0 and err <= lim,
+            f"potri_sharded n={n2}: info {int(info)}, err {err} > {lim}")
+    t_potri = bench_op(lambda f: par.potri_sharded("L", f, nb=nb), F2,
+                       reps=3)
+    t_ct = bench_op(lambda f: ct.potri("L", f), F2, reps=3)
+    t_lib = bench_op(lambda f: torch.cholesky_inverse(f), F2, reps=3)
+    print(f"potri_sharded n={n2}: info 0, err vs ct.potri {err:.3e} (bound "
+          f"3000n {lim:.3e}); {t_potri * 1e3:.4f} ms, ct.potri "
+          f"{t_ct * 1e3:.4f}, torch.cholesky_inverse {t_lib * 1e3:.4f} on "
+          f"{name_power}")
+    del A2, F2, Inv, ref, low
+
+    # f64 under auto: the d tier's kernels on every diagonal and product
+    n3 = DIST_D_N
+    A3 = latmc(gen, n3, D_COND, torch.float64)
+    (F3, info), d = run_dist(
+        "dist d", lambda: par.potrf_sharded("L", A3, nb=nb),
+        {"potrf_block_f32": dist_blocks(n3),
+         "trtri_block_f32": dist_blocks(n3)})
+    L3 = torch.tril(F3)
+    be3 = float((L3 @ L3.T - A3).abs().max()) / float(A3.abs().max())
+    require(int(info) == 0 and be3 <= n3 * 2.0 ** -40,
+            f"f64 potrf_sharded n={n3}: info {int(info)}, max|LLᵀ-A|/max|A| "
+            f"{be3} > n·2^-40")
+    t_d = wall_ms(lambda: par.potrf_sharded("L", A3, nb=nb))
+    t_dct = wall_ms(lambda: ct.potrf("L", A3))
+    t_dlib = bench_op(lambda a: torch.linalg.cholesky_ex(a), A3, reps=5)
+    print(f"f64 potrf_sharded n={n3} (auto -> ozaki): info 0, "
+          f"max|LLᵀ-A|/max|A| {be3:.3e} (bound n·2^-40 "
+          f"{n3 * 2.0 ** -40:.3e}); {t_d:.3f} ms (wall), ct.potrf "
+          f"{t_dct:.3f} ms (wall), f64 cholesky_ex {t_dlib * 1e3:.4f} ms on "
+          f"{name_power}")
+    del A3, F3, L3
+
+    # a non-positive-definite f32 input: info as the single-device driver's
+    A4 = dense_spd(gen, 4096)
+    A4[3000, 3000] = -1.0
+    F4, info = par.potrf_sharded("L", A4, nb=nb)
+    _, info_ref = ct.potrf("L", A4)
+    require(int(info) == int(info_ref) == 3001,
+            f"non-PD potrf_sharded: info {int(info)}, ct.potrf "
+            f"{int(info_ref)}")
+    lead = F4[:3000, :3000]
+    be4 = backward_error(lead, A4[:3000, :3000])
+    require(be4 <= bound(4096, float(A4.abs().max())),
+            f"non-PD potrf_sharded leading block: backward error {be4}")
+    print(f"potrf_sharded non-PD n=4096 A[3000,3000]=-1: info 3001 as "
+          f"ct.potrf's, leading 3000 block max|LLᵀ-A| {be4:.3e}")
+    return {"dist potrf": launches, "dist potri": potri, "dist d": d}
+
+
 #: each path's kernels: the launch counters must show every one of them
 PATHS = {
     "potrf": ("potrf_stream_f32",),
@@ -2922,6 +3113,13 @@ PATHS = {
     "cgemm": ("gemm_f32",),
     "cherk": ("gemm_f32",),
     "ctrmm": ("gemm_f32",),
+    "dist potrf": ("potrf_block_f32", "trtri_block_f32", "gemm_f32"),
+    "dist logdet": ("potrf_block_f32", "trtri_block_f32", "gemm_f32"),
+    "dist trsm N": (),
+    "dist trsm T": (),
+    "dist potri": ("trtri_block_f32", "gemm_f32"),
+    "dist d": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
+               "trtri_block_f32"),
 }
 
 #: each kernel: its source, the TPU kernel it replaces, and the path whose
@@ -3080,6 +3278,9 @@ def main() -> int:
     line = bench_torch.run(log=print)
     print(f"bench_torch.py headline: {json.dumps(line)} on {name_power} "
           f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # 10. the block-cyclic tier on one NCCL rank
+    runs.update(dist_path(gen, name_power))
     require("jax" not in sys.modules, "jax was imported")
     require(set(SOURCES) == set(kernels.KERNELS),
             "a kernel is missing from the kernels line")

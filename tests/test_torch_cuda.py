@@ -1252,3 +1252,134 @@ def test_complex_blas_on_the_card(cuda):
         res = float((Lc.mH @ Xc - Bc).abs().max())
         assert res <= 150 * n * (EPS32 if dtype == torch.float32
                                  else 2.0 ** -40), res
+
+
+# --- the block-cyclic tier (cholesky_tpu_torch.parallel) on one NCCL rank ---
+
+DIST_NB = 256
+
+
+@pytest.fixture(scope="module")
+def nccl():
+    """This process's default group as a one-rank NCCL world for the
+    module's dist tests, destroyed after them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch sees no CUDA device")
+    import torch.distributed as dist
+    from cholesky_tpu_torch.parallel import launch
+    launch.init_single("cuda")
+    yield torch.device("cuda")
+    dist.destroy_process_group()
+
+
+def dist_counts(fn):
+    """fn() with the launch and collective counters at 0 before it: (its
+    result, the launches, the collectives)."""
+    from cholesky_tpu_torch.parallel import comm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    comm.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts(), comm.counts()
+
+
+def diag_launches(n):
+    """potrf_dist at nb = 256 on one rank factors and inverts each of the
+    n/256 diagonal blocks once (the block-0 prologue and one lookahead per
+    step but the last)."""
+    nblk = -(-n // DIST_NB)
+    return {"potrf_block_f32": nblk, "trtri_block_f32": nblk,
+            "potrf_stream_f32": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_dist_potrf_logdet_on_the_card(nccl, n):
+    from cholesky_tpu_torch import parallel as par
+    A = spd(n, seed=n).to(nccl)
+    (F, info), launches, coll = dist_counts(
+        lambda: par.potrf_sharded("L", A, nb=DIST_NB))
+    nblk = n // DIST_NB
+    assert int(info) == 0
+    assert {k: launches[k] for k in diag_launches(n)} == diag_launches(n)
+    assert launches["gemm_f32"] == 3 * (nblk - 1)     # panel, fold, update
+    assert coll == {"broadcast": nblk, "all_reduce": 0,
+                    "all_gather": nblk}                # and the collect
+    Fr, _ = ct.potrf("L", A)
+    assert_close(torch.tril(F), torch.tril(Fr), 8 * n, "potrf_sharded")
+    (ld, info), launches, _ = dist_counts(
+        lambda: par.logdet_dist(par.distribute(A, nb=DIST_NB)))
+    ref, _ = ct.logdet("L", A)
+    assert int(info) == 0 and launches["potrf_block_f32"] == nblk
+    assert abs(float(ld) - float(ref)) <= n * EPS32 * abs(float(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans", ["N", "T"])
+def test_dist_trsm_on_the_card(nccl, trans):
+    from cholesky_tpu_torch import parallel as par
+    n = 2048
+    A = spd(n, seed=7).to(nccl)
+    B = rand((n, 16), 8).to(nccl)
+    fbc, info = par.potrf_dist(par.distribute(A, nb=DIST_NB))
+    X, launches, coll = dist_counts(
+        lambda: par.trsm_factor_dist(fbc, B, trans))
+    assert int(info) == 0 and not any(launches.values())
+    nblk = n // DIST_NB
+    assert coll["broadcast"] == (nblk if trans == "N" else 2 * nblk - 1)
+    L = torch.tril(par.collect(fbc)).double()
+    ref = torch.linalg.solve_triangular(L if trans == "N" else L.T,
+                                        B.double(), upper=trans == "T")
+    assert_close(X, ref, 60 * n, f"trsm_factor_dist {trans}")
+
+
+@pytest.mark.cuda
+def test_dist_potri_on_the_card(nccl):
+    from cholesky_tpu_torch import parallel as par
+    n = 2048
+    F, _ = ct.potrf("L", spd(n, seed=9).to(nccl))
+    (Inv, info), launches, coll = dist_counts(
+        lambda: par.potri_sharded("L", F, nb=DIST_NB))
+    nblk = n // DIST_NB
+    assert int(info) == 0
+    assert launches["trtri_block_f32"] == nblk and launches["gemm_f32"] > 0
+    assert coll["all_reduce"] == (nblk - 1) * (nblk - 2) // 2 + 1
+    ref, _ = ct.potri("L", F)
+    assert_close(torch.tril(Inv), torch.tril(ref), 3000 * n, "potri_sharded")
+
+
+@pytest.mark.cuda
+def test_dist_f64_on_the_ozaki_kernels(nccl):
+    from cholesky_tpu_torch import parallel as par
+    n = 1024
+    A = spd(n, seed=10).double().to(nccl)
+    (F, info), launches, _ = dist_counts(
+        lambda: par.potrf_sharded("L", A, nb=DIST_NB))
+    assert int(info) == 0
+    assert launches["peel_f32pair"] > 0 and launches["mm_groups_f32pair"] > 0
+    assert launches["potrf_block_f32"] == n // DIST_NB
+    L = torch.tril(F)
+    err = float((L @ L.T - A).abs().max()) / float(A.abs().max())
+    assert err <= n * 2.0 ** -40, err
+
+
+@pytest.mark.cuda
+def test_dist_nonpd_info_as_potrf_on_the_card(nccl):
+    from cholesky_tpu_torch import parallel as par
+    A = spd(1024, seed=11).to(nccl)
+    A[700, 700] = -1.0
+    F, info = par.potrf_sharded("L", A, nb=DIST_NB)
+    _, info_ref = ct.potrf("L", A)
+    assert int(info) == int(info_ref) == 701
+    assert bool(torch.isfinite(F[:700, :700]).all())
+
+
+@pytest.mark.cuda
+def test_dist_cuda_tensor_on_a_gloo_group_raises(nccl):
+    import torch.distributed as dist
+    from cholesky_tpu_torch import parallel as par
+    gloo = dist.new_group(backend="gloo")
+    A = spd(512, seed=12).to(nccl)
+    with pytest.raises(ValueError, match="needs a nccl group"):
+        par.potrf_sharded("L", A, group=gloo, nb=DIST_NB)

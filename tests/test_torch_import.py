@@ -34,6 +34,9 @@ def test_import_loads_neither_jax_nor_triton():
         "import cholesky_tpu_torch.rng.device\n"
         "import cholesky_tpu_torch.utils.benchlib\n"
         "import cholesky_tpu_torch.tuning.autotune\n"
+        "import cholesky_tpu_torch.parallel\n"
+        "import cholesky_tpu_torch.parallel.launch\n"
+        "import tests.torch_dist_ranks\n"
         "import bench_torch\n"
         "bad = [m for m in ('jax', 'triton', 'cholesky_tpu')\n"
         "       if m in sys.modules]\n"
