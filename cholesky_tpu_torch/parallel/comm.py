@@ -53,7 +53,10 @@ def world(group=None) -> int:
 
 
 def _check_backend(t, group, what):
-    backend = dist.get_backend(group)
+    backend = str(dist.get_backend(group))
+    if ":" in backend:      # one backend a device type: "cuda:nccl,cpu:gloo"
+        backend = dict(kv.split(":") for kv in backend.split(",")).get(
+            t.device.type, "none")
     want = "nccl" if t.device.type == "cuda" else "gloo"
     check(backend == want, what, 1,
           f"a {t.device.type} tensor needs a {want} group, this one is "

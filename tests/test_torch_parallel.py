@@ -388,3 +388,19 @@ def test_init_single_gloo_group_matches_world_of_one():
         dist.destroy_process_group()
     np.testing.assert_array_equal(got["F"], want["F"])
     assert got["counts"] == want["counts"]
+
+
+@pytest.mark.parametrize("backend", ["gloo", "cpu:gloo"])
+def test_cpu_tensor_needs_gloo_for_its_device_type(backend):
+    # a group named by device type ("cuda:nccl,cpu:gloo", what
+    # init_process_group picks on a machine with a card) takes the
+    # backend of the tensor's device
+    import torch.distributed as dist
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        x = torch.arange(3.0)
+        assert comm.broadcast(x, 0) is x and comm.all_reduce(x) is x
+        assert comm.all_gather(x)[0].tolist() == [0.0, 1.0, 2.0]
+    finally:
+        dist.destroy_process_group()
