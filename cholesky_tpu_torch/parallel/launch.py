@@ -19,10 +19,10 @@ from __future__ import annotations
 
 import datetime
 import os
+import pickle
 import queue
 import tempfile
 import time
-import traceback
 
 import torch
 import torch.distributed as dist
@@ -32,19 +32,34 @@ import torch.multiprocessing as mp
 def _rank_main(rank, world_size, store_path, backend, timeout, fn, args,
                results):
     torch.set_num_threads(1)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store_path, world_size), rank=rank,
+        world_size=world_size, timeout=datetime.timedelta(seconds=timeout))
     try:
-        dist.init_process_group(
-            backend, store=dist.FileStore(store_path, world_size),
-            rank=rank, world_size=world_size,
-            timeout=datetime.timedelta(seconds=timeout))
-        try:
-            out = fn(rank, *args)
-        finally:
-            dist.destroy_process_group()
-    except BaseException:
-        results.put((rank, False, traceback.format_exc()))
-        raise
-    results.put((rank, True, out))
+        results.put((rank, fn(rank, *args)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _drain(results, got: dict) -> None:
+    try:
+        while True:
+            rank, out = results.get(timeout=0.1)
+            got[rank] = out
+    except queue.Empty:
+        pass
+
+
+def _tracebacks(ctx) -> str:
+    """Every failed rank's traceback: ProcessContext.join reports one
+    rank only, often a peer cut off by the first failure."""
+    out = []
+    for rank, path in enumerate(ctx.error_files):
+        if os.path.exists(path):
+            with open(path, "rb") as fh:
+                out.append(f"rank {rank} failed:\n{pickle.load(fh)}")
+            os.unlink(path)
+    return "\n".join(out)
 
 
 def spawn(world_size: int, fn, *args, backend: str = "gloo",
@@ -54,60 +69,34 @@ def spawn(world_size: int, fn, *args, backend: str = "gloo",
     pickled: ``fn`` must be importable by name from a module that the
     children can import cheaply (no JAX), and the results should be plain
     data (numpy arrays, numbers)."""
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    results = mp.get_context("spawn").Queue()
     deadline = time.monotonic() + timeout
+    got = {}
     with tempfile.TemporaryDirectory() as tmp:
-        store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(rank, world_size, store, backend, timeout,
-                                   fn, args, results))
-                 for rank in range(world_size)]
+        ctx = mp.start_processes(
+            _rank_main, nprocs=world_size, join=False, start_method="spawn",
+            args=(world_size, os.path.join(tmp, "store"), backend, timeout,
+                  fn, args, results))
         try:
-            for proc in procs:
-                proc.start()
-            got, failed = {}, {}
-            while len(got) + len(failed) < world_size:
-                left = deadline - time.monotonic()
-                if failed:          # a short wait for the others' reports
-                    left = min(left, grace - time.monotonic())
-                if left <= 0:
-                    break
-                try:
-                    rank, ok, out = results.get(timeout=min(left, 1.0))
-                except queue.Empty:
-                    dead = [i for i, proc in enumerate(procs)
-                            if proc.exitcode not in (None, 0)
-                            and i not in got and i not in failed]
-                    if dead and results.empty():
-                        failed.update((i, f"exit code {procs[i].exitcode} "
-                                       "and no result") for i in dead)
-                        grace = time.monotonic() + 2.0
-                    continue
-                if ok:
-                    got[rank] = out
-                else:
-                    failed[rank] = out
-                    grace = time.monotonic() + 2.0
-            if failed:
-                raise RuntimeError("spawn: " + "\n".join(
-                    f"rank {rank} failed:\n{failed[rank]}"
-                    for rank in sorted(failed)))
-            if len(got) < world_size:
-                raise TimeoutError(
-                    f"spawn: {world_size - len(got)} of {world_size} ranks "
-                    f"gave no result within {timeout} s")
-            for proc in procs:
-                proc.join(max(1.0, deadline - time.monotonic()))
-            codes = [proc.exitcode for proc in procs]
-            if codes != [0] * world_size:
-                raise RuntimeError(f"spawn: exit codes {codes}")
+            # a rank's result must be read before the rank can exit
+            while not ctx.join(timeout=0.5):
+                _drain(results, got)
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"spawn: {world_size - len(got)} of {world_size} "
+                        f"ranks gave no result within {timeout} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            raise RuntimeError("spawn: " + (_tracebacks(ctx) or str(e))) from e
         finally:
-            for proc in procs:
+            for proc in ctx.processes:
                 if proc.is_alive():
                     proc.kill()
                     proc.join(10)
-        results.close()
+        _drain(results, got)
+    results.close()
+    if len(got) < world_size:
+        raise RuntimeError(f"spawn: {world_size - len(got)} of {world_size} "
+                           "ranks exited without a result")
     return [got[rank] for rank in range(world_size)]
 
 

@@ -106,7 +106,3 @@ def trsm_factor_dist(fbc: BlockCyclic, B, trans="N"):
         _solve_lower_t(fbc.local, fbc.nb, fbc.group, R, trans)
     X = R[:fbc.n]
     return X[:, 0] if squeeze else X
-
-
-#: the JAX package's earlier name for the same function
-trsm_dist = trsm_factor_dist

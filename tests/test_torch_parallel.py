@@ -105,19 +105,30 @@ def mesh():
 
 
 # --- the JAX side, each call once per module ------------------------------
+# (an eager JAX call compiles its shard_map anew, most of this file's time:
+# one factor of each input serves every case that factors it as is)
 
 @functools.lru_cache(maxsize=None)
 def jax_potrf(key, mesh, **kw):
     A = {"nonpd": NONPD, **INPUTS}[key]
-    F, info = jpotrf.potrf_sharded(kw.pop("uplo", "L"), jnp.asarray(A), mesh,
-                                   nb=NB, tiles="ref", **kw)
+    F, info = jpotrf.potrf_sharded("L", jnp.asarray(A), mesh, nb=NB,
+                                   tiles="ref", **kw)
     return np.asarray(F), int(info)
 
 
 @functools.lru_cache(maxsize=None)
-def jax_factor(mesh):
-    return jpotrf.potrf_dist(jbc.distribute(jnp.asarray(A32), mesh, nb=NB),
-                             tiles="ref")[0]
+def jax_factor(key, mesh):
+    """JAX's potrf_dist of INPUTS[key] at the defaults: (fbc, info)."""
+    fbc, info = jpotrf.potrf_dist(
+        jbc.distribute(jnp.asarray(INPUTS[key]), mesh, nb=NB), tiles="ref")
+    return fbc, int(info)
+
+
+def jax_lower(key, mesh):
+    """JAX's potrf_sharded("L", INPUTS[key]) on the lower triangle: the
+    collected potrf_dist factor, which is all potrf_sharded adds to it."""
+    fbc, info = jax_factor(key, mesh)
+    return np.tril(np.asarray(jbc.collect(fbc))), info
 
 
 def case(world, name, rank=0):
@@ -151,7 +162,7 @@ def test_roundtrip_on_every_rank(world, name):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_potrf_sharded_vs_jax(world, mesh, dtype, tiles):
     got = case(world, f"potrf_{dtype}_{tiles}")
-    F, info = jax_potrf(dtype, mesh)
+    F, info = jax_lower(dtype, mesh)
     assert int(got["info"]) == info == 0
     assert got["F"].dtype == DTYPES[dtype]
     assert_close(np.tril(got["F"]), np.tril(F), DTYPES[dtype], 8 * N,
@@ -165,17 +176,20 @@ def test_potrf_f64_fast_tiles_vs_jax(world, mesh):
     # tiles='fast' puts f64 on the d tier (the Ozaki twins here), as the
     # JAX test_potrf_dist_fast_f64_tiles does; its bound is that test's
     got = case(world, "potrf_f64_fast")
-    F, info = jax_potrf("f64", mesh)
+    F, info = jax_lower("f64", mesh)
     assert int(got["info"]) == info == 0
     diff = np.max(np.abs(np.tril(got["F"]) - np.tril(F)))
     assert diff < 1e-9, diff
 
 
 def test_potrf_upper_vs_jax(world, mesh):
+    # JAX's upper route factors Aᴴ, which is A32 bit for bit, and returns
+    # the factor's transpose
     got = case(world, "potrf_upper")
-    F, info = jax_potrf("f32", mesh, uplo="U")
+    np.testing.assert_array_equal(A32, A32.T)
+    F, info = jax_lower("f32", mesh)
     assert int(got["info"]) == info == 0
-    assert_close(np.triu(got["F"]), np.triu(F), np.float32, 8 * N,
+    assert_close(np.triu(got["F"]), F.T, np.float32, 8 * N,
                  "potrf_sharded upper")
     np.testing.assert_array_equal(np.tril(got["F"], -1), np.tril(A32, -1))
 
@@ -195,8 +209,10 @@ def test_potrf_nonpd_info_vs_jax(world, mesh, la, tiles):
 
 @pytest.mark.parametrize("phases", [1, 3])
 def test_potrf_phases_vs_jax(world, mesh, phases):
+    # one JAX run at phases=1, whose windows differ most from the default
+    # 4: the port's phases are a no-op (test_potrf_phases_change_nothing)
     got = case(world, f"phases_{phases}")
-    F, info = jax_potrf("f32", mesh, phases=phases)
+    F, info = jax_potrf("f32", mesh, phases=1)
     assert int(got["info"]) == info == 0
     assert_close(np.tril(got["F"]), np.tril(F), np.float32, 8 * N,
                  f"phases={phases}")
@@ -221,8 +237,8 @@ def test_potrf_lookahead_vs_serial(world, mesh):
 
 def test_potrf_dist_vs_jax(world, mesh):
     got = case(world, "dist")
-    F = np.asarray(jbc.collect(jax_factor(mesh)))
-    assert int(got["info"]) == 0
+    F, info = jax_lower("f32", mesh)
+    assert int(got["info"]) == info == 0
     assert_close(np.tril(got["F"]), np.tril(F), np.float32, 8 * N,
                  "potrf_dist")
 
@@ -252,11 +268,7 @@ def test_logdet_vs_jax(world, mesh, name):
 @functools.lru_cache(maxsize=None)
 def jax_solve(name, mesh):
     kw = CASES[name][1]
-    if kw["A"] is INPUTS["c64"]:
-        fbc, _ = jpotrf.potrf_dist(
-            jbc.distribute(jnp.asarray(kw["A"]), mesh, nb=NB), tiles="ref")
-    else:
-        fbc = jax_factor(mesh)
+    fbc, _ = jax_factor("c64" if kw["A"] is INPUTS["c64"] else "f32", mesh)
     return np.asarray(jtrsm.trsm_factor_dist(fbc, jnp.asarray(kw["B"]),
                                              trans=kw["trans"]))
 
