@@ -55,6 +55,22 @@ show that the path went through each of its kernels:
   4096 under ``auto`` (the Ozaki kernels) and a non-PD f32 input, each
   with its collective counts and timed beside ``ct.potrf``/``ct.logdet``/
   ``ct.potri`` and cuSOLVER. One card: no scaling is measured.
+- phase 11, the multi-device tier's part (b) on a one-rank NCCL group:
+  the distributed GP train step (``models/gp_dist.py`` on
+  ``launch.mesh2d(1, 1)``) at n_train = 8192, d = 8, batch 2, nb = 256, 2
+  probes, its nll and gradients held against the same Hutchinson
+  estimator in f64 and three steps on their own counters
+  (``potrf_block_f32`` and ``trtri_block_f32`` once per block per
+  problem, ``gemm_f32``, no ``potrf_stream_f32``; the collective census),
+  timed beside ``ct.potrf`` + two ``ct.trsm`` and profiled; one call of
+  each distributed BLAS routine (``parallel/blas.py``): f32 ``gemm_dist``
+  8192³, ``syrk_dist``, ``trsm_dist`` and ``trmm_dist`` at 8192, f64
+  ``gemm_dist``/``trsm_dist``/``trmm_dist`` at 4096 (the Ozaki kernels)
+  and c64 ``herk_dist`` at 4096, each on its own counters (one
+  all_gather a call), gated in f64 and timed beside the single-device
+  call and one torch call; then the dry run
+  (``entry.dryrun_multichip(1)``, one spawned NCCL rank) and
+  ``entry.entry()``'s forward.
 
 The kernels of ``strtri(block_size=8192)``, ``potri`` at 6000 and
 ``cpotri`` depend on the tuning table in force (``routed_paths``), which
@@ -94,9 +110,10 @@ result line. Needs one CUDA card; imports nothing of JAX.
 
 The last two lines of standard output are one JSON object per kernel
 ({"kernels": [...]}, each with the path its launch count comes from, its
-bound at the H100's published peaks and the time of one PyTorch library
-call computing the same function where there is one) and the result
-{"ok": true, "device": {...}}.
+launches on every path that ran it, its bound at the H100's published
+peaks and the time of one PyTorch library call computing the same
+function where there is one) and the result {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -3098,6 +3115,358 @@ def dist_calls(gen, name_power):
     return {"dist potrf": launches, "dist potri": potri, "dist d": d}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-device tier's part (b) on one NCCL rank: the
+# distributed GP train step (models/gp_dist.py) at n_train = 8192, d = 8,
+# the distributed BLAS (parallel/blas.py) and the dry run (entry.py)
+# ---------------------------------------------------------------------------
+
+GPD_N, GPD_D, GPD_BATCH, GPD_PROBES, GPD_STEPS = 8192, 8, 2, 2, 3
+DBLAS_N, DBLAS_D_N = 8192, 4096
+
+
+def gp_dist_data(gen, batch: int, n: int, d: int, probes: int):
+    """The dry run's kind of data at (batch, n, d): Gaussian X, y =
+    sin(X[..., 0]) + 0.1 noise, Rademacher probes."""
+    X = torch.randn(batch, n, d, device="cuda", generator=gen)
+    y = torch.sin(X[..., 0]) + 0.1 * torch.randn(batch, n, device="cuda",
+                                                 generator=gen)
+    Z = torch.randint(0, 2, (batch, n, probes), device="cuda",
+                      generator=gen).float().mul_(2.0).sub_(1.0)
+    return X, y, Z
+
+
+def hutchinson(params, X, y, Z, dtype):
+    """The distributed step's mean (nll, ∂/∂log_amp, ∂/∂log_len,
+    ∂/∂log_noise) over the batch on torch.linalg in ``dtype`` (cholesky,
+    cholesky_solve with the same probes): the f64 oracle, and in f32 the
+    library yardstick."""
+    amp, ell2, noise = (torch.exp(2.0 * v.to(dtype)) for v in params)
+    out = torch.zeros(4, dtype=dtype, device="cuda")
+    for Xb, yb, Zb in zip(X.to(dtype), y.to(dtype), Z.to(dtype)):
+        n = Xb.shape[0]
+        D = torch.zeros(n, n, dtype=dtype, device="cuda")
+        for f in range(Xb.shape[1]):
+            dd = Xb[:, f, None] - Xb[None, :, f]
+            D += dd * dd
+        Kf = amp * torch.exp(-0.5 * D / ell2)
+        K = Kf.clone()
+        K.diagonal().add_(noise + 1e-6)
+        L = torch.linalg.cholesky(K)
+        del K
+        sol = torch.cholesky_solve(torch.cat([yb[:, None], Zb], 1), L)
+        alpha, U = sol[:, 0], sol[:, 1:]
+        ld = 2.0 * torch.log(L.diagonal()).sum()
+        del L
+
+        def grad(dK):
+            return 0.5 * ((U * (dK @ Zb)).sum(0).mean()
+                          - alpha @ (dK @ alpha))
+
+        out += torch.stack([
+            0.5 * (yb @ alpha + ld + n * math.log(2.0 * math.pi)),
+            grad(2.0 * Kf), grad(Kf * (D / ell2)),
+            0.5 * ((U * Zb).sum(0).mean() - alpha @ alpha) * 2.0 * noise])
+    return out / X.shape[0]
+
+
+def gp_dist_counts(nblk: int, local_batch: int, steps: int = 1) -> dict:
+    """The collectives of ``steps`` train steps on one rank: for each
+    problem potrf_dist's, the log-determinant's all_reduce and the two
+    solves'; then one all_reduce and one all_gather over the dp group."""
+    return {"broadcast": steps * local_batch * (4 * nblk - 1),
+            "all_reduce": steps * (local_batch * nblk + 1),
+            "all_gather": steps * (local_batch * (nblk - 1) + 1)}
+
+
+def gp_dist_gates(what, got, ref64, ref32):
+    """Each of (nll, three gradients) against the f64 oracle, gated on the
+    f32 library computation's error (``gated``, the limit below 1 % of
+    the oracle's size)."""
+    names = ("nll", "g_amp", "g_len", "g_noise")
+    out = []
+    for i, name in enumerate(names[:len(got)]):
+        r = ref64[i]
+        err, lim, _ = gated(f"{what} {name}", got[i], r,
+                            max_err(ref32[i], r), rms=float(r.abs()))
+        out.append(f"{name} {float(got[i]):.6f} vs f64 {float(r):.6f}, err "
+                   f"{err:.3e}, f32 torch.linalg's "
+                   f"{max_err(ref32[i], r):.3e} (limit {lim:.3e})")
+    return "; ".join(out)
+
+
+def gp_dist_step_path(gen, name_power):
+    """The distributed GP train step on a (1, 1) mesh of the one-rank NCCL
+    group: gradients at the initial parameters from one step at lr = 1
+    (params − params' gives them back to f32's rounding of params'), then
+    three steps at lr = 0.05 / max|g| on their own counters, each nll
+    gated; times beside ct.potrf + two ct.trsm of the same problems."""
+    from cholesky_tpu_torch.models import make_gp_train_step
+    n, d, batch, nb = GPD_N, GPD_D, GPD_BATCH, DIST_NB
+    nblk = dist_blocks(n)
+    X, y, Z = gp_dist_data(gen, batch, n, d, GPD_PROBES)
+    mesh = launch.mesh2d(1, 1)
+    p0 = gp.GPParams.init()
+    ref64, ref32 = (hutchinson(p0, X, y, Z, dt)
+                    for dt in (torch.float64, torch.float32))
+    unit = make_gp_train_step(mesh, n, d, batch, nb=nb,
+                              n_probes=GPD_PROBES, lr=1.0)
+    p1, nll, infos = unit(p0, X, y, Z)
+    require(infos.tolist() == [0] * batch, f"dist GP infos {infos.tolist()}")
+    got = [nll.double()] + [a.double() - b.double() for a, b in zip(p0, p1)]
+    print(f"dist GP n={n} d={d} batch={batch} nb={nb} (one NCCL rank): "
+          "at the initial parameters " + gp_dist_gates(
+              "dist GP step", got, ref64, ref32))
+
+    lr = 0.05 / float(ref64[1:].abs().max())
+    step = make_gp_train_step(mesh, n, d, batch, nb=nb, n_probes=GPD_PROBES,
+                              lr=lr)
+
+    def train():
+        p, out = p0, []
+        for _ in range(GPD_STEPS):
+            p_in = p
+            p, nll, infos = step(p, X, y, Z)
+            out.append((p_in, nll, infos))
+        return p, out
+
+    blocks = GPD_STEPS * batch * nblk
+    (p, steps), launches = run_dist(
+        "dist GP", train, {"potrf_block_f32": blocks,
+                           "trtri_block_f32": blocks, "potrf_stream_f32": 0})
+    want = gp_dist_counts(nblk, batch, GPD_STEPS)
+    require(par_comm.counts() == want,
+            f"dist GP collectives {par_comm.counts()}, expected {want}")
+    for i, (p_in, nll, infos) in enumerate(steps):
+        require(infos.tolist() == [0] * batch,
+                f"dist GP step {i}: infos {infos.tolist()}")
+        r64, r32 = (hutchinson(p_in, X, y, Z, dt)
+                    for dt in (torch.float64, torch.float32))
+        print(f"dist GP step {i} (lr {lr:.4e}): infos 0, "
+              + gp_dist_gates(f"dist GP step {i}", [nll.double()], r64, r32))
+    require(all(bool(torch.isfinite(v)) for v in p), f"dist GP params {p}")
+    print(f"dist GP params after {GPD_STEPS} steps: "
+          f"{[round(float(v), 6) for v in p]}")
+
+    # times: the step, and the single-device factor and two solves of the
+    # same problems (their kernel matrices made before the clock starts)
+    Ks = [gp._kmatrix(p0, Xb) for Xb in X]
+    rhs = torch.cat([y[..., None], Z], dim=2)
+
+    def single(_):
+        for K, R in zip(Ks, rhs):
+            F, _ = ct.potrf("L", K)
+            ct.trsm("L", "L", "T", "N", 1.0, F,
+                    ct.trsm("L", "L", "N", "N", 1.0, F, R))
+
+    t_step = bench_op(lambda x: step(p0, x, y, Z), X, reps=5)
+    t_single = bench_op(single, X, reps=5)
+    t_factor = bench_op(lambda x: [par.potrf_dist(par.distribute(K, nb=nb))
+                                   for K in Ks], X, reps=5)
+    print(f"dist GP step n={n} batch={batch}: {t_step * 1e3:.4f} ms; "
+          f"distribute + potrf_dist of both problems {t_factor * 1e3:.4f} ms; "
+          f"single-device ct.potrf + two ct.trsm of both {t_single * 1e3:.4f}"
+          f" ms (CUDA events, median of 5) on {name_power}")
+    del Ks, rhs
+    wall, busy, idle, count, rows = profile_table(lambda: step(p0, X, y, Z),
+                                                  top=8)
+    print(f"dist GP step under torch.profiler: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {idle:.4f}, {count} operations "
+          "on the device; by device time:")
+    for name, c, ms in rows:
+        print(f"  {ms:10.3f} ms  {c:6d}  {name[:160]}")
+    return {"dist GP": launches}
+
+
+def dist_blas_path(gen, name_power):
+    """One call of each distributed BLAS routine on dense inputs, each on
+    its own launch and collective counters (one all_gather a call), held
+    against f64 (f32 and c64 under ``gated``, f64 within n·2^-40 of the
+    reference's size, the d tier's rule) and timed beside the single-device
+    call and one PyTorch call."""
+    n, runs, lines = DBLAS_N, {}, []
+    one_gather = {"broadcast": 0, "all_reduce": 0, "all_gather": 1}
+
+    def call(path, fn, exact_counts):
+        out, runs[path] = run_dist(path, fn, exact_counts)
+        require(par_comm.counts() == one_gather,
+                f"{path}: collectives {par_comm.counts()}")
+        return out
+
+    def times(label, dist_fn, ct_fn, lib_fn, x, reps=3):
+        t = [bench_op(f, x, reps=reps) * 1e3 for f in (dist_fn, ct_fn,
+                                                        lib_fn)]
+        lines.append(f"{label}: {t[0]:.4f} ms, single-device {t[1]:.4f}, "
+                     f"torch {t[2]:.4f}")
+
+    A = torch.randn(n, n, device="cuda", generator=gen)
+    B = torch.randn(n, n, device="cuda", generator=gen)
+    C = torch.randn(n, n, device="cuda", generator=gen)
+    G = call("dist gemm", lambda: par.gemm_dist("N", "N", 1.0, A, B, 0.5, C),
+             only())
+    ref = A.double() @ B.double() + 0.5 * C.double()
+    e_lib = max_err(torch.addmm(C, A, B, beta=0.5), ref)
+    err, lim, _ = gated(f"gemm_dist {n}³", G, ref, e_lib, rms=rms_of(ref))
+    del G, ref
+    print(f"gemm_dist N,N {n}³ f32: max err vs f64 {err:.3e}, torch.addmm's "
+          f"{e_lib:.3e} (limit {lim:.3e})")
+    times(f"gemm_dist {n}³", lambda x: par.gemm_dist("N", "N", 1.0, x, B,
+                                                     0.5, C),
+          lambda x: ct.gemm("N", "N", 1.0, x, B, 0.5, C),
+          lambda x: torch.addmm(C, x, B, beta=0.5), A)
+
+    S = call("dist syrk", lambda: par.syrk_dist("L", "N", -1.0, A, 1.0, C),
+             only())
+    require(torch.equal(torch.triu(S, 1), torch.triu(C, 1)),
+            "syrk_dist: the strict upper changed")
+    ref = torch.tril(C.double() - A.double() @ A.double().T)
+    e_lib = max_err(torch.tril(torch.addmm(C, A, A.T, alpha=-1.0)), ref)
+    err, lim, _ = gated(f"syrk_dist {n}", torch.tril(S), ref, e_lib)
+    del S, ref
+    print(f"syrk_dist L,N n=k={n} f32: max err vs f64 {err:.3e}, "
+          f"torch.addmm's {e_lib:.3e} (limit {lim:.3e}), strict upper kept")
+    times(f"syrk_dist n=k={n}", lambda x: par.syrk_dist("L", "N", -1.0, x,
+                                                        1.0, C),
+          lambda x: ct.syrk("L", "N", -1.0, x, 1.0, C),
+          lambda x: torch.addmm(C, x, x.T, alpha=-1.0), A)
+    del C
+
+    # the triangular pair on a dense factor (cond 100: its own about 10)
+    F, info = ct.potrf("L", dense_spd(gen, n))
+    require(int(info) == 0, f"trsm_dist input factor: info {int(info)}")
+    L = torch.tril(F)
+    del F
+    X = call("dist trsm", lambda: par.trsm_dist("L", "L", "N", "N", 1.0, L,
+                                                B), exact("dist trsm"))
+    L64, B64 = L.double(), B.double()
+    ref = torch.linalg.solve_triangular(L64, B64, upper=False)
+    e_lib = max_err(torch.linalg.solve_triangular(L, B, upper=False), ref)
+    err, lim, rms = gated(f"trsm_dist {n}", X, ref, e_lib, rms=rms_of(ref))
+    del X, ref
+    print(f"trsm_dist L,L,N,N n=m={n} f32: max err vs f64 {err:.3e}, f32 "
+          f"solve_triangular's {e_lib:.3e} (limit {lim:.3e}, 1/"
+          f"{rms / lim:.0f} of the solution's RMS {rms:.3e})")
+    times(f"trsm_dist n=m={n}", lambda x: par.trsm_dist("L", "L", "N", "N",
+                                                        1.0, L, x),
+          lambda x: ct.trsm("L", "L", "N", "N", 1.0, L, x),
+          lambda x: torch.linalg.solve_triangular(L, x, upper=False), B)
+    T = call("dist trmm", lambda: par.trmm_dist("L", "L", "N", "N", 1.0, A,
+                                                B), only(trmm_lln_f32=1))
+    At = torch.tril(A)
+    ref = torch.tril(A.double()) @ B64
+    e_lib = max_err(torch.matmul(At, B), ref)
+    err, lim, _ = gated(f"trmm_dist {n}", T, ref, e_lib, rms=rms_of(ref))
+    del T, ref, L64, B64
+    print(f"trmm_dist L,L,N,N n=m={n} f32: max err vs f64 {err:.3e}, "
+          f"torch.matmul(tril(A), B)'s {e_lib:.3e} (limit {lim:.3e})")
+    times(f"trmm_dist n=m={n}", lambda x: par.trmm_dist("L", "L", "N", "N",
+                                                        1.0, A, x),
+          lambda x: ct.trmm("L", "L", "N", "N", 1.0, A, x),
+          lambda x: torch.matmul(At, x), B)
+    del A, B, At, L
+
+    # f64 at 4096: the Ozaki kernels under every stripe product
+    m = DBLAS_D_N
+    A, B, C = (torch.randn(m, m, device="cuda", dtype=torch.float64,
+                           generator=gen) for _ in range(3))
+    L = torch.linalg.cholesky(dense_spd(gen, m).double())
+
+    def rel64(what, got, ref):
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        require(rel <= m * 2.0 ** -40,
+                f"{what}: max err / max|ref| {rel:.3e} > n·2^-40")
+        return rel
+
+    cases = (
+        ("dist d gemm", "gemm_dist", lambda x: par.gemm_dist(
+            "N", "N", 1.0, x, B, 0.5, C),
+         lambda x: ct.gemm("N", "N", 1.0, x, B, 0.5, C),
+         lambda x: torch.addmm(C, x, B, beta=0.5), A,
+         lambda: A @ B + 0.5 * C),
+        ("dist d trsm", "trsm_dist", lambda x: par.trsm_dist(
+            "L", "L", "N", "N", 1.0, L, x),
+         lambda x: ct.trsm("L", "L", "N", "N", 1.0, L, x),
+         lambda x: torch.linalg.solve_triangular(L, x, upper=False), B,
+         lambda: torch.linalg.solve_triangular(L, B, upper=False)),
+        ("dist d trmm", "trmm_dist", lambda x: par.trmm_dist(
+            "L", "L", "N", "N", 1.0, A, x),
+         lambda x: ct.trmm("L", "L", "N", "N", 1.0, A, x),
+         lambda x: torch.matmul(torch.tril(A), x), B,
+         lambda: torch.tril(A) @ B))
+    for path, name, dist_fn, ct_fn, lib_fn, x, ref_fn in cases:
+        out = call(path, lambda: dist_fn(x), exact(path))
+        rel = rel64(f"f64 {name} {m}", out, ref_fn())
+        del out
+        print(f"f64 {name} {m} (auto -> ozaki): max err / max|ref| "
+              f"{rel:.3e} (bound n·2^-40 {m * 2.0 ** -40:.3e}) against "
+              "cuBLAS/cuSOLVER f64")
+        times(f"f64 {name} {m}", dist_fn, ct_fn, lib_fn, x)
+    del A, B, C, L
+
+    # c64 herk: a torch product a stripe (no kernel of the port), in c128
+    Ac = torch.randn(m, m, dtype=torch.complex64, device="cuda",
+                     generator=gen)
+    Cc = torch.randn(m, m, dtype=torch.complex64, device="cuda",
+                     generator=gen)
+    H = call("dist herk", lambda: par.herk_dist("L", "N", 1.0, Ac, 0.5, Cc),
+             only())
+    require(torch.equal(torch.triu(H, 1), torch.triu(Cc, 1))
+            and not bool(H.diagonal().imag.any()),
+            "herk_dist: the strict upper changed or the diagonal is complex")
+    A128 = Ac.to(torch.complex128)
+    ref = torch.tril(A128 @ A128.mH + 0.5 * Cc.to(torch.complex128))
+    ref.diagonal().imag.zero_()
+    lib = torch.tril(torch.addmm(Cc, Ac, Ac.mH, beta=0.5))
+    lib.diagonal().imag.zero_()
+    e_lib = max_err(lib, ref)
+    rms = float(ref.abs().square().sum().div(m * (m + 1) / 2).sqrt())
+    err, lim, _ = gated(f"herk_dist {m}", torch.tril(H), ref, e_lib, rms=rms)
+    del H, ref, lib, A128
+    print(f"herk_dist L,N n=k={m} c64: max err vs c128 {err:.3e}, c64 "
+          f"torch.addmm's {e_lib:.3e} (limit {lim:.3e}, 1/{rms / lim:.0f} "
+          f"of the lower's RMS {rms:.3e}), strict upper kept, diagonal real")
+    times(f"herk_dist n=k={m} c64", lambda x: par.herk_dist(
+        "L", "N", 1.0, x, 0.5, Cc),
+          lambda x: ct.herk("L", "N", 1.0, x, 0.5, Cc),
+          lambda x: torch.addmm(Cc, x, x.mH, beta=0.5), Ac)
+    print("dist BLAS times, ms (CUDA events, median of 3), the stripe call "
+          "of one rank, the single-device ct call, one torch call, on "
+          f"{name_power}:\n  " + "\n  ".join(lines))
+    return runs
+
+
+def dist_b_path(gen, name_power):
+    """Phase 11: (a) the distributed GP step and (b) the distributed BLAS
+    on a one-rank NCCL group, then (c) the dry run in a spawned NCCL rank
+    of its own and entry()'s forward."""
+    from cholesky_tpu_torch import entry
+    t_phase = time.perf_counter()
+    launch.init_single("cuda")
+    try:
+        runs = gp_dist_step_path(gen, name_power)
+        runs.update(dist_blas_path(gen, name_power))
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(1)
+    print(f"dryrun_multichip(1): {time.perf_counter() - t0:.1f} s, spawn "
+          "included")
+    if torch.cuda.device_count() < 2:
+        try:
+            entry.dryrun_multichip(2)
+        except RuntimeError as e:
+            print(f"dryrun_multichip(2) on {torch.cuda.device_count()} card "
+                  f"raises: {e}")
+        else:
+            raise AssertionError("dryrun_multichip(2) ran on one card")
+    fn, args = entry.entry()
+    nll = float(fn(*args))
+    require(math.isfinite(nll), f"entry(): non-finite nll {nll}")
+    print(f"entry ok: gp_nll n=256 d=4 on the card: {nll:.4f}")
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 #: each path's kernels: the launch counters must show every one of them
 PATHS = {
     "potrf": ("potrf_stream_f32",),
@@ -3132,6 +3501,15 @@ PATHS = {
     "dist potri": ("trtri_block_f32", "gemm_f32"),
     "dist d": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
                "trtri_block_f32"),
+    "dist GP": ("potrf_block_f32", "trtri_block_f32", "gemm_f32"),
+    "dist gemm": (),
+    "dist syrk": (),
+    "dist trsm": ("trtri_block_f32", "gemm_f32"),
+    "dist trmm": ("trmm_lln_f32",),
+    "dist d gemm": ("peel_f32pair", "mm_groups_f32pair"),
+    "dist d trsm": ("peel_f32pair", "mm_groups_f32pair", "trtri_block_f32"),
+    "dist d trmm": ("peel_f32pair", "mm_groups_f32pair"),
+    "dist herk": (),
 }
 
 #: each kernel: its source, the TPU kernel it replaces, and the path whose
@@ -3293,13 +3671,17 @@ def main() -> int:
 
     # 10. the block-cyclic tier on one NCCL rank
     runs.update(dist_path(gen, name_power))
+
+    # 11. the distributed GP step, the distributed BLAS and the dry run
+    runs.update(dist_b_path(gen, name_power))
     require("jax" not in sys.modules, "jax was imported")
     require(set(SOURCES) == set(kernels.KERNELS),
             "a kernel is missing from the kernels line")
 
     # each kernel's launches from the run of the path it serves
     rows = [dict(name=k, route="cuda", source=src, replaces=tpu, path=path,
-                 launches=runs[path][k], **rec[k])
+                 launches=runs[path][k], **rec[k],
+                 launches_by_path={p: c[k] for p, c in runs.items() if c[k]})
             for k, (src, tpu, path) in SOURCES.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

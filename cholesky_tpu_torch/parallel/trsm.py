@@ -86,9 +86,8 @@ def trsm_factor_dist(fbc: BlockCyclic, B, trans="N"):
     X of B's shape. trans in {'N', 'T', 'C'}.
 
     (The general distributed triangular solve, any side/uplo/trans/diag
-    with a sharded wide B, is the JAX package's ``parallel/blas.py``
-    ``trsm_dist``, not ported yet; this one is the factor-then-solve
-    path.)"""
+    with a wide B split over the ranks, is ``parallel/blas.py``'s
+    ``trsm_dist``; this one is the factor-then-solve path.)"""
     trans = norm_trans(trans)
     squeeze = B.ndim == 1
     if squeeze:

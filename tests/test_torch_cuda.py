@@ -261,13 +261,14 @@ def test_trtri_block_vs_twin(cuda, n):
 def gated(what, got, ref64, twin, rms=None):
     """got against the f64 ``ref64`` within F32_GATE times the f32 ``twin``'s
     error (at least an ulp of max|ref|); the limit below 1 % of ``rms``
-    (default: the RMS of ref64's strict lower)."""
-    ref64 = ref64.cpu()
-    err = float((got.cpu().double() - ref64).abs().max())
-    twin_err = float((twin.cpu().double() - ref64).abs().max())
+    (default: the RMS of ref64's strict lower); complex in c128."""
+    wide = torch.complex128 if ref64.is_complex() else torch.float64
+    ref64 = ref64.cpu().to(wide)
+    err = float((got.cpu().to(wide) - ref64).abs().max())
+    twin_err = float((twin.cpu().to(wide) - ref64).abs().max())
     lim = F32_GATE * max(twin_err, EPS32 * float(ref64.abs().max()))
     if rms is None:
-        low = torch.tril(ref64, -1)
+        low = torch.tril(ref64, -1).abs()
         n = ref64.shape[0]
         rms = float(low.square().sum().div(max(1, n * (n - 1) // 2)).sqrt())
     assert err <= lim, f"{what}: err {err:.3e} > {lim:.3e}"
@@ -1397,3 +1398,129 @@ def test_dist_cuda_tensor_on_a_gloo_group_raises(nccl):
     A = spd(512, seed=12).to(nccl)
     with pytest.raises(ValueError, match="needs a nccl group"):
         par.potrf_sharded("L", A, group=gloo, nb=DIST_NB)
+
+
+def dense_blas_operands(n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(n, n, device="cuda", dtype=dtype, generator=g)
+            for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype,kernels_used", [
+    ("gemm", torch.float32, ()),
+    ("syrk", torch.float32, ()),
+    ("trsm", torch.float32, ("trtri_block_f32", "gemm_f32")),
+    ("trmm", torch.float32, ("trmm_lln_f32",)),
+    ("herk", torch.complex64, ()),
+    ("gemm", torch.float64, ("peel_f32pair", "mm_groups_f32pair")),
+    ("trsm", torch.float64, ("peel_f32pair", "mm_groups_f32pair",
+                             "trtri_block_f32")),
+    ("trmm", torch.float64, ("peel_f32pair", "mm_groups_f32pair")),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_dist_blas_on_the_card(nccl, op, dtype, kernels_used):
+    # one call of each distributed BLAS routine on a one-rank NCCL group:
+    # one all_gather, the kernels of its stripe, and f32/c64 held against
+    # the f64/c128 result within F32_GATE times the library call's error
+    # (f64 within n·2^-40 of max|ref|, the d tier's rule)
+    from cholesky_tpu_torch import parallel as par
+    n = 2048 if dtype != torch.float64 else 1024
+    A, B, C = dense_blas_operands(n, dtype, seed=20)
+    if op == "trsm":
+        A = torch.linalg.cholesky(
+            (A @ A.mT / n + torch.eye(n, device=nccl, dtype=dtype)
+             ).double()).to(dtype)
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    A64, B64, C64 = (x.to(wide) for x in (A, B, C))
+    call, ref, lib = {
+        "gemm": (lambda: par.gemm_dist("N", "T", 0.5, A, B, 2.0, C),
+                 0.5 * A64 @ B64.T + 2.0 * C64,
+                 lambda: torch.addmm(C, A, B.T, beta=2.0, alpha=0.5)),
+        "syrk": (lambda: par.syrk_dist("L", "T", -1.0, A, 1.0, C),
+                 torch.tril(C64 - A64.T @ A64) + torch.triu(C64, 1),
+                 lambda: torch.tril(C - A.T @ A) + torch.triu(C, 1)),
+        "herk": (lambda: par.herk_dist("U", "N", 1.0, A, 0.5, C),
+                 torch.triu(A64 @ A64.mH + 0.5 * C64) + torch.tril(C64, -1),
+                 lambda: torch.triu(A @ A.mH + 0.5 * C) + torch.tril(C, -1)),
+        "trsm": (lambda: par.trsm_dist("R", "L", "T", "N", 1.0, A, B),
+                 torch.linalg.solve_triangular(A64.T, B64, upper=True,
+                                               left=False),
+                 lambda: torch.linalg.solve_triangular(A.T, B, upper=True,
+                                                       left=False)),
+        "trmm": (lambda: par.trmm_dist("L", "U", "N", "N", 1.0, A, B),
+                 torch.triu(A64) @ B64, lambda: torch.triu(A) @ B),
+    }[op]
+    yard = lib()
+    if op == "herk":
+        ref.diagonal().imag.zero_()
+        yard.diagonal().imag.zero_()
+    out, launches, coll = dist_counts(call)
+    assert coll == {"broadcast": 0, "all_reduce": 0, "all_gather": 1}
+    assert all(launches[k] > 0 for k in kernels_used), launches
+    assert not any(v for k, v in launches.items() if k not in kernels_used)
+    if dtype == torch.float64:
+        rel = float((out - ref).abs().max()) / float(ref.abs().max())
+        assert rel <= n * 2.0 ** -40, rel
+    else:
+        gated(f"{op}_dist {dtype}", out, ref, yard,
+              rms=float(ref.abs().square().mean().sqrt()))
+
+
+def hutchinson64(params, X, y, Z):
+    """The distributed GP step's mean (nll, three gradients) over the
+    batch, in f64 on torch.linalg with the same probes."""
+    amp, ell2, noise = (torch.exp(2.0 * v.double()) for v in params)
+    out = 0.0
+    for Xb, yb, Zb in zip(X.double(), y.double(), Z.double()):
+        n = Xb.shape[0]
+        D = torch.cdist(Xb, Xb).square()
+        Kf = amp * torch.exp(-0.5 * D / ell2)
+        L = torch.linalg.cholesky(Kf + (noise + 1e-6) * torch.eye(
+            n, dtype=Kf.dtype, device=Kf.device))
+        sol = torch.cholesky_solve(torch.cat([yb[:, None], Zb], 1), L)
+        a, U = sol[:, 0], sol[:, 1:]
+
+        def grad(dK):
+            return 0.5 * ((U * (dK @ Zb)).sum(0).mean() - a @ (dK @ a))
+
+        out = out + torch.stack([
+            0.5 * (yb @ a + 2.0 * torch.log(L.diagonal()).sum()
+                   + n * np.log(2.0 * np.pi)),
+            grad(2.0 * Kf), grad(Kf * D / ell2),
+            (0.5 * ((U * Zb).sum(0).mean() - a @ a)) * 2.0 * noise])
+    return out / X.shape[0]
+
+
+@pytest.mark.cuda
+def test_dist_gp_step_on_the_card(nccl):
+    # make_gp_train_step on a (1, 1) mesh of the one-rank NCCL group at
+    # n_train 2048, batch 2, nb 256: the diagonal kernels once per block
+    # per problem, the step's collectives, and (nll, gradients) against
+    # the f64 Hutchinson estimator on the same probes; lr = 1 gives the
+    # gradients back as params − params'
+    from cholesky_tpu_torch.models import make_gp_train_step
+    from cholesky_tpu_torch.parallel import launch
+    n, d, batch = 2048, 8, 2
+    g = torch.Generator(device="cuda").manual_seed(21)
+    X = torch.randn(batch, n, d, device="cuda", generator=g)
+    y = torch.sin(X[..., 0]) + 0.1 * torch.randn(batch, n, device="cuda",
+                                                 generator=g)
+    Z = torch.randint(0, 2, (batch, n, 2), device="cuda",
+                      generator=g).float() * 2.0 - 1.0
+    step = make_gp_train_step(launch.mesh2d(1, 1), n, d, batch, nb=DIST_NB,
+                              lr=1.0)
+    p0 = gp.GPParams.init()
+    (p1, nll, infos), launches, coll = dist_counts(
+        lambda: step(p0, X, y, Z))
+    nblk = n // DIST_NB
+    assert infos.tolist() == [0] * batch
+    assert launches["potrf_block_f32"] == launches["trtri_block_f32"] \
+        == batch * nblk
+    assert launches["gemm_f32"] > 0 and launches["potrf_stream_f32"] == 0
+    assert coll == {"broadcast": batch * (4 * nblk - 1),
+                    "all_reduce": batch * nblk + 1,
+                    "all_gather": batch * (nblk - 1) + 1}
+    got = torch.stack([nll.double()] + [a.double() - b.double()
+                                        for a, b in zip(p0, p1)])
+    ref = hutchinson64(p0, X, y, Z)
+    assert torch.allclose(got, ref, rtol=1e-3, atol=0.0), (got, ref)

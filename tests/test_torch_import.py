@@ -36,6 +36,9 @@ def test_import_loads_neither_jax_nor_triton():
         "import cholesky_tpu_torch.tuning.autotune\n"
         "import cholesky_tpu_torch.parallel\n"
         "import cholesky_tpu_torch.parallel.launch\n"
+        "import cholesky_tpu_torch.parallel.blas\n"
+        "import cholesky_tpu_torch.models.gp_dist\n"
+        "import cholesky_tpu_torch.entry\n"
         "import tests.torch_dist_ranks\n"
         "import bench_torch\n"
         "bad = [m for m in ('jax', 'triton', 'cholesky_tpu')\n"

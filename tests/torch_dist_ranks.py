@@ -1,5 +1,6 @@
-"""The rank side of the block-cyclic tier's parity tests
-(tests/test_torch_parallel.py, tests/test_torch_trtri_dist.py).
+"""The rank side of the multi-device tier's parity tests
+(tests/test_torch_parallel.py, tests/test_torch_trtri_dist.py,
+tests/test_torch_parallel_blas.py, tests/test_torch_gp_dist.py).
 
 The ranks of a world started by ``cholesky_tpu_torch.parallel.launch.spawn``
 import this module by name, so it imports neither JAX nor
@@ -8,10 +9,13 @@ numpy inputs and returns numpy outputs, with the collective counts of its
 call (``comm.counts()``) under "counts".
 """
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from cholesky_tpu_torch import parallel as par
-from cholesky_tpu_torch.parallel import comm
+from cholesky_tpu_torch.models import gp, gp_dist
+from cholesky_tpu_torch.parallel import comm, launch
 
 
 def _t(x):
@@ -82,6 +86,38 @@ def potri_dist(A, nb):
 def potri_sharded(F, uplo, nb):
     Inv, info = par.potri_sharded(uplo, _t(F), nb=nb)
     return {"Inv": Inv, "info": info}
+
+
+def blas(op, args):
+    """par.<op>(*args), the numpy arrays among args as tensors."""
+    args = [_t(a) if isinstance(a, np.ndarray) else a for a in args]
+    out, counts = _counted(getattr(par, op), *args)
+    return {"out": out, "counts": counts}
+
+
+def _group_ranks(group):
+    return dist.get_process_group_ranks(group) if group is not None else [0]
+
+
+def gp_step(X, y, probes, params, dp, mp, nb, lr=1e-2):
+    """One make_gp_train_step step on this rank's (dp, mp) mesh, fed the
+    dp shard of the global batch (X, y, probes) from the parameters
+    ``params`` (a numpy triple), with the collectives of the step and
+    the rank's place in the mesh."""
+    mesh = launch.mesh2d(dp, mp)
+    batch, n, d = X.shape
+    rows = slice(mesh.i_dp * batch // dp, (mesh.i_dp + 1) * batch // dp)
+    dtype = torch.from_numpy(X[:1, :1, :1]).dtype
+    step = gp_dist.make_gp_train_step(mesh, n, d, batch, nb=nb,
+                                      n_probes=probes.shape[2], lr=lr,
+                                      dtype=dtype)
+    p0 = gp.params_from_jax(params, device="cpu")
+    (new, nll, infos), counts = _counted(
+        step, p0, _t(X[rows]), _t(y[rows]), _t(probes[rows]))
+    return {"params": torch.stack(list(new)), "nll": nll, "infos": infos,
+            "counts": counts, "coords": (mesh.i_dp, mesh.i_mp),
+            "mp_ranks": _group_ranks(mesh.mp_group),
+            "dp_ranks": _group_ranks(mesh.dp_group)}
 
 
 def run(rank, cases):
