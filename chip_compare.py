@@ -76,11 +76,17 @@ import sys
 import time
 
 
-def kernel_name(name: str) -> str:
-    """A CUDA kernel's name as the profiler shows it, without its return
-    type, namespaces and parameters (``potf2_update128<true>``)."""
-    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
-    return name.split("(", 1)[0].rsplit("::", 1)[-1]
+def profiling():
+    """This checkout's census (``cholesky_tpu_torch/utils/profiling.py``,
+    which imports torch only), whichever tree is timed: loaded by its
+    path, since an older tree has none."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "cholesky_tpu_torch", "utils", "profiling.py")
+    spec = importlib.util.spec_from_file_location("census", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def card() -> str:
@@ -105,8 +111,6 @@ def fill_alone(name: str) -> dict:
     calls: CUDA events around each of FILL_REPS calls, then the device
     time of each of FILL_REPS launches under torch.profiler."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cholesky_tpu_torch.ops.kernels import prng
     from cholesky_tpu_torch.rng import device as rng_device
@@ -137,16 +141,11 @@ def fill_alone(name: str) -> dict:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(FILL_REPS):
-            call()
-        torch.cuda.synchronize()
-    dev, names = [], set()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            dev.append((e.time_range.end - e.time_range.start) / 1e3)
-            names.add(kernel_name(e.name))
+    census = profiling()
+    _, events = census.kernel_events(
+        lambda: [call() for _ in range(FILL_REPS)])
+    dev = [(b - a) / 1e3 for _, a, b in events]
+    names = {census.kernel_name(name) for name, _, _ in events}
     return {"ms": [quantile(times, 0.5), min(times), max(times)],
             "device ms": [quantile(dev, 0.5), quantile(dev, 0.1),
                           quantile(dev, 0.9)],
@@ -296,8 +295,6 @@ def main() -> int:
     if args[:1] == ["--paths"]:
         return public_paths(tree, args[1] if len(args) > 1 else "")
     import cholesky_tpu_torch  # noqa: F401  (TF32 off)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cholesky_tpu_torch.ops.kernels import (lauum_stream_f32, mega,
                                                 potf2_f32, syrk_lower_f32,
@@ -328,31 +325,8 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return sorted(times)[len(times) // 2]
 
-    def device_by_kernel(fn, match):
-        """fn() under torch.profiler: {kernel: [device ms, launches]} for
-        the CUDA kernels whose name holds ``match``, and under "busy" the
-        union of their intervals (kernels that overlap, as a launch
-        scheduled early by programmatic dependent launch waits inside its
-        predecessor's run, count once)."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        split, spans = {}, []
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and match in e.name:
-                row = split.setdefault(kernel_name(e.name), [0.0, 0])
-                row[0] += (e.time_range.end - e.time_range.start) / 1e3
-                row[1] += 1
-                spans.append((e.time_range.start, e.time_range.end))
-        busy, last = 0.0, -math.inf
-        for a, b in sorted(spans):
-            if b > last:
-                busy += b - max(a, last)
-                last = b
-        split["busy"] = [busy / 1e3, len(spans)]
-        return split
+    # fn() under torch.profiler: {kernel: [device ms, launches]} and "busy"
+    device_by_kernel = profiling().device_time
 
     def trtri_device_ms(fn):
         """fn() under torch.profiler: its trtri_block_f32 kernels' device

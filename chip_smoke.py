@@ -71,6 +71,18 @@ show that the path went through each of its kernels:
   call and one torch call; then the dry run
   (``entry.dryrun_multichip(1)``, one spawned NCCL rank) and
   ``entry.entry()``'s forward.
+- phase 12, the tooling (``utils/profiling.py``, ``runtime/``,
+  ``tools/``): a ``profiling.trace`` of one ``potrf`` at 4096 inside an
+  ``annotate`` span, in a fresh process (the Chrome trace names
+  ``potrf_stream_f32``'s kernel and the span; ``profiling.device_time``
+  counts its one launch); four
+  numpy f64 oracles on ``TaskPool(4)`` while ``gemm_f32`` runs at 4096³,
+  each equal to a serial run; the sweep in-process over all eleven ops
+  (s at 512 and 1024, d/c/z at 256 and 512), every row passed and naming
+  the card, with the launches of each point by kernel
+  (``sweep_kernels``); minibench's probes, its f32 matmul at or below
+  the FFMA peak and its HBM rate at or below 3350 GB/s; ``report --md``
+  over the committed ``bench_results/golden_h100_*.jsonl``.
 
 The kernels of ``strtri(block_size=8192)``, ``potri`` at 6000 and
 ``cpotri`` depend on the tuning table in force (``routed_paths``), which
@@ -168,7 +180,9 @@ from cholesky_tpu_torch.rng import (Interval, latmc, latmc_pair,
 from cholesky_tpu_torch.rng import device as rng_device
 from cholesky_tpu_torch.tuning import DEFAULTS, get_params
 from cholesky_tpu_torch.tuning.autotune import standing_in
+from cholesky_tpu_torch.utils import profiling
 from cholesky_tpu_torch.utils.benchlib import bench_op, card
+from cholesky_tpu_torch.utils.profiling import busy_ms
 
 EPS32 = float(torch.finfo(torch.float32).eps)
 #: the H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W):
@@ -1275,19 +1289,13 @@ def lauu2_leaf(L, layout):
 def lauu2_device_ms(X, calls=20):
     """Device ms of one lauu2_f32 call: the union of its kernels' intervals
     under torch.profiler over ``calls`` calls, over the calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     lauu2_f32(X)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             lauu2_f32(X)
-        torch.cuda.synchronize()
-    return busy_ms([(e.time_range.start, e.time_range.end)
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and "lau" in e.name]) / calls
+
+    return profiling.device_time(run, "lau")["busy"][0] / calls
 
 
 def host_ms(fn, X, reps=20):
@@ -2037,8 +2045,6 @@ def gemm_census(fn):
     on its way to the library (a proxy for _build.library): returns
     [((m, n, k, A layout, B layout, tile), device ms)] in launch order,
     each launch's time from the profiler's gemm kernel of the same rank."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     real, lib, shapes = _build.library, _build.library(), []
 
     class Proxy:
@@ -2053,22 +2059,16 @@ def gemm_census(fn):
                            "T" if b_kf else "N", tile))
             return lib.ct_gemm_f32(*args)
 
-    torch.cuda.synchronize()
     _build.library = Proxy
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        _, events = profiling.kernel_events(fn)
     finally:
         _build.library = real
-    runs = sorted((e.time_range.start, (e.time_range.end - e.time_range.start)
-                   / 1e3) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and ("gemm64_kernel" in e.name or "gemm128_kernel" in e.name))
+    runs = [(b - a) / 1e3 for name, a, b in events
+            if "gemm64_kernel" in name or "gemm128_kernel" in name]
     require(len(runs) == len(shapes), f"gemm census: {len(shapes)} launches, "
             f"{len(runs)} kernels in the trace")
-    return list(zip(shapes, (t for _, t in runs)))
+    return list(zip(shapes, runs))
 
 
 def print_gemm_census(census, on, top=6):
@@ -2105,38 +2105,17 @@ def print_gemm_census(census, on, top=6):
               f"{lib_ms:.4f} ms on {on}")
 
 
-def busy_ms(intervals) -> float:
-    """The union of (start, end) µs intervals, in ms: kernels that overlap
-    (a launch scheduled early by programmatic dependent launch waits
-    inside its predecessor's run) count once."""
-    total, last = 0.0, -math.inf
-    for a, b in sorted(intervals):
-        if b > last:
-            total += b - max(a, last)
-            last = b
-    return total / 1e3
-
-
 def kernel_census(fn, on, name, match):
     """The launches of kernel ``name`` in one call of fn (its launch
     counter) and their device time: the union of the intervals of
     torch.profiler's CUDA kernels whose name holds ``match``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     wrapper = kernels.KERNELS[name]
-    torch.cuda.synchronize()
     before = wrapper.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    busy, runs = profiling.device_time(fn, match)["busy"]
     launches = wrapper.launches - before
-    runs = [(e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA and match in e.name]
     require(launches > 0 and runs, f"{name} census: no launch")
-    busy = busy_ms(runs)
     print(f"{name} census of one GP train step: {launches} launches "
-          f"({len(runs)} kernels in the trace), {busy:.3f} ms of device "
+          f"({runs} kernels in the trace), {busy:.3f} ms of device "
           f"time, {busy / launches:.4f} ms a launch on {on}")
     return launches, busy
 
@@ -2298,8 +2277,6 @@ def profile_table(fn, top=16, census=None):
     the call is also recorded there as ((m, n, k), device ms), its shape
     read by the wrapper and its time from the profiler's kernel of the
     same rank in launch order."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     real, shapes = ozaki._kz, []
 
     class Recorder:
@@ -2316,39 +2293,24 @@ def profile_table(fn, top=16, census=None):
 
     if census is not None:
         ozaki._kz = Recorder()
-    torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+        wall, events = profiling.kernel_events(fn)
     finally:
         ozaki._kz = real
-    spans, by_name, groups = [], {}, []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        spans.append((a, b))
-        c, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (c + 1, t + (b - a) / 1e3)
-        if "mm_groups_kernel" in e.name:
-            groups.append((a, (b - a) / 1e3))
+    by_name, groups = {}, []
+    for name, a, b in events:
+        c, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (c + 1, t + (b - a) / 1e3)
+        if "mm_groups_kernel" in name:
+            groups.append((b - a) / 1e3)
     if census is not None:
         require(len(groups) == len(shapes), f"census: {len(shapes)} "
                 f"launches, {len(groups)} kernels in the trace")
-        census.extend(zip(shapes, (t for _, t in sorted(groups))))
-    busy, end = 0.0, -math.inf
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    busy /= 1e3
+        census.extend(zip(shapes, groups))
+    busy = busy_ms([(a, b) for _, a, b in events])
     rows = sorted(((k, c, t) for k, (c, t) in by_name.items()),
                   key=lambda r: -r[2])
-    return wall, busy, max(0.0, 1.0 - busy / wall), len(spans), rows[:top]
+    return wall, busy, max(0.0, 1.0 - busy / wall), len(events), rows[:top]
 
 
 def print_census(census, on, top=3):
@@ -3467,6 +3429,207 @@ def dist_b_path(gen, name_power):
     return runs
 
 
+#: phase 12's sweep: the sizes of each letter, the counted one last
+SWEEP_SIZES = {"s": (512, 1024), "d": (256, 512), "c": (256, 512),
+               "z": (256, 512)}
+
+
+def sweep_kernels(letter: str, op: str) -> tuple:
+    """The kernels one point of the sweep launches at the counted size (s
+    at 1024, d/c/z at 512), its fixture included (the triangular ops
+    factor a latmc matrix first): the d and z points (z on the embedding
+    of d) run the Ozaki products over the f32 leaves, s and c (on the
+    embedding of s) the f32 kernels, and logdet_diag is a torch
+    reduction."""
+    if op == "logdet_diag":
+        return ()
+    products = ("peel_f32pair", "mm_groups_f32pair")
+    if letter in "dz":
+        if op in ("gemm", "gemm_k", "syrk"):
+            return products
+        return (*products, "potrf_block_f32", "trtri_block_f32")
+    fixture = () if op in ("potrf", "logdet", "gemm", "gemm_k", "syrk") \
+        else ("potrf_stream_f32",)
+    # the embedding's herk and trmm are gemm_f32 products on live blocks
+    own = {"potrf": ("potrf_stream_f32",), "logdet": ("potrf_stream_f32",),
+           "potri": ("trtri_block_f32", "lauum_stream_f32"),
+           "trtri": ("trtri_block_f32",), "lauum": ("lauum_stream_f32",),
+           "gemm": ("gemm_f32",), "gemm_k": ("gemm_f32",),
+           "syrk": ("syrk_lower_f32",) if letter == "s" else ("gemm_f32",),
+           "trmm": ("trmm_lln_f32",) if letter == "s" else ("gemm_f32",),
+           "trsm": ("trtri_block_f32", "gemm_f32")}[op]
+    return (*fixture, *own)
+
+
+def trace_potrf(n: int = 4096) -> dict:
+    """Phase 12's trace, run in a process of its own: one potrf at n under
+    profiling.trace inside an annotate span, and profiling.device_time of
+    the same call. Returns what the trace file names and the census."""
+    import glob
+    import os
+    import tempfile
+
+    A = spd(torch.Generator(device="cuda").manual_seed(12), n)
+    ct.potrf("L", A)
+    with tempfile.TemporaryDirectory() as logdir:
+        kernels.reset_launch_counts()
+        with profiling.trace(logdir):
+            with profiling.annotate("sweep-potrf"):
+                _, info = ct.potrf("L", A)
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        text = "".join(open(f).read() for f in files)
+    return {"files": len(files), "bytes": len(text),
+            "names_kernel": "potrf_stream_f32_kernel" in text,
+            "names_span": "sweep-potrf" in text,
+            "launches": kernels.launch_counts()["potrf_stream_f32"],
+            "info": int(info),
+            "device_time": profiling.device_time(lambda: ct.potrf("L", A),
+                                                 "potrf_stream")}
+
+
+def tooling_path(gen, name_power):
+    """Phase 12: the tooling on the card. A profiling.trace of one potrf,
+    the task pool beside gemm_f32, the sweep over all eleven ops in the
+    four precisions with its launches by (letter, op), minibench's probes
+    against the card's peaks and report --md over the golden files."""
+    import io
+    import os
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from cholesky_tpu_torch.runtime import TaskPool
+    from cholesky_tpu_torch.tools import minibench, report, sweep
+
+    t_phase = time.perf_counter()
+    # (a) a trace of one potrf at 4096 inside a named span, in a fresh
+    # process: in one that has kept the card busy for a minute or more,
+    # torch.profiler on this machine often returns a short window without
+    # its CUDA kernels (minibench's timer probe counts it below)
+    child = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.trace_potrf()))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    require(child.returncode == 0, f"the traced potrf failed:\n"
+            f"{child.stderr[-3000:]}")
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    print(f"profiling.trace of potrf n=4096 in a fresh process: {got} on "
+          f"{name_power}")
+    require(got["files"] == 1 and got["names_kernel"] and got["names_span"]
+            and got["launches"] == 1 and got["info"] == 0,
+            "the trace misses the kernel or the span")
+    census = got["device_time"]
+    require(census.get("potrf_stream_f32_kernel", [0, 0])[1] == 1
+            and census["busy"][1] == 1,
+            "device_time: not one potrf_stream_f32 launch")
+
+    # (b) four numpy f64 oracles on TaskPool(4) while gemm_f32 runs here
+    rng = np.random.default_rng(12)
+    G = rng.standard_normal((1024, 1024))
+    S = G @ G.T / 1024 + np.eye(1024)
+    jobs = [lambda: np.linalg.cholesky(S), lambda: np.linalg.inv(S),
+            lambda: np.array(np.linalg.slogdet(S)), lambda: G @ S]
+    serial = [job() for job in jobs]
+    got = [None] * 4
+
+    def task(i):
+        def fn():
+            got[i] = jobs[i]()
+            return 0
+        return fn
+
+    X = torch.randn(4096, 4096, device="cuda", generator=gen)
+    with TaskPool(4) as pool:
+        tasks = [pool.run(i, task(i)) for i in range(4)]
+        for _ in range(8):
+            Y = gemm_f32(X, X)
+        codes = [t.join() for t in tasks]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(got, serial)]
+    err, lim, _ = gemm_gated("gemm_f32 beside the pool", Y, X, X)
+    print(f"TaskPool(4): codes {codes}, equal to a serial run {same}; "
+          f"gemm_f32 4096³ beside them: max err vs f64 {err:.3e} (limit "
+          f"{lim:.3e})")
+    require(codes == [0] * 4 and all(same), "TaskPool results differ")
+
+    # (c) the sweep in-process, every launch counted by (letter, op, n)
+    counted, real = {}, dict(sweep.POINTS)
+
+    def counting(op, fn):
+        def point(n, backend, dt, cfg):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            out = fn(n, backend, dt, cfg)
+            torch.cuda.synchronize()
+            counted[(dt.letter, op, n)] = {
+                k: c for k, c in kernels.launch_counts().items() if c}
+            return out
+        return point
+
+    ops = ",".join(sweep.POINTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep.POINTS.update({op: counting(op, fn) for op, fn in real.items()})
+        try:
+            for letter, sizes in SWEEP_SIZES.items():
+                out = os.path.join(tmp, f"{letter}.jsonl")
+                with contextlib.redirect_stdout(io.StringIO()):  # the rows
+                    rc = sweep.main(["--dtype", letter, "--ops", ops,
+                                     "--sizes", ",".join(map(str, sizes)),
+                                     "--out", out, "--max-chain", "5"])
+                rows = sweep.load_rows(out)
+                bad = [r for r in rows if not r["passed"]
+                       or r.get("card") != name_power]
+                print(f"sweep {letter}: rc {rc}, {len(rows)} rows, "
+                      f"{len(rows) - len(bad)} passed on {name_power}")
+                for r in bad:
+                    print(f"  FAILED {r}")
+                require(rc == 0 and not bad
+                        and len(rows) == len(sizes) * len(real),
+                        f"sweep {letter}: a row failed")
+        finally:
+            sweep.POINTS.update(real)
+    for letter, sizes in SWEEP_SIZES.items():
+        for op in real:
+            launches = counted[(letter, op, sizes[-1])]
+            want = sweep_kernels(letter, op)
+            print(f"  sweep {letter} {op} n={sizes[-1]}: "
+                  + (", ".join(f"{k} {c}" for k, c in launches.items())
+                     or "no kernel (torch)"))
+            require(set(want) <= set(launches),
+                    f"sweep {letter} {op}: expected {want}, launched "
+                    f"{launches}")
+
+    # (d) minibench against the card's peaks
+    mb = minibench.run()
+    print(f"minibench: {json.dumps(mb)}")
+    f32, hbm = mb["matmul"]["f32_tflops"], mb["hbm"]["stream_gbps"]
+    require(0 < f32 <= PEAK_OPS["f32"] / 1e12,
+            f"minibench f32 matmul {f32} TF/s outside (0, 67]")
+    require(hbm <= HBM_BYTES_PER_S / 1e9,
+            f"minibench HBM {hbm} GB/s above 3350")
+    require(mb["timer"]["block_is_trustworthy"],
+            "torch.cuda.synchronize() did not wait for the card")
+
+    # (e) report --md over the committed golden files
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bench_results")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        report.main(["--dir", here, "--md"])
+    table = buf.getvalue()
+    print(table, end="")
+    pairs = {(letter, r["op"]) for letter in "sdcz"
+             for r in report.load(Path(here) / report.GOLDEN.format(letter))
+             if "gflops" in r}
+    body = [ln for ln in table.splitlines() if ln.startswith("| ")
+            and not ln.startswith("| dtype")]
+    require(pairs and len(body) == len(pairs),
+            f"report --md: {len(body)} rows for {len(pairs)} (dtype, op)")
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 #: each path's kernels: the launch counters must show every one of them
 PATHS = {
     "potrf": ("potrf_stream_f32",),
@@ -3674,6 +3837,9 @@ def main() -> int:
 
     # 11. the distributed GP step, the distributed BLAS and the dry run
     runs.update(dist_b_path(gen, name_power))
+
+    # 12. the tooling: profiling, the task pool, sweep, minibench, report
+    tooling_path(gen, name_power)
     require("jax" not in sys.modules, "jax was imported")
     require(set(SOURCES) == set(kernels.KERNELS),
             "a kernel is missing from the kernels line")

@@ -1524,3 +1524,72 @@ def test_dist_gp_step_on_the_card(nccl):
                                         for a, b in zip(p0, p1)])
     ref = hutchinson64(p0, X, y, Z)
     assert torch.allclose(got, ref, rtol=1e-3, atol=0.0), (got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the tooling: profiling, the task pool, the sweep and minibench
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_trace_names_a_kernel(cuda, tmp_path):
+    # a trace of one gemm_f32 launch inside a span names the kernel and
+    # the span, and device_time counts the launch
+    import json as _json
+
+    from cholesky_tpu_torch.utils import profiling
+    A = rand((1024, 1024), 31).to(cuda)
+    gemm.gemm_f32(A, A)
+    with profiling.trace(str(tmp_path)):
+        with profiling.annotate("sweep-gemm"):
+            gemm.gemm_f32(A, A)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    names = [e.get("name", "") for e in
+             _json.loads(path.read_text())["traceEvents"]]
+    assert "sweep-gemm" in names
+    assert any("gemm64_kernel" in x or "gemm128_kernel" in x for x in names)
+    census = profiling.device_time(lambda: gemm.gemm_f32(A, A), "gemm")
+    assert census["busy"][1] == 1 and census["busy"][0] > 0.0
+
+
+@pytest.mark.cuda
+def test_task_pool_worker_launches_a_kernel(cuda):
+    # a native worker thread of the pool launches gemm_f32 on the card
+    from cholesky_tpu_torch.runtime import TaskPool
+    A = rand((512, 384), 32).to(cuda)
+    B = rand((384, 256), 33).to(cuda)
+    got = {}
+
+    def task():
+        got["C"] = gemm.gemm_f32(A, B)
+        torch.cuda.synchronize()
+        return 0
+
+    with TaskPool(2) as pool:
+        assert pool.run(1, task).join() == 0
+    assert_close(got["C"], A.double() @ B.double(), 2 * 384 + 3,
+                 "gemm_f32 from a pool worker")
+
+
+@pytest.mark.cuda
+def test_sweep_row_passes_at_1024(cuda, tmp_path):
+    # one sweep point on the card: passed, scored, the card named
+    from cholesky_tpu_torch.tools import sweep
+    from cholesky_tpu_torch.utils.benchlib import card
+    out = tmp_path / "rows.jsonl"
+    kernels.reset_launch_counts()
+    assert sweep.main(["--ops", "potrf", "--sizes", "1024", "--out",
+                       str(out), "--max-chain", "3"]) == 0
+    (row,) = sweep.load_rows(out)
+    assert row["passed"] and row["info"] == 0 and row["card"] == card()
+    assert row["max_err"] <= row["tol"] and row["gflops"] > 0
+    assert kernels.launch_counts()["potrf_stream_f32"] >= 5
+
+
+@pytest.mark.cuda
+def test_minibench_timer_probe(cuda):
+    # synchronize() waits for the card: the host clock around a call and
+    # a synchronize covers the call's CUDA-event time
+    from cholesky_tpu_torch.tools import minibench
+    t = minibench.probe_timer()
+    assert t["block_is_trustworthy"], t
+    assert t["synchronize_ms"] >= 0.5 * t["event_ms"] > 0.0

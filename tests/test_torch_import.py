@@ -39,6 +39,12 @@ def test_import_loads_neither_jax_nor_triton():
         "import cholesky_tpu_torch.parallel.blas\n"
         "import cholesky_tpu_torch.models.gp_dist\n"
         "import cholesky_tpu_torch.entry\n"
+        "import cholesky_tpu_torch.utils.profiling\n"
+        "import cholesky_tpu_torch.runtime\n"
+        "import cholesky_tpu_torch.tools.sweep\n"
+        "import cholesky_tpu_torch.tools.minibench\n"
+        "import cholesky_tpu_torch.tools.report\n"
+        "import cholesky_tpu_torch.tools.goldens\n"
         "import tests.torch_dist_ranks\n"
         "import bench_torch\n"
         "bad = [m for m in ('jax', 'triton', 'cholesky_tpu')\n"
