@@ -1286,16 +1286,23 @@ def lauu2_leaf(L, layout):
     return X
 
 
-def lauu2_device_ms(X, calls=20):
+def lauu2_device_ms(X, calls=20, tries=3):
     """Device ms of one lauu2_f32 call: the union of its kernels' intervals
-    under torch.profiler over ``calls`` calls, over the calls."""
+    under torch.profiler over ``calls`` calls, over the calls; NaN (not
+    measured) when the profiler lost kernels of the window ``tries`` times
+    in turn."""
     lauu2_f32(X)
 
     def run():
         for _ in range(calls):
             lauu2_f32(X)
 
-    return profiling.device_time(run, "lau")["busy"][0] / calls
+    for _ in range(tries):
+        try:
+            return profiling.device_time(run, "lau")["busy"][0] / calls
+        except profiling.LostKernels:
+            pass
+    return math.nan
 
 
 def host_ms(fn, X, reps=20):

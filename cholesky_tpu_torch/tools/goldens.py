@@ -1,19 +1,17 @@
 """Record the card's golden sweep of one precision, in chunks.
 
     python -m cholesky_tpu_torch.tools.goldens LETTER [--out FILE]
-        [--budget SECONDS] [--max-n N]
 
 The point set is the (op, config, n) set of the JAX package's golden
 record ``bench_results/golden_tpu_v5_lite_<letter>.jsonl`` (its op,
-config and n only; none of its numbers is read) with n up to ``--max-n``
-(8192 for s, 4096 for d, c and z by default: larger points' float64
-numpy oracles would take most of the run). Each (op, config) group runs
-as one ``tools.sweep`` invocation with ``--resume`` into ``--out``
-(default ``bench_results/golden_h100_<letter>.jsonl``), so a chunk cut
-short keeps every point it finished and the next chunk skips them. No
-group starts after ``--budget`` seconds. Exits 0 when every point of the
-set is in the file and every row passed, 2 while points remain or a row
-failed. Card only.
+config and n only; none of its numbers is read) with n up to ``CAP``
+(8192 for s, 4096 for d, c and z: larger points' float64 numpy oracles
+would take most of the run). Each (op, config) group runs as one
+``tools.sweep`` invocation with ``--resume`` into ``--out`` (default
+``bench_results/golden_h100_<letter>.jsonl``), so a chunk cut short keeps
+every point it finished and the next chunk skips them. Exits 0 when every
+point of the set is in the file and every row passed, 2 while points
+remain or a row failed. Card only.
 """
 
 from __future__ import annotations
@@ -44,17 +42,13 @@ def main(argv=None) -> int:
         prog="python -m cholesky_tpu_torch.tools.goldens")
     ap.add_argument("letter", choices=list("sdcz"))
     ap.add_argument("--out", default=None)
-    ap.add_argument("--budget", type=float, default=float("inf"))
-    ap.add_argument("--max-n", type=int, default=None)
     args = ap.parse_args(argv)
     root = Path(__file__).resolve().parents[2] / "bench_results"
     out = Path(args.out or root / f"golden_h100_{args.letter}.jsonl")
     groups = point_set(root / f"golden_tpu_v5_lite_{args.letter}.jsonl",
-                       args.max_n or CAP[args.letter])
+                       CAP[args.letter])
     t0 = time.perf_counter()
     for (op, cfg), sizes in groups.items():
-        if time.perf_counter() - t0 > args.budget:
-            break
         rc = sweep.main(["--dtype", args.letter, "--ops", op, "--config",
                          cfg, "--sizes", ",".join(map(str, sizes)), "--out",
                          str(out), "--resume"])

@@ -38,7 +38,7 @@ import torch
 import cholesky_tpu_torch  # noqa: F401  (TF32 off)
 from cholesky_tpu_torch.ops.kernels import _build
 from cholesky_tpu_torch.utils.benchlib import bench_op, card
-from cholesky_tpu_torch.utils.profiling import device_time
+from cholesky_tpu_torch.utils.profiling import LostKernels, device_time
 
 
 def log(*a):
@@ -130,7 +130,7 @@ def probe_timer(n=4096, windows=10):
     time; the host clock around the launch alone does not (the
     asynchronous-launch trap). And does torch.profiler see the kernels of
     a short window? Of ``windows`` profiled calls, those whose census
-    holds a kernel."""
+    holds a kernel (a window that lost it raises LostKernels)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     A = torch.randn(n, n, device="cuda", generator=g)
     t_event = bench_op(lambda x: torch.matmul(x, x), A, reps=5)
@@ -140,8 +140,14 @@ def probe_timer(n=4096, windows=10):
     t_launch = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_sync = time.perf_counter() - t0
-    seen = sum(device_time(lambda: torch.matmul(A, A))["busy"][1] > 0
-               for _ in range(windows))
+
+    def kept():
+        try:
+            return device_time(lambda: torch.matmul(A, A))["busy"][1] > 0
+        except LostKernels:
+            return False
+
+    seen = sum(kept() for _ in range(windows))
     return {"event_ms": round(t_event * 1e3, 3),
             "synchronize_ms": round(t_sync * 1e3, 3),
             "launch_only_ms": round(t_launch * 1e3, 3),

@@ -4,8 +4,14 @@ of ``tools/report.py``.
 Reads ``bench_results/golden_h100_{s,d,c,z}.jsonl`` (written by
 ``python -m cholesky_tpu_torch.tools.sweep``) and prints, per dtype × op,
 the best GFLOP/s row with its size, its variant, the points and failures
-recorded, and the ratio to the reference's baseline where BASELINE.md has
-a comparable number. The header names the card of the rows.
+recorded, the largest max_err / tol of its scored rows, and the ratio to
+the reference's baseline where BASELINE.md has a comparable number. The
+header names the card of the rows.
+
+A row "passed" when its max_err is within ``tol``, the sweep's analytic
+bound (the JAX harness's ``_tol``), which is loose against an f32 kernel's
+real error: the max_err / tol column shows how far inside it each op
+stays, so that a drift in precision shows before it fails a row.
 
     python -m cholesky_tpu_torch.tools.report [--dir bench_results] [--md]
 """
@@ -44,6 +50,14 @@ def load(path: Path) -> list:
         return [json.loads(line) for line in f if line.strip()]
 
 
+def worst_err_tol(rows: list, op: str):
+    """The largest max_err / tol of ``op``'s scored rows, to three
+    significant digits (None without one)."""
+    ratios = [r["max_err"] / r["tol"] for r in rows
+              if r["op"] == op and r.get("tol")]
+    return float(f"{max(ratios):.3g}") if ratios else None
+
+
 def table(rows_by_letter: dict) -> list:
     """One dict per (dtype, op) present: the best-GF/s row and its
     context."""
@@ -64,6 +78,7 @@ def table(rows_by_letter: dict) -> list:
                 "points": sum(x["op"] == op for x in rows),
                 "failed": sum(x["op"] == op and not x.get("passed", False)
                               for x in rows),
+                "worst_err_tol": worst_err_tol(rows, op),
                 "vs_ref": f"{r['gflops'] / ref:.1f}x s-ref" if ref else "-",
             })
     return out
@@ -86,12 +101,12 @@ def main(argv=None) -> int:
               f"({d / GOLDEN.format('{s,d,c,z}')})")
         print()
         print("| dtype | op | best GF/s | @n | config | pts (fail) | "
-              "vs s-baseline |")
-        print("|---|---|---|---|---|---|---|")
+              "max err/tol | vs s-baseline |")
+        print("|---|---|---|---|---|---|---|---|")
         for r in out:
             print(f"| {r['dtype']} | {r['op']} | {r['best_gflops']} | "
                   f"{r['at_n']} | {r['config']} | {r['points']} "
-                  f"({r['failed']}) | {r['vs_ref']} |")
+                  f"({r['failed']}) | {r['worst_err_tol']} | {r['vs_ref']} |")
     else:
         print(json.dumps({"cards": cards}))
         for r in out:

@@ -29,7 +29,10 @@ Precisions (reference single2double.sh / complex2doublecomplex.sh tiers):
               them through the real embedding onto the s and d kernels
 
 The numpy oracles run on host cores on the native task pool
-(``cholesky_tpu_torch.runtime``) while the card measures the next point.
+(``cholesky_tpu_torch.runtime``) while the next point builds its
+fixtures; every outstanding oracle has finished before a point's first
+call, so no timed call shares the host's cores with an oracle (the d and
+z drivers are bound by the host).
 
 Usage:
   python -m cholesky_tpu_torch.tools.sweep --ops potrf,potri \\
@@ -82,6 +85,9 @@ class DT:
         self.letter = letter
         self.device = torch.device(device)
         self.max_reps = max_reps
+        #: called before a point's op runs (the sweep waits there for the
+        #: oracles still running)
+        self.settle = lambda: None
         self.real = letter in "sd"
         self.rdt = torch.float32 if letter in "sc" else torch.float64
         self.cdt = {"s": torch.float32, "d": torch.float64,
@@ -150,7 +156,8 @@ def _reps(n, dt: DT) -> int:
 def _time(f, x, n, dt: DT):
     """(median seconds a call, f(x)): the first call gives the value and
     warms up (kernel build, library handles); then CUDA events on the
-    card, ``perf_counter`` on the host."""
+    card, ``perf_counter`` on the host. ``dt.settle()`` runs first."""
+    dt.settle()
     out = f(x)
     reps = _reps(n, dt)
     if dt.device.type == "cuda":
@@ -600,6 +607,7 @@ def main(argv=None) -> int:
     slots = itertools.count()
     with TaskPool(ORACLE_WORKERS) as pool:
         oracle_tasks = deque()
+        dt.settle = pool.synchronize
         for op in ops:
             for cfg in cfgs_for(op):
                 for n in sizes:

@@ -7,7 +7,12 @@ window closes) and writes a Chrome trace; ``annotate`` and
 ``annotate_function`` put named spans into it (and NVTX ranges where a
 card is present). ``device_time`` is the census of the CUDA kernels one
 call runs: device time and launches by kernel name, and the busy time of
-the device as the union of their intervals.
+the device as the union of their intervals. On some H100 machines
+torch.profiler loses the first device records of a window, more of them
+the longer the process has run: a census window opens with guard
+kernels that absorb the loss, and one in which the profiler still
+recorded more kernel launches than kernels raises ``LostKernels``, so
+that no census reads a lost window as an idle device.
 
 The reference keeps its timing in its test binaries (CUevent loops,
 test/lapack/cuspotrf.c:129-141); per-kernel latency belongs to
@@ -121,29 +126,75 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
+class LostKernels(RuntimeError):
+    """The profiler recorded a window's kernel launches but not all of
+    their kernels: a census of that window would count too little."""
+
+
+#: kernels launched at the start of every census window, before ``fn``.
+#: On some H100 machines torch.profiler loses the first device records of
+#: a window, more of them the longer the process has run the port's
+#: kernels; these absorb that loss and are left out of the census.
+GUARD_LAUNCHES = 128
+GUARD_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
+
+
+def _is_launch(name: str) -> bool:
+    """A runtime or driver call that launches one kernel
+    (``cudaLaunchKernel``, ``cudaLaunchKernelExC``,
+    ``cudaLaunchCooperativeKernel``, ``cuLaunchKernel``,
+    ``cuLaunchKernelEx``)."""
+    return name.startswith("cu") and "Launch" in name and "Kernel" in name
+
+
+def cuda_kernels(events, guards: int = 0) -> list:
+    """[(name, start µs, end µs)] of the device's events among the
+    profiler's ``events`` (kernels, and the copies and fills that no
+    kernel launch made) in start order, without the ``guards`` guard
+    kernels launched first. Raises :class:`LostKernels` when the other
+    launches outnumber the other kernels: every launch runs one kernel,
+    so the profiler lost some."""
+    device, launches = [], 0
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            if GUARD_KERNEL not in e.name:
+                device.append((e.name, e.time_range.start, e.time_range.end))
+        elif _is_launch(e.name):
+            launches += 1
+    kernels = sum(not name.startswith(("Memcpy", "Memset"))
+                  for name, _, _ in device)
+    if kernels < launches - guards:
+        raise LostKernels(f"torch.profiler recorded {launches - guards} "
+                          f"kernel launches and {kernels} CUDA kernels")
+    return sorted(device, key=lambda e: e[1])
+
+
 def kernel_events(fn) -> tuple[float, list]:
     """Run ``fn()`` once under ``torch.profiler``, the card idle before and
     drained after: (wall ms of the call and the drain, [(kernel name as
     the profiler gives it, start µs, end µs)] of the CUDA kernels it ran,
-    in start order)."""
+    in start order). On a card the window opens with
+    :data:`GUARD_LAUNCHES` guard kernels. Raises :class:`LostKernels`
+    rather than return a census short of a launched kernel."""
+    guards = GUARD_LAUNCHES if torch.cuda.is_available() else 0
     _drain()
     with profile(activities=_activities()) as prof:
+        for _ in range(guards):
+            torch.cuda._sleep(1)
+        _drain()
         t0 = time.perf_counter()
         fn()
         _drain()
         wall = (time.perf_counter() - t0) * 1e3
-    events = sorted(((e.name, e.time_range.start, e.time_range.end)
-                     for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e[1])
-    return wall, events
+    return wall, cuda_kernels(prof.events(), guards)
 
 
 def device_time(fn, match: str = "") -> dict:
     """``fn()`` under ``torch.profiler``: {kernel: [device ms, launches]}
     for the CUDA kernels whose name holds ``match`` (named by
     :func:`kernel_name`), and under "busy" [the union of their intervals
-    in ms, their count]. Without a card it is {"busy": [0.0, 0]}."""
+    in ms, their count]. Without a card it is {"busy": [0.0, 0]}; a
+    window whose kernels the profiler lost raises :class:`LostKernels`."""
     _, events = kernel_events(fn)
     split, spans = {}, []
     for name, a, b in events:

@@ -1552,6 +1552,22 @@ def test_trace_names_a_kernel(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_kernel_events_returns_the_kernel_or_raises(cuda):
+    # a window with one gemm_f32 launch gives its kernel, or raises when
+    # the profiler lost it: never a census without the launched kernel
+    from cholesky_tpu_torch.utils import profiling
+    A = rand((1024, 1024), 31).to(cuda)
+    gemm.gemm_f32(A, A)
+    for _ in range(10):
+        try:
+            _, events = profiling.kernel_events(lambda: gemm.gemm_f32(A, A))
+        except profiling.LostKernels:
+            continue
+        assert [kname for kname, _, _ in events
+                if "gemm" in kname] != [], events
+
+
+@pytest.mark.cuda
 def test_task_pool_worker_launches_a_kernel(cuda):
     # a native worker thread of the pool launches gemm_f32 on the card
     from cholesky_tpu_torch.runtime import TaskPool

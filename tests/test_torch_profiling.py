@@ -3,13 +3,16 @@ the contracts of tests/test_profiling.py: a trace writes an artifact,
 annotate() is a no-op without an open trace, annotate_function keeps the
 value. Beside them: the span's name reaches the Chrome trace, and
 device_time, the census of a call's CUDA kernels, gives an empty census
-on a machine without a card."""
+on a machine without a card and raises, never under-counts, when the
+profiler recorded more kernel launches than kernels."""
 
 import json
 import os
+from types import SimpleNamespace
 
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from cholesky_tpu_torch.utils import profiling
 
@@ -77,3 +80,58 @@ def test_device_time_without_a_card():
 ])
 def test_kernel_name(raw, name):
     assert profiling.kernel_name(raw) == name
+
+
+def _event(name, device, start=0.0, end=1.0):
+    return SimpleNamespace(name=name, device_type=device,
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+@pytest.mark.parametrize("launches,device,lost", [
+    ([], [], False),
+    (["cudaLaunchKernel"], ["gemm128_kernel"], False),
+    (["cudaLaunchKernel"], [], True),
+    # a fill is no kernel: it does not stand in for a lost one
+    (["cudaLaunchKernel", "cudaMemsetAsync"], ["Memset (Device)"], True),
+    (["cudaLaunchCooperativeKernel", "cudaLaunchKernelExC", "cuLaunchKernel"],
+     ["potrf_stream_f32_kernel", "trti2_leaf", "sm90_xmma_gemm"], False),
+    (["cudaLaunchCooperativeKernel", "cudaLaunchKernelExC", "cuLaunchKernel"],
+     ["potrf_stream_f32_kernel", "Memcpy DtoD (Device -> Device)",
+      "trti2_leaf"], True),
+    # kernels the profiler saw without their launch call (a graph replay)
+    (["cudaGraphLaunch"], ["a", "b"], False),
+])
+def test_cuda_kernels_raises_on_lost_kernels(launches, device, lost):
+    events = ([_event(x, DeviceType.CPU) for x in launches + ["aten::mm"]]
+              + [_event(x, DeviceType.CUDA, 10.0 - i, 11.0)
+                 for i, x in enumerate(device)])
+    if lost:
+        with pytest.raises(profiling.LostKernels):
+            profiling.cuda_kernels(events)
+    else:
+        got = profiling.cuda_kernels(events)
+        assert [x[0] for x in got] == device[::-1]   # in start order
+
+
+@pytest.mark.parametrize("kept_guards,fn_kernels,lost", [
+    (3, ["gemm128_kernel", "potrf_stream_f32_kernel"], False),
+    (0, ["gemm128_kernel", "potrf_stream_f32_kernel"], False),
+    (3, ["potrf_stream_f32_kernel"], True),
+    (0, [], True),
+])
+def test_guard_kernels_absorb_the_loss(kept_guards, fn_kernels, lost):
+    # three guards launched first, then two kernels of the call: lost
+    # guards are no fault, a lost kernel of the call is; the guards are
+    # left out of the census
+    guard = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    events = ([_event("cudaLaunchKernel", DeviceType.CPU)] * 5
+              + [_event(guard, DeviceType.CUDA, i, i + 1.0)
+                 for i in range(kept_guards)]
+              + [_event(x, DeviceType.CUDA, 10.0 + i, 11.0 + i)
+                 for i, x in enumerate(fn_kernels)])
+    if lost:
+        with pytest.raises(profiling.LostKernels):
+            profiling.cuda_kernels(events, guards=3)
+    else:
+        got = profiling.cuda_kernels(events, guards=3)
+        assert [x[0] for x in got] == fn_kernels

@@ -2,12 +2,13 @@
 harness tools/sweep.py: the same variant tables, config normalization and
 tolerances; then in-process --cpu runs of all eleven ops in s/d/c/z with
 the JAX row's keys plus ``card``, --resume, --golden (a slower row, a file
-whose rows name no card), an oracle that fails, the oracle workers' slots
-and the refusal to run without a card."""
+whose rows name no card), an oracle that fails, the oracle workers' slots,
+the refusal to run without a card, and no timed call beside an oracle."""
 
 import importlib.util
 import json
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -225,6 +226,36 @@ def test_oracles_take_every_worker_in_turn(tmp_path, monkeypatch):
     # each oracle is drained before the next point: a slot taken from the
     # queue's length would put all nine on worker 0
     assert slots == [i % 4 for i in range(9)]
+
+
+def test_no_timed_call_runs_beside_an_oracle(tmp_path, monkeypatch):
+    running, beside = [0], []
+    real_point, real_potrf = sweep.POINTS["potrf"], sweep.blocked.potrf
+
+    def point(n, backend, dt, cfg):
+        sec, flops, oracle, fpe, info = real_point(n, backend, dt, cfg)
+
+        def slow():
+            running[0] += 1
+            try:
+                time.sleep(0.05)
+                return oracle()
+            finally:
+                running[0] -= 1
+
+        return sec, flops, slow, fpe, info
+
+    def potrf(*args, **kwargs):
+        beside.append(running[0])
+        return real_potrf(*args, **kwargs)
+
+    monkeypatch.setitem(sweep.POINTS, "potrf", point)
+    monkeypatch.setattr(sweep.blocked, "potrf", potrf)
+    rc, rows = run(tmp_path, "--ops", "potrf", "--sizes", "32,48,64")
+    assert rc == 0 and len(rows) == 3
+    # every call of the op under test, the timed ones included, waited
+    # for the previous points' oracles
+    assert len(beside) >= 6 and beside == [0] * len(beside)
 
 
 def test_no_card_and_no_cpu_writes_no_row(tmp_path):

@@ -40,17 +40,18 @@ def test_flop_word(tflops, gbps, want):
         tflops * 1e3 / (gbps / 4), 1)
 
 
-def _row(op, n, gflops, passed=True, config=None):
+def _row(op, n, gflops, passed=True, config=None, err=0.0):
     return {"op": op, "dtype": "s", "config": config or
             sweep.DEFAULT_CFG[op], "backend": "auto", "n": n,
-            "time_ms": 1.0, "gflops": gflops, "info": 0, "max_err": 0.0,
-            "tol": 1.0, "passed": passed, "card": CARD}
+            "time_ms": 1.0, "gflops": gflops, "info": 0, "max_err": err,
+            "tol": 0.5, "passed": passed, "card": CARD}
 
 
 @pytest.fixture
 def golden_dir(tmp_path):
-    rows = [_row("potrf", 1024, 3500.0), _row("potrf", 4096, 8750.0),
-            _row("potrf", 2048, 9000.0, passed=False),
+    rows = [_row("potrf", 1024, 3500.0, err=0.01234),
+            _row("potrf", 4096, 8750.0, err=0.1),
+            _row("potrf", 2048, 9000.0, passed=False, err=0.75),
             _row("gemm", 1024, 20750.0),
             {"op": "gemm", "dtype": "s", "config": "nn", "n": 512,
              "passed": False, "error": "RuntimeError", "card": CARD},
@@ -70,8 +71,11 @@ def test_report_plain(golden_dir, capsys):
     assert by_op["potrf"] == {"dtype": "s", "op": "potrf",
                               "best_gflops": 9000.0, "at_n": 2048,
                               "config": "l", "points": 3, "failed": 1,
+                              "worst_err_tol": 1.5,
                               "vs_ref": "51.4x s-ref"}
     assert by_op["gemm"]["points"] == 2 and by_op["gemm"]["failed"] == 1
+    # the row without a score (an error) has no ratio
+    assert by_op["gemm"]["worst_err_tol"] == 0.0
     assert by_op["gemm"]["vs_ref"] == "50.0x s-ref"
     assert by_op["logdet_diag"]["vs_ref"] == "-"
 
@@ -82,9 +86,9 @@ def test_report_md(golden_dir, capsys):
     assert out[0].startswith(f"Card: {CARD} ")
     assert out[2].startswith("| dtype | op | best GF/s |")
     assert out[4:] == [
-        "| s | gemm | 20750.0 | 1024 | nn | 2 (1) | 50.0x s-ref |",
-        "| s | logdet_diag | 12.5 | 4096 | auto | 1 (0) | - |",
-        "| s | potrf | 9000.0 | 2048 | l | 3 (1) | 51.4x s-ref |"]
+        "| s | gemm | 20750.0 | 1024 | nn | 2 (1) | 0.0 | 50.0x s-ref |",
+        "| s | logdet_diag | 12.5 | 4096 | auto | 1 (0) | 0.0 | - |",
+        "| s | potrf | 9000.0 | 2048 | l | 3 (1) | 1.5 | 51.4x s-ref |"]
 
 
 def test_report_renders_the_committed_goldens(capsys):
