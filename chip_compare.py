@@ -331,9 +331,16 @@ def main() -> int:
     def trtri_device_ms(fn):
         """fn() under torch.profiler: its trtri_block_f32 kernels' device
         ms and the launches it made."""
-        before = trtri_block_f32.launches
-        split = device_by_kernel(fn, "trtri_block")
-        return split["busy"][0], trtri_block_f32.launches - before
+        launches = 0
+
+        def once():         # the census is that of the window's last run
+            nonlocal launches
+            before = trtri_block_f32.launches
+            fn()
+            launches = trtri_block_f32.launches - before
+
+        split = device_by_kernel(once, "trtri_block")
+        return split["busy"][0], launches
 
     def per_call(split, calls):
         return {k: [ms / calls, c / calls] for k, (ms, c) in split.items()}

@@ -1286,23 +1286,21 @@ def lauu2_leaf(L, layout):
     return X
 
 
-def lauu2_device_ms(X, calls=20, tries=3):
+def lauu2_device_ms(X, calls=20):
     """Device ms of one lauu2_f32 call: the union of its kernels' intervals
     under torch.profiler over ``calls`` calls, over the calls; NaN (not
-    measured) when the profiler lost kernels of the window ``tries`` times
-    in turn."""
+    measured) when the profiler lost kernels of the window at every
+    attempt."""
     lauu2_f32(X)
 
     def run():
         for _ in range(calls):
             lauu2_f32(X)
 
-    for _ in range(tries):
-        try:
-            return profiling.device_time(run, "lau")["busy"][0] / calls
-        except profiling.LostKernels:
-            pass
-    return math.nan
+    try:
+        return profiling.device_time(run, "lau")["busy"][0] / calls
+    except profiling.LostKernels:
+        return math.nan
 
 
 def host_ms(fn, X, reps=20):
@@ -2066,9 +2064,13 @@ def gemm_census(fn):
                            "T" if b_kf else "N", tile))
             return lib.ct_gemm_f32(*args)
 
+    def once():             # the census is that of the window's last run
+        shapes.clear()
+        fn()
+
     _build.library = Proxy
     try:
-        _, events = profiling.kernel_events(fn)
+        _, events = profiling.kernel_events(once)
     finally:
         _build.library = real
     runs = [(b - a) / 1e3 for name, a, b in events
@@ -2117,9 +2119,15 @@ def kernel_census(fn, on, name, match):
     counter) and their device time: the union of the intervals of
     torch.profiler's CUDA kernels whose name holds ``match``."""
     wrapper = kernels.KERNELS[name]
-    before = wrapper.launches
-    busy, runs = profiling.device_time(fn, match)["busy"]
-    launches = wrapper.launches - before
+    launches = 0
+
+    def once():             # the census is that of the window's last run
+        nonlocal launches
+        before = wrapper.launches
+        fn()
+        launches = wrapper.launches - before
+
+    busy, runs = profiling.device_time(once, match)["busy"]
     require(launches > 0 and runs, f"{name} census: no launch")
     print(f"{name} census of one GP train step: {launches} launches "
           f"({runs} kernels in the trace), {busy:.3f} ms of device "
@@ -2298,10 +2306,14 @@ def profile_table(fn, top=16, census=None):
             shapes.append((As.shape[1], Bs.shape[1], As.shape[2]))
             return real.mm_groups_f32pair(As, Bs)
 
+    def once():             # the census is that of the window's last run
+        shapes.clear()
+        fn()
+
     if census is not None:
         ozaki._kz = Recorder()
     try:
-        wall, events = profiling.kernel_events(fn)
+        wall, events = profiling.kernel_events(once)
     finally:
         ozaki._kz = real
     by_name, groups = {}, []

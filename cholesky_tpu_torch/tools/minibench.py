@@ -38,7 +38,8 @@ import torch
 import cholesky_tpu_torch  # noqa: F401  (TF32 off)
 from cholesky_tpu_torch.ops.kernels import _build
 from cholesky_tpu_torch.utils.benchlib import bench_op, card
-from cholesky_tpu_torch.utils.profiling import LostKernels, device_time
+from cholesky_tpu_torch.utils.profiling import (GUARD_LAUNCHES, LostKernels,
+                                                device_time)
 
 
 def log(*a):
@@ -129,8 +130,9 @@ def probe_timer(n=4096, windows=10):
     around a call and a synchronize must cover the call's CUDA-event
     time; the host clock around the launch alone does not (the
     asynchronous-launch trap). And does torch.profiler see the kernels of
-    a short window? Of ``windows`` profiled calls, those whose census
-    holds a kernel (a window that lost it raises LostKernels)."""
+    a short window? Of ``windows`` profiled calls, each one attempt behind
+    the first entry of GUARD_LAUNCHES, those whose census holds a kernel
+    (a window that lost it raises LostKernels)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     A = torch.randn(n, n, device="cuda", generator=g)
     t_event = bench_op(lambda x: torch.matmul(x, x), A, reps=5)
@@ -143,7 +145,8 @@ def probe_timer(n=4096, windows=10):
 
     def kept():
         try:
-            return device_time(lambda: torch.matmul(A, A))["busy"][1] > 0
+            return device_time(lambda: torch.matmul(A, A),
+                               guards=GUARD_LAUNCHES[:1])["busy"][1] > 0
         except LostKernels:
             return False
 

@@ -10,9 +10,10 @@ call runs: device time and launches by kernel name, and the busy time of
 the device as the union of their intervals. On some H100 machines
 torch.profiler loses the first device records of a window, more of them
 the longer the process has run: a census window opens with guard
-kernels that absorb the loss, and one in which the profiler still
-recorded more kernel launches than kernels raises ``LostKernels``, so
-that no census reads a lost window as an idle device.
+kernels that absorb the loss, a window in which the profiler still
+recorded more kernel launches than kernels runs again behind more
+guards, and the last such attempt raises ``LostKernels``, so that no
+census reads a lost window as an idle device.
 
 The reference keeps its timing in its test binaries (CUevent loops,
 test/lapack/cuspotrf.c:129-141); per-kernel latency belongs to
@@ -28,6 +29,7 @@ import math
 import os
 import socket
 import time
+import warnings
 
 import torch
 from torch.autograd import DeviceType
@@ -131,11 +133,13 @@ class LostKernels(RuntimeError):
     their kernels: a census of that window would count too little."""
 
 
-#: kernels launched at the start of every census window, before ``fn``.
-#: On some H100 machines torch.profiler loses the first device records of
-#: a window, more of them the longer the process has run the port's
-#: kernels; these absorb that loss and are left out of the census.
-GUARD_LAUNCHES = 128
+#: kernels launched at the start of a census window, before ``fn``, one
+#: entry for each attempt. On some H100 machines torch.profiler loses the
+#: first device records of a window, more of them the longer the process
+#: has run the port's kernels; the guards absorb that loss and are left
+#: out of the census, and a window that lost a kernel of ``fn`` all the
+#: same runs again behind the next entry's guards.
+GUARD_LAUNCHES = (128, 1024, 8192)
 GUARD_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 
 
@@ -154,10 +158,12 @@ def cuda_kernels(events, guards: int = 0) -> list:
     kernels launched first. Raises :class:`LostKernels` when the other
     launches outnumber the other kernels: every launch runs one kernel,
     so the profiler lost some."""
-    device, launches = [], 0
+    device, launches, kept = [], 0, 0
     for e in events:
         if e.device_type == DeviceType.CUDA:
-            if GUARD_KERNEL not in e.name:
+            if GUARD_KERNEL in e.name:
+                kept += 1
+            else:
                 device.append((e.name, e.time_range.start, e.time_range.end))
         elif _is_launch(e.name):
             launches += 1
@@ -165,37 +171,51 @@ def cuda_kernels(events, guards: int = 0) -> list:
                   for name, _, _ in device)
     if kernels < launches - guards:
         raise LostKernels(f"torch.profiler recorded {launches - guards} "
-                          f"kernel launches and {kernels} CUDA kernels")
+                          f"kernel launches and {kernels} CUDA kernels "
+                          f"({kept} of {guards} guard kernels)")
     return sorted(device, key=lambda e: e[1])
 
 
-def kernel_events(fn) -> tuple[float, list]:
-    """Run ``fn()`` once under ``torch.profiler``, the card idle before and
+def kernel_events(fn, guards=GUARD_LAUNCHES) -> tuple[float, list]:
+    """Run ``fn()`` under ``torch.profiler``, the card idle before and
     drained after: (wall ms of the call and the drain, [(kernel name as
     the profiler gives it, start µs, end µs)] of the CUDA kernels it ran,
-    in start order). On a card the window opens with
-    :data:`GUARD_LAUNCHES` guard kernels. Raises :class:`LostKernels`
-    rather than return a census short of a launched kernel."""
-    guards = GUARD_LAUNCHES if torch.cuda.is_available() else 0
-    _drain()
-    with profile(activities=_activities()) as prof:
-        for _ in range(guards):
-            torch.cuda._sleep(1)
+    in start order). On a card the window opens with ``guards[0]`` guard
+    kernels; a window whose kernels the profiler lost runs ``fn`` again
+    behind ``guards[1]``, and so on, so ``fn`` may run once for each
+    entry and the census is that of its last run. Raises
+    :class:`LostKernels` rather than return a census short of a launched
+    kernel."""
+    attempts = list(guards) if torch.cuda.is_available() else [0]
+    while True:
+        n = attempts.pop(0)
         _drain()
-        t0 = time.perf_counter()
-        fn()
-        _drain()
-        wall = (time.perf_counter() - t0) * 1e3
-    return wall, cuda_kernels(prof.events(), guards)
+        with profile(activities=_activities()) as prof:
+            for _ in range(n):
+                torch.cuda._sleep(1)
+            _drain()
+            t0 = time.perf_counter()
+            fn()
+            _drain()
+            wall = (time.perf_counter() - t0) * 1e3
+        try:
+            return wall, cuda_kernels(prof.events(), n)
+        except LostKernels as lost:
+            if not attempts:
+                raise
+            warnings.warn(f"{lost} behind {n} guard kernels; the window "
+                          f"runs again behind {attempts[0]}")
 
 
-def device_time(fn, match: str = "") -> dict:
+def device_time(fn, match: str = "", guards=GUARD_LAUNCHES) -> dict:
     """``fn()`` under ``torch.profiler``: {kernel: [device ms, launches]}
     for the CUDA kernels whose name holds ``match`` (named by
     :func:`kernel_name`), and under "busy" [the union of their intervals
-    in ms, their count]. Without a card it is {"busy": [0.0, 0]}; a
-    window whose kernels the profiler lost raises :class:`LostKernels`."""
-    _, events = kernel_events(fn)
+    in ms, their count]. Without a card it is {"busy": [0.0, 0]}. ``fn``
+    may run once for each entry of ``guards`` (see :func:`kernel_events`);
+    a window whose kernels the profiler lost at every attempt raises
+    :class:`LostKernels`."""
+    _, events = kernel_events(fn, guards)
     split, spans = {}, []
     for name, a, b in events:
         if match in name:

@@ -135,3 +135,57 @@ def test_guard_kernels_absorb_the_loss(kept_guards, fn_kernels, lost):
     else:
         got = profiling.cuda_kernels(events, guards=3)
         assert [x[0] for x in got] == fn_kernels
+
+
+class _FakeProfile:
+    """torch.profiler.profile's shape, recording nothing."""
+
+    def __init__(self, activities):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        return []
+
+
+@pytest.mark.parametrize("losses,ran", [
+    (0, 1),        # the first window keeps its kernels
+    (1, 2),        # one lost window: the call runs again behind more guards
+    (3, 3),        # every attempt lost a kernel: LostKernels
+])
+def test_lost_window_runs_again_behind_more_guards(monkeypatch, losses,
+                                                   ran):
+    # a window that lost a kernel of the call runs the call again behind
+    # the next entry's guard kernels; the census is that of the last run,
+    # and the last attempt's loss raises
+    guards, calls, sleeps = (2, 5, 9), [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda c: sleeps.append(c))
+    monkeypatch.setattr(profiling, "profile", _FakeProfile)
+
+    def census(events, n):
+        assert n == guards[len(calls) - 1]
+        if len(calls) <= losses:
+            raise profiling.LostKernels(f"window {len(calls)}")
+        return [("gemm128_kernel", 0.0, 1.0)]
+
+    monkeypatch.setattr(profiling, "cuda_kernels", census)
+    if losses == len(guards):
+        with pytest.warns(UserWarning, match="runs again behind"):
+            with pytest.raises(profiling.LostKernels, match="window 3"):
+                profiling.kernel_events(lambda: calls.append(1), guards)
+    elif losses:
+        with pytest.warns(UserWarning, match="runs again behind 5"):
+            _, got = profiling.kernel_events(lambda: calls.append(1), guards)
+        assert got == [("gemm128_kernel", 0.0, 1.0)]
+    else:
+        _, got = profiling.kernel_events(lambda: calls.append(1), guards)
+        assert got == [("gemm128_kernel", 0.0, 1.0)]
+    assert len(calls) == ran
+    assert len(sleeps) == sum(guards[:ran])
