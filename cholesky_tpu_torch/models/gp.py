@@ -14,6 +14,10 @@
 Plain functions on tensors: everything runs on the device of X, and the
 parameters are 0-d tensors on that device. One train step runs potrf, two
 trsm, potri (trtri then lauum) and logdet together.
+
+Spans (``utils/profiling.py``): a train step or a prediction is the root
+``gp.train_step`` or ``gp.predict``; inside, ``gp.kernel_matrix`` and
+``gp.gradient_passes``, and the library's ``api.*`` calls.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from cholesky_tpu_torch.ops import api as ops
+from cholesky_tpu_torch.utils import profiling
 
 
 class GPParams(NamedTuple):
@@ -61,6 +66,7 @@ def _sqdist(X1, X2):
     return D
 
 
+@profiling.annotate_function(name="gp.kernel_matrix")
 def rbf_kernel(params: GPParams, X1, X2=None):
     X2 = X1 if X2 is None else X2
     amp = torch.exp(2.0 * params.log_amp)
@@ -68,6 +74,7 @@ def rbf_kernel(params: GPParams, X1, X2=None):
     return amp * torch.exp(-0.5 * _sqdist(X1, X2) / ell2)
 
 
+@profiling.annotate_function(name="gp.kernel_matrix")
 def _kmatrix(params: GPParams, X, jitter=1e-6):
     noise = torch.exp(2.0 * params.log_noise)
     K = rbf_kernel(params, X)
@@ -103,25 +110,27 @@ def gp_nll_and_grads(params: GPParams, X, y, backend: str = "auto"):
 
     Kinv_tri, _ = ops.potri("L", F, backend=backend)
     del F
-    Kinv = torch.tril(Kinv_tri) + torch.tril(Kinv_tri, -1).T
-    del Kinv_tri
-    W = Kinv - alpha[:, None] * alpha[None, :]
-    del Kinv
+    with profiling.annotate("gp.gradient_passes"):
+        Kinv = torch.tril(Kinv_tri) + torch.tril(Kinv_tri, -1).T
+        del Kinv_tri
+        W = Kinv - alpha[:, None] * alpha[None, :]
+        del Kinv
 
-    amp = torch.exp(2.0 * params.log_amp)
-    ell2 = torch.exp(2.0 * params.log_len)
-    D = _sqdist(X, X)
-    Kf = amp * torch.exp(-0.5 * D / ell2)     # noise-free kernel
-    dK_damp = 2.0 * Kf                        # ∂K/∂log_amp
-    dK_dlen = Kf * (D / ell2)                 # ∂K/∂log_len
-    noise = torch.exp(2.0 * params.log_noise)
+        amp = torch.exp(2.0 * params.log_amp)
+        ell2 = torch.exp(2.0 * params.log_len)
+        D = _sqdist(X, X)
+        Kf = amp * torch.exp(-0.5 * D / ell2)     # noise-free kernel
+        dK_damp = 2.0 * Kf                        # ∂K/∂log_amp
+        dK_dlen = Kf * (D / ell2)                 # ∂K/∂log_len
+        noise = torch.exp(2.0 * params.log_noise)
 
-    g_amp = 0.5 * torch.sum(W * dK_damp)
-    g_len = 0.5 * torch.sum(W * dK_dlen)
-    g_noise = 0.5 * torch.trace(W) * 2.0 * noise
+        g_amp = 0.5 * torch.sum(W * dK_damp)
+        g_len = 0.5 * torch.sum(W * dK_dlen)
+        g_noise = 0.5 * torch.trace(W) * 2.0 * noise
     return nll, GPParams(g_amp, g_len, g_noise), info
 
 
+@profiling.annotate_function(name="gp.train_step")
 def gp_train_step(params: GPParams, X, y, lr=1e-2, backend: str = "auto"):
     """One gradient step on the hyperparameters. Returns
     (params', nll, info)."""
@@ -130,6 +139,7 @@ def gp_train_step(params: GPParams, X, y, lr=1e-2, backend: str = "auto"):
     return new, nll, info
 
 
+@profiling.annotate_function(name="gp.predict")
 def gp_predict(params: GPParams, X, y, Xs, backend: str = "auto"):
     """Posterior mean and variance at the test points Xs. Returns
     (mean, var, info)."""

@@ -54,6 +54,7 @@ from cholesky_tpu_torch.ops.kernels import syrk as _syrk
 from cholesky_tpu_torch.tuning import get_params
 from cholesky_tpu_torch.types import (Diag, Side, Trans, Uplo, norm_diag,
                                       norm_side, norm_trans, norm_uplo)
+from cholesky_tpu_torch.utils import profiling
 from cholesky_tpu_torch.utils.errors import check
 
 BACKENDS = ("auto", "ref", "torch", "cuda", "ozaki", "embed")
@@ -574,6 +575,15 @@ def _lauum_lower(L, t, nb, allow_mega=False):
     M.copy_(B21)
 
 
+# the recursions' top-level calls, each the span driver.<name>; inside, the
+# recursions call themselves unspanned
+_potrf_driver = profiling.annotate_function(_potrf_lower, "driver.potrf_lower")
+_trtri_driver = profiling.annotate_function(_trtri_lower, "driver.trtri_lower")
+_lauum_driver = profiling.annotate_function(_lauum_lower, "driver.lauum_lower")
+_trsm_lln_driver = profiling.annotate_function(_trsm_lln, "driver.trsm_lln")
+_trsm_llt_driver = profiling.annotate_function(_trsm_llt, "driver.trsm_llt")
+
+
 # ---------------------------------------------------------------------------
 # Canonical forms: the one working copy
 # ---------------------------------------------------------------------------
@@ -601,6 +611,7 @@ def _pad_identity(A, nb):
     return W
 
 
+@profiling.annotate_function(name="blocked.copy_in")
 def _working_copy(A, t, nb, op, allow_mega):
     """The working buffer of a routine: padded to a multiple of nb for the
     recursion, or not padded at all when one whole-matrix kernel takes the
@@ -617,6 +628,28 @@ def _merge_triangle(result, original, uplo):
     lower = torch.ones((n, n), dtype=torch.bool, device=original.device)
     lower = lower.tril_() if norm_uplo(uplo) == Uplo.LOWER else lower.triu_()
     return torch.where(lower, result, original)
+
+
+@profiling.annotate_function(name="blocked.copy_in")
+def _solve_copy(A, B, alpha, nb, unit):
+    """The working copies of a left lower solve: A padded with identity
+    to a multiple of nb, its diagonal 1 where ``unit`` (only the lower
+    triangle is read, so the recursion runs non-unit), and alpha·B over
+    zero rows."""
+    Lp = _pad_identity(A, nb)
+    if unit:
+        Lp.diagonal().fill_(1.0)
+    Bp = torch.zeros((Lp.shape[0], B.shape[1]), dtype=B.dtype,
+                     device=B.device)
+    Bp[:A.shape[0]] = B if alpha == 1.0 else alpha * B
+    return Lp, Bp
+
+
+@profiling.annotate_function(name="blocked.copy_out")
+def _copy_out(R, original, uplo):
+    """A routine's result: the uplo triangle from the lower-form result
+    R, the opposite strict triangle from the caller's original."""
+    return _merge_triangle(_from_lower(R, uplo), original, uplo)
 
 
 # ---------------------------------------------------------------------------
@@ -641,11 +674,11 @@ def _potrf_work(uplo, A, backend, block_size):
     nb = block_size or t.default_nb
     allow_mega = block_size is None
     Wp = _working_copy(_to_lower(A, uplo), t, nb, "potrf", allow_mega)
-    info = _potrf_lower(Wp, t, nb, allow_mega)
+    info = _potrf_driver(Wp, t, nb, allow_mega)
     if isinstance(t, _OzakiTiles) and int(info) > 0:
         t.rescue = True
         Wp = _working_copy(_to_lower(A, uplo), t, nb, "potrf", allow_mega)
-        info = _potrf_lower(Wp, t, nb, allow_mega)
+        info = _potrf_driver(Wp, t, nb, allow_mega)
     return Wp[:n, :n], info
 
 
@@ -663,7 +696,7 @@ def potrf(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     if backend == "ref":
         return lapack_ref.potrf(uplo, A)
     F, info = _potrf_work(uplo, A, backend, block_size)
-    return _merge_triangle(_from_lower(F, uplo), A, uplo), info
+    return _copy_out(F, A, uplo), info
 
 
 def logdet(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
@@ -700,7 +733,7 @@ def potf2(uplo, A, backend: str = "auto"):
             n <= _mega.NB or n % _mega.NB == 0):
         W = _to_lower(A, u).clone(memory_format=torch.contiguous_format)
         info = t.potf2(W)
-        return _merge_triangle(_from_lower(W, u), A, u), info
+        return _copy_out(W, A, u), info
     return lapack_ref.potf2(u, A)
 
 
@@ -749,8 +782,8 @@ def trtri(uplo, diag, A, backend: str = "auto",
     # working copy is cleared
     Wp = _working_copy(_to_lower(A, uplo), t, nb, "trtri", allow_mega)
     Wp.tril_()
-    info = _trtri_lower(Wp, t, nb, unit, allow_mega)
-    return _merge_triangle(_from_lower(Wp[:n, :n], uplo), A, uplo), info
+    info = _trtri_driver(Wp, t, nb, unit, allow_mega)
+    return _copy_out(Wp[:n, :n], A, uplo), info
 
 
 def trtri2(uplo, diag, A, backend: str = "auto",
@@ -779,8 +812,8 @@ def lauum(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     nb = block_size or t.default_nb
     allow_mega = block_size is None
     Wp = _working_copy(_to_lower(A, uplo), t, nb, "lauum", allow_mega)
-    _lauum_lower(Wp, t, nb, allow_mega)
-    return _merge_triangle(_from_lower(Wp[:n, :n], uplo), A, uplo)
+    _lauum_driver(Wp, t, nb, allow_mega)
+    return _copy_out(Wp[:n, :n], A, uplo)
 
 
 def potri(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
@@ -1051,16 +1084,9 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
     check(B.dtype == A.dtype and B.device == A.device, "trsm", 7,
           "A and B must share dtype and device")
     nb = block_size or t.default_nb
-    # only the lower triangle of the working copy is read; a unit
-    # diagonal is written into it, so the recursion runs non-unit
-    Lp = _pad_identity(A, nb)
-    if diag == Diag.UNIT:
-        Lp.diagonal().fill_(1.0)
-    Bp = torch.zeros((Lp.shape[0], B.shape[1]), dtype=B.dtype,
-                     device=B.device)
-    Bp[:n] = B if alpha == 1.0 else alpha * B
+    Lp, Bp = _solve_copy(A, B, alpha, nb, diag == Diag.UNIT)
     if transa == Trans.NO_TRANS:
-        _trsm_lln(Lp, Bp, t, nb, unit=False)
+        _trsm_lln_driver(Lp, Bp, t, nb, unit=False)
     else:
-        _trsm_llt(Lp, Bp, t, nb, unit=False)
+        _trsm_llt_driver(Lp, Bp, t, nb, unit=False)
     return Bp[:n]

@@ -22,6 +22,7 @@ from pathlib import Path
 
 import torch
 
+from cholesky_tpu_torch.utils import profiling
 from cholesky_tpu_torch.utils.errors import report_error
 
 _HERE = Path(__file__).parent
@@ -152,6 +153,34 @@ def check_launch(err: int, kernel: str) -> None:
         msg = library().ct_error_string(err).decode()
         report_error(kernel, err, msg, "launch")
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch ({msg})")
+
+
+def launch(kernel: str, *args) -> None:
+    """Call the entry point ``ct_<kernel>`` with ``args`` and raise if the
+    launch failed (:func:`check_launch`). Under
+    ``profiling.collect(device=True)`` the kernel span's CUDA events
+    bracket this call alone."""
+    fn = getattr(library(), f"ct_{kernel}")
+    with profiling.launch_events():
+        err = fn(*args)
+    check_launch(err, kernel)
+
+
+def dtype_name(t) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def square(A, *args, **kwargs) -> dict:
+    """The attributes of a launch whose first operand is n × n."""
+    return {"n": A.shape[0], "dtype": dtype_name(A)}
+
+
+def kernel_span(kernel: str, attrs=square):
+    """The decorator of a kernel's wrapper: each call is the span
+    ``kernel.<kernel>``, its attributes the launch's shape from
+    ``attrs(*args, **kwargs)``, its device events around :func:`launch`."""
+    return profiling.annotate_function(name=f"kernel.{kernel}", attrs=attrs,
+                                       launch=True)
 
 
 def writable_2d(t) -> bool:

@@ -68,6 +68,13 @@ def launch_plan(m, n, a_strides, a_ptr, b_strides, b_ptr):
     return tile, a_kf, b_kf, vec
 
 
+def _gemm_shape(A, B, C=None, *, beta=0.0, **kwargs):
+    return {"m": A.shape[0], "n": B.shape[1], "k": A.shape[1],
+            "dtype": _build.dtype_name(A),
+            "c_read": C is not None and beta != 0.0}
+
+
+@_build.kernel_span("gemm_f32", _gemm_shape)
 def gemm_f32(A, B, C=None, *, alpha=1.0, beta=0.0, out=None):
     """D = alpha·A·B + beta·C for f32 matrices, A (m, k), B (k, n), C and
     ``out`` (m, n). C is read only when beta != 0. ``out`` is allocated
@@ -98,14 +105,13 @@ def gemm_f32(A, B, C=None, *, alpha=1.0, beta=0.0, out=None):
     Cp = C if C is not None else out
     plan = launch_plan(m, n, A.stride(), A.data_ptr(), B.stride(),
                        B.data_ptr())
-    err = _build.library().ct_gemm_f32(
-        A.data_ptr(), A.stride(0), A.stride(1),
+    _build.launch(
+        "gemm_f32", A.data_ptr(), A.stride(0), A.stride(1),
         B.data_ptr(), B.stride(0), B.stride(1),
         Cp.data_ptr(), Cp.stride(0), Cp.stride(1),
         out.data_ptr(), out.stride(0), out.stride(1),
         m, n, k, float(alpha), float(beta), *(int(v) for v in plan),
         *_build.device_args(out))
-    _build.check_launch(err, "gemm_f32")
     gemm_f32.launches += 1
     return out
 

@@ -77,6 +77,7 @@ def potf2_plain(A):
     return info
 
 
+@_build.kernel_span("potf2_f32")
 def potf2_f32(A):
     """Lower Cholesky of the f32 block A (n <= NB or a multiple of NB, no
     cap; unit-stride rows), in place: only the lower triangle is read, the
@@ -94,10 +95,10 @@ def potf2_f32(A):
     PT = torch.empty((min(2 * POTF2_KB, n) if n > NB else 1, n),
                      dtype=A.dtype, device=A.device)
     info = torch.empty((), dtype=torch.int32, device=A.device)
-    err = _build.library().ct_potf2_f32(
-        A.data_ptr(), A.stride(0), Winv.data_ptr(), PT.data_ptr(), n,
-        POTF2_KB, GEMM128_MIN_TILES, info.data_ptr(), *_build.device_args(A))
-    _build.check_launch(err, "potf2_f32")
+    _build.launch(
+        "potf2_f32", A.data_ptr(), A.stride(0), Winv.data_ptr(),
+        PT.data_ptr(), n, POTF2_KB, GEMM128_MIN_TILES, info.data_ptr(),
+        *_build.device_args(A))
     potf2_f32.launches += 1
     return info
 
@@ -123,6 +124,7 @@ def trti2_plain(L, unit=False):
         else trtri_block_plain(L)
 
 
+@_build.kernel_span("trti2_f32")
 def trti2_f32(L, unit=False):
     """Inverse of the lower-triangular f32 block L (n <= NB or a multiple
     of NB, no cap; unit-stride rows); only its lower triangle is read.
@@ -138,10 +140,10 @@ def trti2_f32(L, unit=False):
         return trti2_plain(L, unit)
     W = torch.empty((n, n), dtype=L.dtype, device=L.device)
     info = torch.empty((), dtype=torch.int32, device=L.device)
-    err = _build.library().ct_trti2_f32(
-        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), n, int(unit),
-        GEMM128_MIN_TILES, info.data_ptr(), *_build.device_args(L))
-    _build.check_launch(err, "trti2_f32")
+    _build.launch(
+        "trti2_f32", L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0),
+        n, int(unit), GEMM128_MIN_TILES, info.data_ptr(),
+        *_build.device_args(L))
     trti2_f32.launches += 1
     return W, info
 
@@ -167,6 +169,7 @@ def lauu2_launch_plan(n):
         n, blocks=WAVE // 2 if nt * (nt + 1) // 2 < WAVE // 2 else None)
 
 
+@_build.kernel_span("lauu2_f32")
 def lauu2_f32(A):
     """Lower triangle of tril(A)ᵀ·tril(A) for the f32 block A (any n,
     unit-stride rows), strict upper passed through from A bit for bit.
@@ -182,10 +185,10 @@ def lauu2_f32(A):
     # where runs split tiles, two partial tiles a block
     P = (torch.empty((2 * blocks * NB * NB,), dtype=A.dtype,
                      device=A.device) if q and blocks > 1 else None)
-    err = _build.library().ct_lauu2_f32(
-        A.data_ptr(), A.stride(0), B.data_ptr(), n, n, q, blocks,
-        P.data_ptr() if P is not None else None, *_build.device_args(A))
-    _build.check_launch(err, "lauu2_f32")
+    _build.launch(
+        "lauu2_f32", A.data_ptr(), A.stride(0), B.data_ptr(), n, n, q,
+        blocks, P.data_ptr() if P is not None else None,
+        *_build.device_args(A))
     lauu2_f32.launches += 1
     return B
 

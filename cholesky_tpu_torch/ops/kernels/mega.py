@@ -105,6 +105,7 @@ def trtri_block_plain(L):
     return W, info
 
 
+@_build.kernel_span("potrf_block_f32")
 def potrf_block_f32(A):
     """Lower Cholesky of the f32 block A (n <= MAX_N, unit-stride rows), in
     place: only the lower triangle is read, the strict upper is zeroed.
@@ -119,14 +120,14 @@ def potrf_block_f32(A):
         return potrf_block_plain(A)
     multi = n >= POTRF_BLOCK_MULTI_MIN_N
     info = torch.empty((), dtype=torch.int32, device=A.device)
-    err = _build.library().ct_potrf_block_f32(
-        A.data_ptr(), A.stride(0), n, info.data_ptr(), int(multi),
-        *_build.device_args(A))
-    _build.check_launch(err, "potrf_block_f32")
+    _build.launch(
+        "potrf_block_f32", A.data_ptr(), A.stride(0), n, info.data_ptr(),
+        int(multi), *_build.device_args(A))
     potrf_block_f32.launches += 1
     return info
 
 
+@_build.kernel_span("trtri_block_f32")
 def trtri_block_f32(L):
     """Inverse of the lower-triangular f32 block L (n <= MAX_N,
     unit-stride rows); only its lower triangle is read. Returns (W, info):
@@ -140,10 +141,10 @@ def trtri_block_f32(L):
     W = torch.empty((n, n), dtype=L.dtype, device=L.device)
     S = torch.empty((n, n), dtype=L.dtype, device=L.device)   # B·A⁻¹
     info = torch.empty((), dtype=torch.int32, device=L.device)
-    err = _build.library().ct_trtri_block_f32(
-        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), S.data_ptr(),
-        n, info.data_ptr(), *_build.device_args(L))
-    _build.check_launch(err, "trtri_block_f32")
+    _build.launch(
+        "trtri_block_f32", L.data_ptr(), L.stride(0), W.data_ptr(),
+        W.stride(0), S.data_ptr(), n, info.data_ptr(),
+        *_build.device_args(L))
     trtri_block_f32.launches += 1
     return W, info
 
@@ -178,6 +179,7 @@ def potrf_stream_plain(A):
 STREAM_TRACE_SLOTS = 8
 
 
+@_build.kernel_span("potrf_stream_f32")
 def potrf_stream_f32(A, *, trace=None):
     """Lower Cholesky of the f32 matrix A, n a multiple of NB up to
     STREAM_MAX_N, unit-stride rows, in place, as :func:`potrf_block_f32`
@@ -200,12 +202,11 @@ def potrf_stream_f32(A, *, trace=None):
     # transposed
     P = torch.empty((2 * n + NB, NB), dtype=A.dtype, device=A.device)
     info = torch.empty((), dtype=torch.int32, device=A.device)
-    err = _build.library().ct_potrf_stream_f32(
-        A.data_ptr(), A.stride(0), P.data_ptr(), P[n:].data_ptr(),
-        P[n + NB:].data_ptr(), n, info.data_ptr(),
+    _build.launch(
+        "potrf_stream_f32", A.data_ptr(), A.stride(0), P.data_ptr(),
+        P[n:].data_ptr(), P[n + NB:].data_ptr(), n, info.data_ptr(),
         trace.data_ptr() if trace is not None else None,
         *_build.device_args(A))
-    _build.check_launch(err, "potrf_stream_f32")
     potrf_stream_f32.launches += 1
     return info
 
@@ -248,6 +249,7 @@ def trtri_stream_phases(n):
     return names + ["finish"]
 
 
+@_build.kernel_span("trtri_stream_f32")
 def trtri_stream_f32(L, *, trace=None):
     """Inverse of the lower-triangular f32 matrix L, n a multiple of NB up
     to STREAM_MAX_N, unit-stride rows; only its lower triangle is read.
@@ -273,12 +275,11 @@ def trtri_stream_f32(L, *, trace=None):
     # each run's two partial tiles
     P = torch.empty((2 * WAVE * NB * NB,), dtype=L.dtype, device=L.device)
     info = torch.empty((), dtype=torch.int32, device=L.device)
-    err = _build.library().ct_trtri_stream_f32(
-        L.data_ptr(), L.stride(0), W.data_ptr(), W.stride(0), P.data_ptr(),
-        n, WAVE, STREAM_WHOLE_MIN_TILES, info.data_ptr(),
-        trace.data_ptr() if trace is not None else None,
+    _build.launch(
+        "trtri_stream_f32", L.data_ptr(), L.stride(0), W.data_ptr(),
+        W.stride(0), P.data_ptr(), n, WAVE, STREAM_WHOLE_MIN_TILES,
+        info.data_ptr(), trace.data_ptr() if trace is not None else None,
         *_build.device_args(L))
-    _build.check_launch(err, "trtri_stream_f32")
     trtri_stream_f32.launches += 1
     return W, info
 
@@ -345,6 +346,7 @@ def lauum_runs(n, q):
     return runs
 
 
+@_build.kernel_span("lauum_stream_f32")
 def lauum_stream_f32(L):
     """tril(LᵀL) for the f32 matrix L, n a multiple of NB up to
     STREAM_MAX_N, unit-stride rows; only the lower triangle of L is read.
@@ -361,10 +363,10 @@ def lauum_stream_f32(L):
     # where runs split tiles, two partial tiles a block
     P = (torch.empty((2 * blocks * NB * NB,), dtype=L.dtype,
                      device=L.device) if q else None)
-    err = _build.library().ct_lauum_stream_f32(
-        L.data_ptr(), L.stride(0), B.data_ptr(), B.stride(0), n, q, blocks,
-        D.data_ptr(), P.data_ptr() if q else None, *_build.device_args(L))
-    _build.check_launch(err, "lauum_stream_f32")
+    _build.launch(
+        "lauum_stream_f32", L.data_ptr(), L.stride(0), B.data_ptr(),
+        B.stride(0), n, q, blocks, D.data_ptr(), P.data_ptr() if q else None,
+        *_build.device_args(L))
     lauum_stream_f32.launches += 1
     return B
 

@@ -41,6 +41,11 @@ def peel_plain(rh, rl, slices: int):
     return torch.stack(outs)
 
 
+def _peel_shape(rh, rl, *, slices):
+    return {"m": rh.shape[0], "k": rh.shape[1], "slices": slices}
+
+
+@_build.kernel_span("peel_f32pair", _peel_shape)
 def peel_f32pair(rh, rl, *, slices: int):
     """int8 slices (S, m, k) of the exact pair value rh + rl, f32 (m, k)
     strided views already scaled into [-1/2, 1/2]. On the card the result
@@ -68,12 +73,11 @@ def peel_f32pair(rh, rl, *, slices: int):
         return out[:, :, :k]
     vec_in = all(t.stride(1) == 1 and t.stride(0) % 4 == 0
                  and t.data_ptr() % 16 == 0 for t in (rh, rl))
-    err = _build.library().ct_peel_f32pair(
-        rh.data_ptr(), rh.stride(0), rh.stride(1),
+    _build.launch(
+        "peel_f32pair", rh.data_ptr(), rh.stride(0), rh.stride(1),
         rl.data_ptr(), rl.stride(0), rl.stride(1),
         out.data_ptr(), kp, m * kp, m, k, kp, slices, int(vec_in),
         *_build.device_args(rh))
-    _build.check_launch(err, "peel_f32pair")
     peel_f32pair.launches += 1
     return out[:, :, :k]
 
@@ -124,6 +128,12 @@ def aligned_rows(X):
     return buf[:, :, :k]
 
 
+def _groups_shape(As, Bs):
+    return {"slices": As.shape[0], "m": As.shape[1], "n": Bs.shape[1],
+            "k": As.shape[2]}
+
+
+@_build.kernel_span("mm_groups_f32pair", _groups_shape)
 def mm_groups_f32pair(As, Bs):
     """Group-weighted slice-product sum of As (S, m, k) and Bs (S, n, k),
     int8, as an f32 pair (hi, lo), (m, n) each:
@@ -142,12 +152,11 @@ def mm_groups_f32pair(As, Bs):
     lo = torch.empty_like(hi)
     if m == 0 or n == 0:
         return hi, lo
-    err = _build.library().ct_mm_groups_f32pair(
-        As.data_ptr(), As.stride(0), As.stride(1),
+    _build.launch(
+        "mm_groups_f32pair", As.data_ptr(), As.stride(0), As.stride(1),
         Bs.data_ptr(), Bs.stride(0), Bs.stride(1),
         hi.data_ptr(), lo.data_ptr(), n, S, m, n, k,
         *_build.device_args(As))
-    _build.check_launch(err, "mm_groups_f32pair")
     mm_groups_f32pair.launches += 1
     return hi, lo
 

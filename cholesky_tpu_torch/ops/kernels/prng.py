@@ -111,14 +111,18 @@ def _check_fill(seeds, rows, cols, name):
 def _fill(kernel, seeds, rows, cols, dtype):
     out = torch.empty((rows, cols), dtype=dtype, device=seeds.device)
     seeds = seeds.contiguous()
-    err = getattr(_build.library(), f"ct_{kernel.__name__}")(
-        seeds.data_ptr(), rows, cols, rows_per_block(rows), out.data_ptr(),
-        *_build.device_args(out))
-    _build.check_launch(err, kernel.__name__)
+    _build.launch(kernel.__name__, seeds.data_ptr(), rows, cols,
+                  rows_per_block(rows), out.data_ptr(),
+                  *_build.device_args(out))
     kernel.launches += 1
     return out
 
 
+def _fill_shape(seeds, rows, cols):
+    return {"m": rows, "n": cols}
+
+
+@_build.kernel_span("uniform_fill_f32", _fill_shape)
 def uniform_fill_f32(seeds, rows: int, cols: int):
     """A new rows × cols f32 tensor of uniform values in [0, 1) on the
     device of ``seeds``, the int32 seeds of its row blocks (one per
@@ -129,6 +133,7 @@ def uniform_fill_f32(seeds, rows: int, cols: int):
     return _fill(uniform_fill_f32, seeds, rows, cols, torch.float32)
 
 
+@_build.kernel_span("uniform_fill_f64", _fill_shape)
 def uniform_fill_f64(seeds, rows: int, cols: int):
     """A new rows × cols f64 tensor of uniform values in [0, 1) on the
     2⁻⁵³ grid, on the device of ``seeds`` (as :func:`uniform_fill_f32`)."""

@@ -69,6 +69,12 @@ def launch_plan(n, k, strides, ptr, *, split=None, blocks=None):
     return q, -(-tiles * T // q), kf, vec
 
 
+def _syrk_shape(alpha, A, beta, C):
+    return {"n": A.shape[0], "k": A.shape[1], "dtype": _build.dtype_name(A),
+            "c_read": beta != 0.0}
+
+
+@_build.kernel_span("syrk_lower_f32", _syrk_shape)
 def syrk_lower_f32(alpha, A, beta, C):
     """Lower triangle of C := alpha·A·Aᵀ + beta·C in place, A (n, k) and
     C (n, n) f32; C is read only when beta != 0. Returns C. A launch whose
@@ -96,12 +102,11 @@ def syrk_lower_f32(alpha, A, beta, C):
     # two partial tiles a block, where runs split tiles
     P = (torch.empty((2 * blocks * TILE * TILE,), dtype=C.dtype,
                      device=C.device) if q % tile_steps(k) else None)
-    err = _build.library().ct_syrk_lower_f32(
-        A.data_ptr(), A.stride(0), A.stride(1),
+    _build.launch(
+        "syrk_lower_f32", A.data_ptr(), A.stride(0), A.stride(1),
         C.data_ptr(), C.stride(0), C.stride(1),
         n, k, float(alpha), float(beta), q, blocks, int(kf), int(vec),
         P.data_ptr() if P is not None else None, *_build.device_args(C))
-    _build.check_launch(err, "syrk_lower_f32")
     syrk_lower_f32.launches += 1
     return C
 

@@ -28,6 +28,11 @@ def trmm_lln_plain(L, B, alpha=1.0, upper=False, unit=False):
     return alpha * (T @ B)
 
 
+def _trmm_shape(L, B, *args, **kwargs):
+    return {"n": L.shape[0], "m": B.shape[1], "dtype": _build.dtype_name(B)}
+
+
+@_build.kernel_span("trmm_lln_f32", _trmm_shape)
 def trmm_lln_f32(L, B, alpha=1.0, upper=False, unit=False):
     """alpha·T·B for f32 L (n, n) and B (n, m), T = tril(L), or triu(L)
     with ``upper``, its diagonal read as 1 with ``unit``; only T is read.
@@ -55,10 +60,9 @@ def trmm_lln_f32(L, B, alpha=1.0, upper=False, unit=False):
         last = (n - 1) * L.element_size()
         pl, pb, pc = pl + last * (sl0 + sl1), pb + last * sb0, pc + last * ldc
         sl0, sl1, sb0, ldc = -sl0, -sl1, -sb0, -ldc
-    err = _build.library().ct_trmm_lln_f32(
-        pl, sl0, sl1, pb, sb0, sb1, pc, ldc, n, m, float(alpha), int(unit),
-        *_build.device_args(C))
-    _build.check_launch(err, "trmm_lln_f32")
+    _build.launch(
+        "trmm_lln_f32", pl, sl0, sl1, pb, sb0, sb1, pc, ldc, n, m,
+        float(alpha), int(unit), *_build.device_args(C))
     trmm_lln_f32.launches += 1
     return C
 

@@ -54,12 +54,15 @@ struct ctp_task {
   std::mutex mu;
   std::condition_variable cv;
 
-  void run() {
+  // Returns the result: once complete is set, a joiner may free the task,
+  // so the caller reads nothing of it after run().
+  int run() {
     int r = fn(args);
     std::lock_guard<std::mutex> g(mu);
     result = r;
     complete = true;
     cv.notify_all();
+    return r;
   }
 };
 
@@ -132,8 +135,8 @@ struct Worker {
         queue.pop_front();
       }
       if (t == nullptr) return;  // sentinel (multigpu.c:168-196)
-      t->run();
-      if (t->result != CTP_OK && error == CTP_OK) error = t->result;
+      int r = t->run();
+      if (r != CTP_OK && error == CTP_OK) error = r;
     }
   }
 };
@@ -169,9 +172,9 @@ int ctp_pool_run(ctp_pool* p, int i, ctp_task* t) {
       i >= static_cast<int>(p->workers.size()))
     return CTP_ERROR_INVALID_VALUE;
   if (p->sequential) {
-    t->run();
-    if (t->result != CTP_OK && p->workers[i].error == CTP_OK)
-      p->workers[i].error = t->result;
+    int r = t->run();
+    if (r != CTP_OK && p->workers[i].error == CTP_OK)
+      p->workers[i].error = r;
     return CTP_OK;
   }
   p->workers[i].push(t);

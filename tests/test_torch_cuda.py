@@ -1568,6 +1568,41 @@ def test_kernel_events_returns_the_kernel_or_raises(cuda):
 
 
 @pytest.mark.cuda
+def test_span_events_bracket_the_launch(cuda):
+    # under collect(device=True) a kernel span's event pair brackets its
+    # launch: potrf_stream_f32 at 1024 reads its CUDA-event time alone
+    # within 10 %, medians of five launches each, each queued behind a
+    # spin of about a millisecond so that neither reading holds the host's
+    # launch path
+    from cholesky_tpu_torch.utils import profiling
+    A = spd(1024, seed=34).to(cuda)
+    mega.potrf_stream_f32(A.clone())
+    torch.cuda.synchronize()
+    alone = []
+    for _ in range(5):
+        X = A.clone()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        mega.potrf_stream_f32(X)
+        end.record()
+        end.synchronize()
+        alone.append(start.elapsed_time(end))
+    with profiling.collect(device=True) as spans:
+        for _ in range(5):
+            X = A.clone()
+            torch.cuda._sleep(2_000_000)
+            mega.potrf_stream_f32(X)
+            torch.cuda.synchronize()
+    got = [s.device_ms() for s in spans]
+    assert [s.name for s in spans] == ["kernel.potrf_stream_f32"] * 5
+    assert all(s.attrs == {"n": 1024, "dtype": "float32"} for s in spans)
+    a, b = sorted(alone)[2], sorted(got)[2]
+    assert abs(b - a) <= 0.1 * a, (alone, got)
+
+
+@pytest.mark.cuda
 def test_task_pool_worker_launches_a_kernel(cuda):
     # a native worker thread of the pool launches gemm_f32 on the card
     from cholesky_tpu_torch.runtime import TaskPool
