@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's fifteen CUDA kernels from ``cholesky_tpu_torch/ops/
+Builds the port's seventeen CUDA kernels from ``cholesky_tpu_torch/ops/
 kernels/csrc``, holds each against its plain torch twin at the shapes its
 path gives it (the device fills bit for bit at 8192², with their moments,
-range, interval endpoints and seed decorrelation), then drives the paths
+range, interval endpoints and seed decorrelation; the GP model's RBF
+kernels at the GP cells' shapes, n = 8192, d = 8, m = 819: D bit for bit,
+K within 2 ulps of the twin's, the gradient sums against the twin's and an
+f64 evaluation), then drives the paths
 below through the public API. Before
 each path every launch counter is set to 0, and after it the counters must
 show that the path went through each of its kernels:
@@ -15,8 +18,9 @@ show that the path went through each of its kernels:
   (one ``potrf_stream_f32`` launch each), then ``potrf`` with
   ``block_size=512`` at 4096 (the blocked recursion over 512 leaves);
 - phase 5, the GP model: exact GP regression on n = 8192 points with d = 8
-  features, three ``gp_train_step``s and one ``gp_predict`` (potrf, trsm,
-  potri = trtri then lauum), held against an f64 ``torch.linalg`` oracle;
+  features, three ``gp_train_step``s and one ``gp_predict`` (``rbf_f32``,
+  potrf, trsm, potri = trtri then lauum, ``rbf_grad_f32``), held against
+  an f64 ``torch.linalg`` oracle;
   then ``potri`` at n = 4096 and ``lauum`` with 512 leaves at 2048;
 - phase 6, the d tier: ``dpotrf``, ``dlogdet`` and ``dpotri`` at n = 8192
   on an f64 cond-100 matrix under ``backend="auto"`` (the Ozaki int8 slice
@@ -145,7 +149,7 @@ import cholesky_tpu_torch as ct
 from cholesky_tpu_torch import parallel as par
 from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import blocked, kernels, ozaki
-from cholesky_tpu_torch.ops.kernels import _build, leaf, mega
+from cholesky_tpu_torch.ops.kernels import _build, leaf, mega, rbf
 from cholesky_tpu_torch.ops.kernels import gemm as kgemm
 from cholesky_tpu_torch.ops.kernels import syrk as ksyrk
 from cholesky_tpu_torch.ops.kernels.gemm import gemm_f32, gemm_plain
@@ -1891,6 +1895,121 @@ def check_prng(rec, on):
                              4 if dtype == torch.float32 else 8)))
 
 
+#: the GP cells' shapes (benchmark/configs/gp-kin8nm.json): n training
+#: points, d features, m test points a prediction
+RBF_N, RBF_D, RBF_M = 8192, 8, 819
+#: rbf_f32's K against the twin's (tests/test_torch_cuda.py): D bit for
+#: bit, -0.5·D, /ell2 and amp· correctly rounded in both, expf within 2 ulp
+RBF_K_ULPS = 2
+
+
+def ulps(a, b) -> int:
+    """The largest |a − b| in units in the last place, a and b float32 of
+    one sign: the distance of their bit patterns."""
+    return int((a.view(torch.int32).long()
+                - b.view(torch.int32).long()).abs().max())
+
+
+def rbf_device_ms(fn, match: str, reps: int = 10) -> float:
+    """Device ms a call of fn: the kernels whose name holds ``match`` over
+    ``reps`` calls in one profiled window, their union over reps."""
+    busy, runs = profiling.device_time(
+        lambda: [fn() for _ in range(reps)], match)["busy"]
+    require(runs >= reps, f"{match}: {runs} kernels for {reps} calls")
+    return busy / reps
+
+
+def check_rbf(gen, rec, on):
+    """The GP model's RBF kernels at the GP cells' shapes: rbf_f32's D bit
+    for bit and its K within RBF_K_ULPS of the twin's for K (the diagonal
+    added), Ks and Kss; rbf_grad_f32 on the pieces of a train step against
+    the twin's sums and an f64 evaluation of the same W and K, repeated
+    bit for bit; each kernel's call and device time beside its byte bound
+    and the twin's time."""
+    n, d, m = RBF_N, RBF_D, RBF_M
+    p = gp.GPParams.init()
+    X = torch.rand(n, d, device="cuda", generator=gen) * 2.0 - 1.0
+    Xs = torch.rand(m, d, device="cuda", generator=gen) * 2.0 - 1.0
+    worst, worst_abs = 0, 0.0
+    for what, X1, X2, noise in (("K", X, X, (p.log_noise,)),
+                                ("Ks", X, Xs, ()), ("Kss", Xs, Xs, ())):
+        D = rbf.sqdist_f32(X1, X2)
+        require(torch.equal(D, rbf.sqdist_plain(X1, X2)),
+                f"rbf_f32 {what}: D is not the twin's bit for bit")
+        K = rbf.rbf_f32(X1, X2, p.log_amp, p.log_len, *noise, jitter=1e-6)
+        want = rbf.rbf_plain(X1, X2, p.log_amp, p.log_len, *noise,
+                             jitter=1e-6)
+        u = ulps(K, want)
+        require(u <= RBF_K_ULPS and bool((K > 0).all()),
+                f"rbf_f32 {what}: {u} ulps from the twin's")
+        require(torch.equal(rbf.rbf_f32(X1, X2, p.log_amp, p.log_len,
+                                        *noise, jitter=1e-6), K),
+                f"rbf_f32 {what}: a second call differs")
+        worst, worst_abs = max(worst, u), max(worst_abs, max_err(K, want))
+        print(f"rbf_f32 {what} {tuple(K.shape)}, d={d}: D bit for bit the "
+              f"twin's, K within {u} ulps (limit {RBF_K_ULPS}), repeated "
+              "bit for bit")
+        del D, K, want
+    args = (p.log_amp, p.log_len, p.log_noise)
+    cases = (("K", X, X, args), ("Ks", X, Xs, args[:2]))
+    for what, X1, X2, a in cases:
+        ms = bench_op(lambda _: rbf.rbf_f32(X1, X2, *a, jitter=1e-6),
+                      X1) * 1e3
+        dev = rbf_device_ms(lambda: rbf.rbf_f32(X1, X2, *a, jitter=1e-6),
+                            "rbf_kernel")
+        plain_ms = bench_op(lambda _: rbf.rbf_plain(X1, X2, *a, jitter=1e-6),
+                            X1, reps=3) * 1e3
+        rows, cols = X1.shape[0], X2.shape[0]
+        live = rows * (rows + 1) // 2 if X2 is X1 else rows * cols
+        rl = roofline(live * (3 * d + 4), "f32",
+                      rows * cols * 4 + (rows + cols) * d * 4)
+        print(f"rbf_f32 {what} {rows}x{cols}: call {ms:.4f} ms, device "
+              f"{dev:.4f} ms, bound {rl['bound_ms']:.4f} ms "
+              f"({rl['bound_by']}), plain {plain_ms:.4f} ms on {on}")
+        if what == "K":
+            rec["rbf_f32"] = dict(max_abs_err=worst_abs, ms=ms,
+                                  device_ms=dev, plain_ms=plain_ms,
+                                  library_ms=None, **rl)
+
+    # the gradient sums on the pieces of a train step at the cells' n
+    y = torch.sin(3.0 * X.sum(1) / math.sqrt(d)) + 0.1 * torch.randn(
+        n, device="cuda", generator=gen)
+    F, info = ct.potrf("L", gp._kmatrix(p, X))
+    require(int(info) == 0, "rbf_grad_f32 inputs: potrf info")
+    z = ct.trsm("L", "L", "N", "N", 1.0, F, y[:, None])
+    alpha = ct.trsm("L", "L", "T", "N", 1.0, F, z)[:, 0]
+    Kinv_tri = ct.potri("L", F)[0]
+    del F, z
+    got = rbf.rbf_grad_f32(Kinv_tri, alpha, X, *p)
+    twin = rbf.rbf_grad_plain(Kinv_tri, alpha, X, *p)
+    p64 = [v.double() for v in p]
+    ref = rbf.rbf_grad_plain(Kinv_tri.double(), alpha.double(), X.double(),
+                         *p64)
+    again = rbf.rbf_grad_f32(Kinv_tri, alpha, X, *p)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            "rbf_grad_f32: a second call differs")
+    errs = []
+    for name, a, t, r in zip(gp.GPParams._fields, got, twin, ref):
+        e, et = abs(float(a) - float(r)), abs(float(t) - float(r))
+        errs.append(e)
+        print(f"rbf_grad_f32 n={n} d={d} g_{name.removeprefix('log_')}: "
+              f"{float(a):.6f}, f64 {float(r):.6f}: err {e:.3e}, the "
+              f"twin's {et:.3e}")
+    ms = bench_op(lambda k: rbf.rbf_grad_f32(k, alpha, X, *p),
+                  Kinv_tri) * 1e3
+    dev = rbf_device_ms(lambda: rbf.rbf_grad_f32(Kinv_tri, alpha, X, *p),
+                        "rbf_grad")
+    plain_ms = bench_op(lambda k: rbf.rbf_grad_plain(k, alpha, X, *p),
+                        Kinv_tri, reps=3) * 1e3
+    live = n * (n + 1) // 2
+    rl = roofline(live * (3 * d + 12), "f32", live * 4 + n * (d + 1) * 4)
+    print(f"rbf_grad_f32 n={n} d={d}: repeated bit for bit; call {ms:.4f} "
+          f"ms, device {dev:.4f} ms, bound {rl['bound_ms']:.4f} ms "
+          f"({rl['bound_by']}), plain {plain_ms:.4f} ms on {on}")
+    rec["rbf_grad_f32"] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev,
+                               plain_ms=plain_ms, library_ms=None, **rl)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the potrf path through the public API
 # ---------------------------------------------------------------------------
@@ -2258,7 +2377,9 @@ def gp_path(name_power, dev="cuda"):
                       name_power)
     for name, match in (("trtri_block_f32", "trtri_block"),
                         ("trtri_stream_f32", "trtri_stream"),
-                        ("lauum_stream_f32", "lauum")):
+                        ("lauum_stream_f32", "lauum"),
+                        ("rbf_f32", "rbf_kernel"),
+                        ("rbf_grad_f32", "rbf_grad")):
         kernel_census(lambda: gp.gp_train_step(p0, X, y, lr=lr), name_power,
                       name, match)
 
@@ -3655,7 +3776,8 @@ PATHS = {
     "potrf block_size=512": ("gemm_f32", "syrk_lower_f32", "potrf_stream_f32",
                              "trtri_block_f32"),
     "GP": ("gemm_f32", "trtri_block_f32", "potrf_stream_f32",
-           "trtri_stream_f32", "lauum_stream_f32"),
+           "trtri_stream_f32", "lauum_stream_f32", "rbf_f32",
+           "rbf_grad_f32"),
     "potri": ("trtri_stream_f32", "lauum_stream_f32"),
     "lauum block_size=512": ("gemm_f32", "syrk_lower_f32", "lauu2_f32"),
     "d": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
@@ -3731,6 +3853,12 @@ SOURCES = {
                          "cholesky_tpu/rng/pallas_prng.py:60", "ctrsm"),
     "uniform_fill_f64": ("cholesky_tpu_torch/ops/kernels/csrc/prng.cu",
                          "cholesky_tpu/rng/pallas_prng.py:106", "ztrsm"),
+    "rbf_f32": ("cholesky_tpu_torch/ops/kernels/csrc/rbf.cu",
+                "none: XLA's fusion of cholesky_tpu/models/gp.py:45-60",
+                "GP"),
+    "rbf_grad_f32": ("cholesky_tpu_torch/ops/kernels/csrc/rbf.cu",
+                     "none: XLA's fusion of cholesky_tpu/models/gp.py:90-103",
+                     "GP"),
 }
 
 
@@ -3829,6 +3957,7 @@ def main() -> int:
     check_trti2(gen, rec, name_power)
     check_trmm(gen, rec, name_power)
     check_prng(rec, name_power)
+    check_rbf(gen, rec, name_power)
 
     # 4. the potrf path
     runs = main_path(gen, name_power)

@@ -15,9 +15,16 @@ Plain functions on tensors: everything runs on the device of X, and the
 parameters are 0-d tensors on that device. One train step runs potrf, two
 trsm, potri (trtri then lauum) and logdet together.
 
+Kernel matrices and gradient sums of float32 tensors on the card come
+from the hand-written kernels ``rbf_f32`` and ``rbf_grad_f32``
+(``ops/kernels/rbf.py``), which make each entry of K from X in registers
+and keep no n × n intermediate; every other device and dtype takes the
+plain torch passes, the kernels' twin.
+
 Spans (``utils/profiling.py``): a train step or a prediction is the root
 ``gp.train_step`` or ``gp.predict``; inside, ``gp.kernel_matrix`` and
-``gp.gradient_passes``, and the library's ``api.*`` calls.
+``gp.gradient_passes``, the kernels' ``kernel.rbf_f32`` and
+``kernel.rbf_grad_f32``, and the library's ``api.*`` calls.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from cholesky_tpu_torch.ops import api as ops
+from cholesky_tpu_torch.ops.kernels import rbf
 from cholesky_tpu_torch.utils import profiling
 
 
@@ -54,32 +62,28 @@ def params_from_jax(p, device="cuda") -> GPParams:
     return GPParams(*(torch.from_numpy(np.array(v)).to(device) for v in p))
 
 
-def _sqdist(X1, X2):
-    """Squared distances in the difference form of the JAX package, which
-    rounds as it does, accumulated one feature at a time so that no
-    (n, m, d) temporary is made."""
-    D = torch.zeros((X1.shape[0], X2.shape[0]), dtype=X1.dtype,
-                    device=X1.device)
-    for f in range(X1.shape[1]):
-        d = X1[:, f, None] - X2[None, :, f]
-        D += d * d
-    return D
+def _card_f32(X, params) -> bool:
+    """Do the RBF kernels take this work: X and the parameters float32 on
+    the card. Anything else takes the plain torch passes."""
+    return all(t.is_cuda and t.dtype == torch.float32 for t in (X, *params))
+
+
+_sqdist = rbf.sqdist_plain
 
 
 @profiling.annotate_function(name="gp.kernel_matrix")
 def rbf_kernel(params: GPParams, X1, X2=None):
     X2 = X1 if X2 is None else X2
-    amp = torch.exp(2.0 * params.log_amp)
-    ell2 = torch.exp(2.0 * params.log_len)
-    return amp * torch.exp(-0.5 * _sqdist(X1, X2) / ell2)
+    if _card_f32(X1, params):
+        return rbf.rbf_f32(X1, X2, params.log_amp, params.log_len)
+    return rbf.rbf_plain(X1, X2, params.log_amp, params.log_len)
 
 
 @profiling.annotate_function(name="gp.kernel_matrix")
 def _kmatrix(params: GPParams, X, jitter=1e-6):
-    noise = torch.exp(2.0 * params.log_noise)
-    K = rbf_kernel(params, X)
-    K.diagonal().add_(noise + jitter)
-    return K
+    if _card_f32(X, params):
+        return rbf.rbf_f32(X, X, *params, jitter=jitter)
+    return rbf.rbf_plain(X, X, *params, jitter=jitter)
 
 
 def gp_nll(params: GPParams, X, y, backend: str = "auto"):
@@ -111,22 +115,28 @@ def gp_nll_and_grads(params: GPParams, X, y, backend: str = "auto"):
     Kinv_tri, _ = ops.potri("L", F, backend=backend)
     del F
     with profiling.annotate("gp.gradient_passes"):
-        Kinv = torch.tril(Kinv_tri) + torch.tril(Kinv_tri, -1).T
-        del Kinv_tri
-        W = Kinv - alpha[:, None] * alpha[None, :]
-        del Kinv
+        if _card_f32(X, params):
+            # one read of K⁻¹'s lower triangle, K's entries made from X
+            g_amp, g_len, g_noise = rbf.rbf_grad_f32(Kinv_tri, alpha, X,
+                                                     *params)
+            del Kinv_tri
+        else:
+            Kinv = torch.tril(Kinv_tri) + torch.tril(Kinv_tri, -1).T
+            del Kinv_tri
+            W = Kinv - alpha[:, None] * alpha[None, :]
+            del Kinv
 
-        amp = torch.exp(2.0 * params.log_amp)
-        ell2 = torch.exp(2.0 * params.log_len)
-        D = _sqdist(X, X)
-        Kf = amp * torch.exp(-0.5 * D / ell2)     # noise-free kernel
-        dK_damp = 2.0 * Kf                        # ∂K/∂log_amp
-        dK_dlen = Kf * (D / ell2)                 # ∂K/∂log_len
-        noise = torch.exp(2.0 * params.log_noise)
+            amp = torch.exp(2.0 * params.log_amp)
+            ell2 = torch.exp(2.0 * params.log_len)
+            D = _sqdist(X, X)
+            Kf = amp * torch.exp(-0.5 * D / ell2)     # noise-free kernel
+            dK_damp = 2.0 * Kf                        # ∂K/∂log_amp
+            dK_dlen = Kf * (D / ell2)                 # ∂K/∂log_len
+            noise = torch.exp(2.0 * params.log_noise)
 
-        g_amp = 0.5 * torch.sum(W * dK_damp)
-        g_len = 0.5 * torch.sum(W * dK_dlen)
-        g_noise = 0.5 * torch.trace(W) * 2.0 * noise
+            g_amp = 0.5 * torch.sum(W * dK_damp)
+            g_len = 0.5 * torch.sum(W * dK_dlen)
+            g_noise = 0.5 * torch.trace(W) * 2.0 * noise
     return nll, GPParams(g_amp, g_len, g_noise), info
 
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the f32 potrf, trsm, trtri, lauum,
-potri, potf2 and trmm paths, of the d tier's Ozaki products and of the
-device fills, each beside its plain torch twin. The complex tier runs on
+potri, potf2 and trmm paths, of the d tier's Ozaki products, of the
+device fills and of the GP model's RBF kernel, each beside its plain torch
+twin. The complex tier runs on
 the same kernels through the real embedding. Nothing is compiled at
 import: the first launch builds ``csrc/`` (see ``_build.py``)."""
 
@@ -15,6 +16,7 @@ from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
                                                   peel_f32pair)
 from cholesky_tpu_torch.ops.kernels.prng import (uniform_fill_f32,
                                                  uniform_fill_f64)
+from cholesky_tpu_torch.ops.kernels.rbf import rbf_f32, rbf_grad_f32
 from cholesky_tpu_torch.ops.kernels.syrk import syrk_lower_f32
 from cholesky_tpu_torch.ops.kernels.trmm import trmm_lln_f32
 
@@ -35,6 +37,8 @@ KERNELS = {
     "mm_groups_f32pair": mm_groups_f32pair,
     "uniform_fill_f32": uniform_fill_f32,
     "uniform_fill_f64": uniform_fill_f64,
+    "rbf_f32": rbf_f32,
+    "rbf_grad_f32": rbf_grad_f32,
 }
 
 

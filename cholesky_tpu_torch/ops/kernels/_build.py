@@ -134,6 +134,8 @@ def library() -> ctypes.CDLL:
                                      I, I, P],
             "ct_uniform_fill_f32": [P, LL, LL, I, P, I, P],
             "ct_uniform_fill_f64": [P, LL, LL, I, P, I, P],
+            "ct_rbf_f32": [P, LL, P, LL, I, P, P, P, F, I, P, LL, I, P],
+            "ct_rbf_grad_f32": [P, LL, P, P, LL, I, P, P, P, I, P, P, I, P],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -25,7 +25,7 @@ from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops import blocked, kernels, ozaki
 from cholesky_tpu_torch.ops.kernels import gemm, leaf, mega, syrk, trmm
 from cholesky_tpu_torch.ops.kernels import ozaki as ozk
-from cholesky_tpu_torch.ops.kernels import prng
+from cholesky_tpu_torch.ops.kernels import prng, rbf
 from cholesky_tpu_torch.rng import (latmc, latmc_pair, uniform_device,
                                     uniform_device64)
 from cholesky_tpu_torch.rng import device as rdev
@@ -633,6 +633,170 @@ def test_gp_step_on_the_card_vs_cpu(cuda):
     assert_close(nll, nll_c, 50 * 2048, "nll")
     for a, b in zip(grads, grads_c):
         assert_close(a, b, 3000 * 2048, "gradient")
+
+
+# ---------------------------------------------------------------------------
+# the GP model's RBF kernels: rbf_f32 and rbf_grad_f32
+# ---------------------------------------------------------------------------
+
+#: rbf_f32's K against the twin's: D is equal bit for bit, and -0.5·D,
+#: /ell2 and amp· are correctly rounded in both, so only exp may differ:
+#: CUDA's expf is within 2 ulp of exp, and torch's CUDA exp and the
+#: kernel's expf may come from different builds of the math library
+K_ULPS = 2
+
+
+def ulps(a, b):
+    """|a − b| in units in the last place, a and b float32 of one sign:
+    the distance of their bit patterns."""
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def rbf_params(dtype=torch.float32, device="cuda"):
+    return gp.GPParams(*(torch.tensor(v, dtype=dtype, device=device)
+                         for v in (0.3, -0.2, -1.0)))
+
+
+def rbf_points(n, d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand(n, d, device="cuda", generator=g) * 2.0 - 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(1, 1), (7, 7), (128, 128), (1000, 1000),
+                                 (8192, 819)])
+@pytest.mark.parametrize("d", [1, 8, 13])
+@pytest.mark.parametrize("form", ["x2", "same", "diag"])
+def test_rbf_vs_twin(cuda, n, m, d, form):
+    # X2 ≠ X1 (n x m), X2 = X1 (the lower tiles and their mirrors), and
+    # X2 = X1 with (noise + jitter) on the diagonal
+    p = rbf_params()
+    X1 = rbf_points(n, d, n + d)
+    X2 = rbf_points(m, d, m + d + 1) if form == "x2" else X1
+    noise = (p.log_noise,) if form == "diag" else ()
+    kernels.reset_launch_counts()
+    D = rbf.sqdist_f32(X1, X2)
+    assert torch.equal(D, rbf.sqdist_plain(X1, X2))
+    K = rbf.rbf_f32(X1, X2, p.log_amp, p.log_len, *noise, jitter=1e-6)
+    want = rbf.rbf_plain(X1, X2, p.log_amp, p.log_len, *noise, jitter=1e-6)
+    assert K.shape == want.shape and bool((K > 0).all())
+    worst = int(ulps(K, want).max())
+    assert worst <= K_ULPS, f"K {worst} ulps from the twin's"
+    assert kernels.launch_counts()["rbf_f32"] == 2
+    if form != "x2":
+        assert torch.equal(K, K.T)
+    assert torch.equal(rbf.rbf_f32(X1, X2, p.log_amp, p.log_len, *noise,
+                                   jitter=1e-6), K)
+
+
+def rbf_grad_inputs(n, d, seed):
+    """X, α and K⁻¹'s lower triangle of a GP on the card, as the model's
+    train step makes them."""
+    p = rbf_params()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    X = torch.rand(n, d, device="cuda", generator=g) * 2.0 - 1.0
+    y = torch.sin(3.0 * X.sum(1)) + 0.1 * torch.randn(n, device="cuda",
+                                                       generator=g)
+    F, info = ct.potrf("L", gp._kmatrix(p, X))
+    assert int(info) == 0
+    z = ct.trsm("L", "L", "N", "N", 1.0, F, y[:, None])
+    alpha = ct.trsm("L", "L", "T", "N", 1.0, F, z)[:, 0]
+    return p, X, alpha, ct.potri("L", F)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(1, 1), (7, 13), (300, 8), (2048, 8),
+                                 (8192, 8)])
+def test_rbf_grad_vs_twin_and_f64(cuda, n, d):
+    # The twin rounds W, kf and each product as the kernel does and only
+    # sums in another order, so both stand at about the same distance from
+    # the f64 evaluation of the same W and K. The log_amp sum cancels terms
+    # of about n, so that distance is measured against the sum's scale
+    # Σ|terms|: the kernel within 8 times the twin's error, or within eps
+    # of Σ|terms| where the twin's is smaller by chance. A tile added or
+    # left out moves a sum by about 1/tiles of Σ|terms|, far above both.
+    p, X, alpha, Kinv_tri = rbf_grad_inputs(n, d, n)
+    kernels.reset_launch_counts()
+    got = rbf.rbf_grad_f32(Kinv_tri, alpha, X, *p)
+    assert kernels.launch_counts()["rbf_grad_f32"] == 1
+    twin = rbf.rbf_grad_plain(Kinv_tri, alpha, X, *p)
+    p64 = [v.double() for v in p]
+    ref = rbf.rbf_grad_plain(Kinv_tri.double(), alpha.double(), X.double(),
+                             *p64)
+    Kinv = torch.tril(Kinv_tri.double())
+    Kinv = Kinv + torch.tril(Kinv, -1).T
+    W = Kinv - alpha.double()[:, None] * alpha.double()[None, :]
+    Dm = rbf.sqdist_plain(X.double(), X.double())
+    ell2 = torch.exp(2.0 * p64[1])
+    Kf = torch.exp(2.0 * p64[0]) * torch.exp(-0.5 * Dm / ell2)
+    scales = (float((W * 2.0 * Kf).abs().sum()),
+              float((W * Kf * Dm / ell2).abs().sum()),
+              float(W.diagonal().abs().sum() * torch.exp(2.0 * p64[2])))
+    for name, a, t, r, scale in zip(gp.GPParams._fields, got, twin, ref,
+                                    scales):
+        assert a.dtype == torch.float32 and a.ndim == 0
+        err, err_t = abs(float(a) - float(r)), abs(float(t) - float(r))
+        lim = max(8.0 * err_t, EPS32 * scale)
+        assert err <= lim, (f"{name}: err {err:.3e} > {lim:.3e} (twin "
+                            f"{err_t:.3e}, scale {scale:.3e})")
+    # two runs, the same bits; nothing above the diagonal is read
+    dirty = torch.tril(Kinv_tri) + torch.full_like(Kinv_tri,
+                                                   float("nan")).triu(1)
+    again = rbf.rbf_grad_f32(dirty, alpha, X, *p)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_gp_takes_the_rbf_kernels_only_in_f32(cuda):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    X = torch.rand(300, 8, device="cuda", generator=g) * 2.0 - 1.0
+    y = torch.sin(X.sum(1))
+    Xs = X[:31] * 0.5
+    kernels.reset_launch_counts()
+    gp.gp_train_step(rbf_params(), X, y)
+    gp.gp_predict(rbf_params(), X, y, Xs)
+    counts = kernels.launch_counts()
+    assert counts["rbf_f32"] == 4 and counts["rbf_grad_f32"] == 1, counts
+    kernels.reset_launch_counts()
+    p64 = rbf_params(torch.float64)
+    gp.gp_train_step(p64, X.double(), y.double())
+    gp.gp_predict(p64, X.double(), y.double(), Xs.double())
+    counts = kernels.launch_counts()
+    assert counts["rbf_f32"] == counts["rbf_grad_f32"] == 0, counts
+
+
+@pytest.mark.cuda
+def test_gp_model_adds_no_host_sync(cuda, monkeypatch):
+    # a train step and a prediction under sync_debug_mode "error", the
+    # library's calls let through: the model's own work, the RBF kernels
+    # included, never waits for the card
+    real = gp.ops
+
+    def let_through(fn):
+        def call(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    monkeypatch.setattr(gp, "ops", type("Ops", (), {
+        name: staticmethod(let_through(getattr(real, name)))
+        for name in ("potrf", "logdet_from_factor", "trsm", "potri")}))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    X = torch.rand(1000, 8, device="cuda", generator=g) * 2.0 - 1.0
+    y = torch.sin(X.sum(1))
+    p = rbf_params()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p, nll, info = gp.gp_train_step(p, X, y, lr=1e-4)
+        mean, var, info_p = gp.gp_predict(p, X, y, X[:100])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(info) == int(info_p) == 0
+    assert bool(torch.isfinite(nll)) and bool(torch.isfinite(var).all())
 
 
 # ---------------------------------------------------------------------------
