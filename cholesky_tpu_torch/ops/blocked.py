@@ -159,6 +159,15 @@ class _KernelTiles:
     lauu2 = staticmethod(_k.lauu2_f32)
 
 
+def _ozaki_leaf(name):
+    """The span ``ozaki.<name>`` of an _OzakiTiles leaf method, its
+    attribute the block's order: potf2's and trti2's f32 kernel and its
+    correction step, lauu2's one Ozaki product."""
+    return profiling.annotate_function(
+        name=f"ozaki.{name}",
+        attrs=lambda self, X, *args, **kwargs: {"n": X.shape[0]})
+
+
 class _OzakiTiles:
     """f64 tiles whose products are exact int8 slice products (ops/
     ozaki.py): the d tier, the analog of the JAX package's ``_OzakiTiles``
@@ -174,6 +183,8 @@ class _OzakiTiles:
     with ``rescue`` set, a leaf whose f32 factor fails is factored again
     by the f64 oracle, so that info is an f64 verdict (``_potrf_work``
     sets it only for a second pass, after a first one reported info > 0).
+    Each leaf is the span ``ozaki.potf2``, ``ozaki.trti2`` or
+    ``ozaki.lauu2``, and the second pass ``ozaki.rescue``.
     """
     default_nb = 128
     slices = 6
@@ -214,6 +225,7 @@ class _OzakiTiles:
             D = D + (beta * C if beta != 1.0 else C)
         C.copy_(D)
 
+    @_ozaki_leaf("potf2")
     def potf2(self, A):
         """Factor the lower triangle of the f64 block A in place (strict
         upper zeroed); returns info."""
@@ -239,6 +251,7 @@ class _OzakiTiles:
         A.copy_(refined)
         return info
 
+    @_ozaki_leaf("trti2")
     def trti2(self, L, unit=False):
         """(W, info): the inverse of the lower-triangular f64 block L by
         the f32 kernel and one Newton step."""
@@ -259,6 +272,7 @@ class _OzakiTiles:
             W1 = torch.tril(W1, -1) + torch.diag(torch.diagonal(L))
         return W1, info
 
+    @_ozaki_leaf("lauu2")
     def lauu2(self, L):
         T = torch.tril(L)
         return torch.tril(self._mm(T.T, T)) + torch.triu(L, 1)
@@ -288,6 +302,7 @@ class _OzakiTiles:
             rec(i + n1, n - n1, B[:, n1:])
 
         rec(0, L.shape[0], B)
+        del rec   # rec holds itself: free the peel now, not at a collection
 
     def trsm_lln(self, L, B, nb, unit):
         """L·X = B in place, forward."""
@@ -309,6 +324,7 @@ class _OzakiTiles:
             rec(i + n1, n - n1, B[n1:])
 
         rec(0, L.shape[0], B)
+        del rec   # rec holds itself: free the peel now, not at a collection
 
     def trsm_llt(self, L, B, nb, unit):
         """Lᵀ·X = B in place, backward; the hoisted peel is that of Lᵀ."""
@@ -330,6 +346,7 @@ class _OzakiTiles:
             rec(i, n1, B[:n1])
 
         rec(0, L.shape[0], B)
+        del rec   # rec holds itself: free the peel now, not at a collection
 
     def trtri_lower(self, L, nb, unit):
         """Invert the lower-triangular view L in place; returns info. The
@@ -356,7 +373,9 @@ class _OzakiTiles:
             self.mm(P, W1e, alpha=-1.0, out=L[i + n1:i + n, i:i + n1])
             return torch.where(i1 > 0, i1, torch.where(i2 > 0, i2 + n1, 0))
 
-        return rec(0, L.shape[0])
+        info = rec(0, L.shape[0])
+        del rec   # rec holds itself: free the peel now, not at a collection
+        return info
 
     def trmm_lln(self, L, B, nb):
         """L·B, L exactly lower triangular, by the live-block recursion
@@ -383,6 +402,7 @@ class _OzakiTiles:
                 Bs[:, :, i:i + n1], bsc)
 
         rec(0, L.shape[0])
+        del rec   # rec holds itself: free the peels now, not at a collection
         return out
 
 
@@ -676,9 +696,11 @@ def _potrf_work(uplo, A, backend, block_size):
     Wp = _working_copy(_to_lower(A, uplo), t, nb, "potrf", allow_mega)
     info = _potrf_driver(Wp, t, nb, allow_mega)
     if isinstance(t, _OzakiTiles) and int(info) > 0:
-        t.rescue = True
-        Wp = _working_copy(_to_lower(A, uplo), t, nb, "potrf", allow_mega)
-        info = _potrf_driver(Wp, t, nb, allow_mega)
+        with profiling.annotate("ozaki.rescue"):
+            t.rescue = True
+            Wp = _working_copy(_to_lower(A, uplo), t, nb, "potrf",
+                               allow_mega)
+            info = _potrf_driver(Wp, t, nb, allow_mega)
     return Wp[:n, :n], info
 
 

@@ -10,6 +10,10 @@ about K·2^(-7S)·rowscale·colscale (S = 6: near f64).
 On a CUDA tensor the peel and the grouped products are the kernels
 ``peel_f32pair`` and ``mm_groups_f32pair`` (ops/kernels/ozaki.py); on a
 CPU tensor their plain twins. The device decides: there is no knob.
+
+Each peel is the span ``ozaki.split`` and each product ``ozaki.product``
+(``utils/profiling.py``): the torch passes around the two kernels, whose
+``kernel.*`` spans they hold.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from cholesky_tpu_torch.ops.kernels import ozaki as _kz
+from cholesky_tpu_torch.utils import profiling
 from cholesky_tpu_torch.utils.errors import check
 
 SLICE_BITS = _kz.SLICE_BITS
@@ -53,6 +58,10 @@ def scaled_pair(A):
     return xh * inv, xl * inv, 2.0 * scale[:, 0]
 
 
+@profiling.annotate_function(
+    name="ozaki.split",
+    attrs=lambda A, slices: {"m": A.shape[0], "k": A.shape[1],
+                             "slices": slices})
 def split_rows(A, slices: int):
     """Peel the rows of the f64 matrix A (any strided view) into int8
     slices. Returns (slices (S, m, k) int8, row scales (m,) f64 powers of
@@ -65,6 +74,10 @@ def split_rows(A, slices: int):
     return _kz.peel_f32pair(rh, rl, slices=slices), scale
 
 
+@profiling.annotate_function(
+    name="ozaki.product",
+    attrs=lambda As, ascale, Bs, bscale: {"m": As.shape[1], "n": Bs.shape[1],
+                                          "k": As.shape[2]})
 def matmul_presplit(As, ascale, Bs, bscale):
     """C ≈ A·B from peeled operands: As (S, m, k) with row scales (m,) from
     ``split_rows(A)``, Bs (S, n, k) with scales (n,) from

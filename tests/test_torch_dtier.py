@@ -10,6 +10,8 @@ factor, 1e-8 for an inverse or a solve, 1e-7 absolute for potri and 1e-9
 relative for logdet against numpy; the two packages within the same
 bounds of each other, and info equal."""
 
+import gc
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -138,6 +140,27 @@ def test_dtrsm_vs_jax(side, uplo, trans, diag, hoist):
            else np.linalg.solve(M.T, 0.9 * B.T).T)
     assert rel(X.numpy(), ref) < 1e-8
     assert rel(X.numpy(), np.asarray(X_j)) < 1e-8
+
+
+def test_hoisted_recursions_leave_no_cyclic_garbage(monkeypatch):
+    # every peel of a hoisted recursion is freed when the driver returns,
+    # not held by the recursion's closure until a cyclic collection (GBs
+    # of the card's memory at n = 8192)
+    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", True)
+    A = torch.from_numpy(spd_np(200))
+    B = torch.from_numpy(np.random.default_rng(4).standard_normal((200, 96)))
+    gc.collect()
+    gc.disable()
+    try:
+        F, _ = ct.dpotrf("L", A, backend="ozaki", block_size=64)
+        ct.dpotri("L", F, backend="ozaki", block_size=64)
+        for trans in "NT":
+            ct.dtrsm("L", "L", trans, "N", 1.0, F, B, backend="ozaki",
+                     block_size=64)
+        ct.dtrmm("L", "L", "N", "N", 1.0, F, B, backend="ozaki")
+        assert gc.collect() == 0
+    finally:
+        gc.enable()
 
 
 def test_dpotrf_f64_rescue():

@@ -83,6 +83,59 @@ def test_gp_train_step_is_one_root_with_five_api_calls():
     assert sum(self_ns(spans, s) for s in spans) == root.host_ns
 
 
+def ancestors(spans, s):
+    by = {x.id: x for x in spans}
+    while s.parent is not None:
+        s = by[s.parent]
+        yield s
+
+
+OZAKI_ATTRS = {"ozaki.split": {"m", "k", "slices"},
+               "ozaki.product": {"m", "n", "k"},
+               "ozaki.potf2": {"n"}, "ozaki.trti2": {"n"},
+               "ozaki.lauu2": {"n"}}
+
+
+def test_a_d_call_spans_its_ozaki_layer():
+    A = spd(256).double()
+    with profiling.collect() as spans:
+        F, i1 = ct.dpotrf("L", A, backend="ozaki", block_size=64)
+        inv, i2 = ct.dpotri("L", F, backend="ozaki", block_size=64)
+    assert int(i1) == int(i2) == 0
+    by = {s.id: s for s in spans}
+    names = collections.Counter(s.name for s in spans)
+    assert set(OZAKI_ATTRS) <= set(names) and "ozaki.rescue" not in names
+    for s in spans:
+        if s.name in OZAKI_ATTRS:
+            assert set(s.attrs) == OZAKI_ATTRS[s.name], s
+            assert any(a.name.startswith(("driver.", "api."))
+                       for a in ancestors(spans, s))
+        if s.name.startswith("kernel."):
+            # the twins of the d tier's kernels and of its f32 leaves
+            assert by[s.parent].name.startswith("ozaki."), s
+    assert {by[s.parent].name for s in spans
+            if s.name == "kernel.peel_f32pair"} == {"ozaki.split"}
+    assert {by[s.parent].name for s in spans
+            if s.name == "kernel.mm_groups_f32pair"} == {"ozaki.product"}
+    assert sum(self_ns(spans, s) for s in spans) == sum(
+        s.host_ns for s in spans if s.parent is None)
+
+
+def test_the_rescue_pass_is_one_span():
+    # PD in f64 but singular in f32 (tests/test_torch_dtier.py's
+    # test_dpotrf_f64_rescue): the second pass runs, once
+    a = 0.5
+    A = torch.tensor([[1.0, a], [a, a * a + 1e-12]], dtype=torch.float64)
+    with profiling.collect() as spans:
+        F, info = ct.dpotrf("L", A, backend="ozaki")
+    assert int(info) == 0
+    (rescue,) = [s for s in spans if s.name == "ozaki.rescue"]
+    by = {s.id: s for s in spans}
+    assert by[rescue.parent].name == "api.potrf"
+    assert [c.name for c in children(spans, rescue)] == [
+        "blocked.copy_in", "driver.potrf_lower"]
+
+
 @pytest.mark.parametrize("call, name, attrs", [
     (lambda: gemm.gemm_f32(torch.ones((6, 5)), torch.ones((5, 7))),
      "gemm_f32", {"m": 6, "n": 7, "k": 5, "dtype": "float32",
