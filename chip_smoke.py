@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's seventeen CUDA kernels from ``cholesky_tpu_torch/ops/
+Builds the port's nineteen CUDA kernels from ``cholesky_tpu_torch/ops/
 kernels/csrc``, holds each against its plain torch twin at the shapes its
 path gives it (the device fills bit for bit at 8192², with their moments,
 range, interval endpoints and seed decorrelation; the GP model's RBF
@@ -24,7 +24,7 @@ show that the path went through each of its kernels:
   then ``potri`` at n = 4096 and ``lauum`` with 512 leaves at 2048;
 - phase 6, the d tier: ``dpotrf``, ``dlogdet`` and ``dpotri`` at n = 8192
   on an f64 cond-100 matrix under ``backend="auto"`` (the Ozaki int8 slice
-  products, ``peel_f32pair`` and ``mm_groups_f32pair``, over the f32 leaf
+  products, ``peel_f64`` and ``mm_groups_f64``, over the f32 leaf
   kernels), held in f64 against cuSOLVER's ``torch.linalg``, then a
   non-positive-definite input, the f64 rescue of a leaf, times beside
   cuSOLVER and a ``torch.profiler`` table of one ``dpotrf``;
@@ -119,7 +119,7 @@ behind the trailing update) and of ``trtri_stream_f32``'s phases at
 train step by shape and layout, with the tile the launch rule chose and
 its device time, and its ``trtri_block_f32``, ``trtri_stream_f32`` and
 ``lauum_stream_f32`` launches with their device time; phase 6 every
-``mm_groups_f32pair`` launch of the profiled ``dpotrf``.
+``mm_groups_f64`` launch of the profiled ``dpotrf``.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result line. Needs one CUDA card; imports nothing of JAX.
@@ -167,9 +167,13 @@ from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
                                                  trtri_block_plain,
                                                  trtri_stream_f32,
                                                  trtri_stream_plain)
-from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
+from cholesky_tpu_torch.ops.kernels.ozaki import (epilogue_plain,
+                                                  mm_groups_f32pair,
+                                                  mm_groups_f64,
                                                   mm_groups_plain,
-                                                  peel_f32pair, peel_plain)
+                                                  peel_f32pair, peel_f64,
+                                                  peel_f64_plain, peel_plain,
+                                                  scaled_pair)
 from cholesky_tpu_torch.ops.kernels.prng import (uniform_fill_f32,
                                                  uniform_fill_f32_plain,
                                                  uniform_fill_f64,
@@ -1713,16 +1717,19 @@ D_SLICES = 6       # the d tier's slices per operand (_OzakiTiles)
 
 
 def check_peel(gen, rec, on):
-    """The peel of the d path: the hoisted peel of a whole 8192 triangle,
+    """The peels of the d path: the hoisted peel of a whole 8192 triangle,
     and a 128-wide column panel of the working buffer (a strided view),
-    bit for bit against the twin."""
+    bit for bit against the twin; peel_f64, the path's one launch a peel,
+    also on the triangle's transpose (a column-major view), slices and
+    row scales bit for bit against its twin (scaled_pair, then the
+    peel)."""
     buf = torch.randn(8192, 8192, dtype=torch.float64, device="cuda",
                       generator=gen)
     L = torch.tril(buf)
     err = 0.0
     for what, X in (("8192² triangle", L), ("8192×128 column view",
                                              buf[:, 256:384])):
-        rh, rl, _ = ozaki.scaled_pair(X)
+        rh, rl, _ = scaled_pair(X)
         got = peel_f32pair(rh, rl, slices=D_SLICES)
         want = peel_plain(rh, rl, D_SLICES)
         require(torch.equal(got, want),
@@ -1730,7 +1737,7 @@ def check_peel(gen, rec, on):
                 f"(max diff {max_err(got, want)})")
         err = max(err, max_err(got, want))
         print(f"peel_f32pair {what}, S={D_SLICES}: bit for bit the twin's")
-    rh, rl, _ = ozaki.scaled_pair(L)
+    rh, rl, _ = scaled_pair(L)
     ms = bench_op(lambda x: peel_f32pair(x, rl, slices=D_SLICES), rh) * 1e3
     plain_ms = bench_op(lambda x: peel_plain(x, rl, D_SLICES), rh,
                         reps=3) * 1e3
@@ -1741,6 +1748,29 @@ def check_peel(gen, rec, on):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
         **roofline(10 * D_SLICES * 8192 ** 2, "f32",
                    (8 + D_SLICES) * 8192 ** 2))
+    err = 0.0
+    for what, X in (("8192² triangle", L), ("8192×128 column view",
+                                             buf[:, 256:384]),
+                    ("8192² triangle transposed", L.T)):
+        got, gsc = peel_f64(X, slices=D_SLICES)
+        want, wsc = peel_f64_plain(X, D_SLICES)
+        require(torch.equal(got, want) and torch.equal(gsc, wsc),
+                f"peel_f64 {what}: not bit for bit the twin's (max diff "
+                f"{max_err(got, want)}, scales {max_err(gsc, wsc)})")
+        err = max(err, max_err(got, want))
+        print(f"peel_f64 {what}, S={D_SLICES}: bit for bit the twin's")
+    ms = bench_op(lambda x: peel_f64(x, slices=D_SLICES), L) * 1e3
+    ms_t = bench_op(lambda x: peel_f64(x, slices=D_SLICES), L.T) * 1e3
+    plain_ms = bench_op(lambda x: peel_f64_plain(x, D_SLICES), L,
+                        reps=3) * 1e3
+    rl = roofline(10 * D_SLICES * 8192 ** 2, "f32",
+                  (8 + D_SLICES) * 8192 ** 2 + 8 * 8192)
+    print(f"peel_f64 8192², S={D_SLICES}: kernel {ms:.4f} ms (transposed "
+          f"view {ms_t:.4f} ms), plain {plain_ms:.4f} ms, byte bound "
+          f"{rl['bound_ms']:.4f} ms on {on}")
+    # 8 bytes in and S out per element, a row scale out per row
+    rec["peel_f64"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           library_ms=None, **rl)
 
 
 def check_mm_groups(gen, rec, on):
@@ -1804,6 +1834,55 @@ def check_mm_groups(gen, rec, on):
     rec["mm_groups_f32pair"] = dict(
         max_abs_err=errs["4096³ (syrk, one peel)"], ms=ms, plain_ms=plain_ms,
         library_ms=lib_ms, **rl)
+    check_mm_groups_f64(gen, rec, on, Xs)
+
+
+def check_mm_groups_f64(gen, rec, on, Xs):
+    """mm_groups_f64, the path's one launch a product: bit for bit the
+    twin's epilogue of mm_groups_f32pair's pair (the merge, the two
+    rescales, the update) for each update the d tier's callers make, into
+    a strided view and a transposed view; then timed as dpotrf's top
+    trailing update at 8192, C[4096:, 4096:] -= X·Xᵀ with one peel of the
+    4096² panel for both sides."""
+    n = 4096
+    sc = torch.exp2(torch.randint(-3, 4, (n,), device="cuda",
+                                  generator=gen).double())
+    hi, lo = mm_groups_f32pair(Xs, Xs)
+    big = torch.randn(n + 64, n + 64, dtype=torch.float64, device="cuda",
+                      generator=gen)
+    err = 0.0
+    for alpha, beta in ((-1.0, 1.0), (1.0, 0.0), (1.0, 1.0), (0.5, 2.0)):
+        for what, out in (("view", big[:n, 64:]), ("transposed view",
+                                                    big[64:, :n].T)):
+            want = epilogue_plain(hi, lo, sc, sc, out.clone(), alpha, beta)
+            got = mm_groups_f64(Xs, sc, Xs, sc, out=out.clone(), alpha=alpha,
+                                beta=beta)
+            require(torch.equal(got, want),
+                    f"mm_groups_f64 alpha={alpha} beta={beta} {what}: not "
+                    f"bit for bit the twin's ({max_err(got, want)})")
+            err = max(err, max_err(got, want))
+    print("mm_groups_f64 4096³, S=6: bit for bit the twin's epilogue for "
+          "alpha/beta -1/1, 1/0, 1/1, 0.5/2 into views")
+    C = big[:n, 64:]
+    ms = bench_op(lambda a: mm_groups_f64(a, sc, a, sc, out=C, alpha=-1.0,
+                                          beta=1.0), Xs, reps=5) * 1e3
+    plain_ms = bench_op(lambda a: epilogue_plain(
+        *mm_groups_plain(a, a), sc, sc, C, -1.0, 1.0), Xs, reps=3) * 1e3
+    # the composition the kernel replaced: the pair kernel, then the passes
+    composed_ms = bench_op(lambda a: epilogue_plain(
+        *mm_groups_f32pair(a, a), sc, sc, C, -1.0, 1.0), Xs, reps=5) * 1e3
+    X64 = torch.randn(n, n, dtype=torch.float64, device="cuda",
+                      generator=gen)
+    lib_ms = bench_op(lambda a: C.sub_(a @ a.T), X64, reps=5) * 1e3
+    # the f32 pair's bound with the f64 out read and written in its place
+    rl = roofline(2 * n ** 3 * D_SLICES * (D_SLICES + 1) // 2, "int8",
+                  D_SLICES * n * n + 16 * n * n)
+    print(f"mm_groups_f64 4096³, C -= X·Xᵀ: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, mm_groups_f32pair and the torch passes "
+          f"{composed_ms:.4f} ms, f64 C -= X @ X.T {lib_ms:.4f} ms, int8 "
+          f"bound {rl['bound_ms']:.4f} ms on {on}")
+    rec["mm_groups_f64"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, **rl)
 
 
 def groups_roofline(m, n, k, one_peel=False, S=D_SLICES):
@@ -2409,8 +2488,8 @@ def profile_table(fn, top=16, census=None):
     """One call of fn under torch.profiler: (wall ms, device busy ms, idle
     share, operations on the device, [(name, count, ms)] by device time).
     Busy is the union of the device intervals, so overlapping kernels
-    count once. With a list ``census``, every mm_groups_f32pair launch of
-    the call is also recorded there as ((m, n, k), device ms), its shape
+    count once. With a list ``census``, every mm_groups_f64 launch of the
+    call is also recorded there as ((m, n, k), device ms), its shape
     read by the wrapper and its time from the profiler's kernel of the
     same rank in launch order."""
     real, shapes = ozaki._kz, []
@@ -2423,9 +2502,9 @@ def profile_table(fn, top=16, census=None):
             return getattr(real, name)
 
         @staticmethod
-        def mm_groups_f32pair(As, Bs):
+        def mm_groups_f64(As, ascale, Bs, bscale, **update):
             shapes.append((As.shape[1], Bs.shape[1], As.shape[2]))
-            return real.mm_groups_f32pair(As, Bs)
+            return real.mm_groups_f64(As, ascale, Bs, bscale, **update)
 
     def once():             # the census is that of the window's last run
         shapes.clear()
@@ -2454,17 +2533,17 @@ def profile_table(fn, top=16, census=None):
 
 
 def print_census(census, on, top=3):
-    """The mm_groups_f32pair launches of one call by (m, n, k), by device
+    """The mm_groups_f64 launches of one call by (m, n, k), by device
     time, then the top shapes timed alone (CUDA events, fresh S = 6 peels
-    of Gaussian f64 inputs) beside one f64 torch.matmul of the same
-    shape, with their int8 bound."""
+    of Gaussian f64 inputs, a new f64 result) beside one f64 torch.matmul
+    of the same shape, with their int8 bound."""
     by = {}
     for shape, ms in census:
         c, t = by.get(shape, (0, 0.0))
         by[shape] = (c + 1, t + ms)
     rows = sorted(by.items(), key=lambda r: -r[1][1])
     total = sum(t for _, (_, t) in rows)
-    print(f"mm_groups_f32pair census: {len(census)} launches, {total:.3f} "
+    print(f"mm_groups_f64 census: {len(census)} launches, {total:.3f} "
           f"ms of device time, {len(rows)} shapes (m, n, k):")
     for (m, n, k), (c, t) in rows:
         print(f"  {m:5d} {n:5d} {k:5d}  {c:4d} launches  {t:9.3f} ms")
@@ -2472,12 +2551,12 @@ def print_census(census, on, top=3):
     for (m, n, k), _ in rows[:top]:
         A = torch.randn(m, k, dtype=torch.float64, device="cuda", generator=g)
         B = torch.randn(n, k, dtype=torch.float64, device="cuda", generator=g)
-        As, _ = ozaki.split_rows(A, D_SLICES)
-        Bs, _ = ozaki.split_rows(B, D_SLICES)
-        ms = bench_op(lambda a: mm_groups_f32pair(a, Bs), As) * 1e3
+        As, asc = ozaki.split_rows(A, D_SLICES)
+        Bs, bsc = ozaki.split_rows(B, D_SLICES)
+        ms = bench_op(lambda a: mm_groups_f64(a, asc, Bs, bsc), As) * 1e3
         lib = bench_op(lambda a: torch.matmul(a, B.T), A) * 1e3
         rl = groups_roofline(m, n, k)
-        print(f"  mm_groups_f32pair {m}×{n}·{k}, S={D_SLICES}: kernel "
+        print(f"  mm_groups_f64 {m}×{n}·{k}, S={D_SLICES}: kernel "
               f"{ms:.4f} ms, f64 torch.matmul {lib:.4f} ms, int8 bound "
               f"{rl['bound_ms']:.4f} ms on {on}")
 
@@ -2583,7 +2662,17 @@ def d_path(gen, name_power):
             print(f"  the 128-wide leaves: {ms:.3f} ms over {count} "
                   f"potrf_block_f32 launches ({name[:60]})")
     print_census(census, name_power)
-    return {"d": launches}
+
+    # the f32-pair kernels, which the d path no longer launches: the JAX
+    # package's composition (scale, peel the pair, grouped products) on a
+    # 1024² block of the input
+    def pair_products():
+        rh, rl, _ = scaled_pair(A[:1024, :1024])
+        Ss = peel_f32pair(rh, rl, slices=D_SLICES)
+        return mm_groups_f32pair(Ss, Ss)
+
+    _, pair = run_path("Ozaki pair", pair_products, exact("Ozaki pair"))
+    return {"d": launches, "Ozaki pair": pair}
 
 
 # ---------------------------------------------------------------------------
@@ -3583,7 +3672,7 @@ def sweep_kernels(letter: str, op: str) -> tuple:
     reduction."""
     if op == "logdet_diag":
         return ()
-    products = ("peel_f32pair", "mm_groups_f32pair")
+    products = ("peel_f64", "mm_groups_f64")
     if letter in "dz":
         if op in ("gemm", "gemm_k", "syrk"):
             return products
@@ -3780,18 +3869,19 @@ PATHS = {
            "rbf_grad_f32"),
     "potri": ("trtri_stream_f32", "lauum_stream_f32"),
     "lauum block_size=512": ("gemm_f32", "syrk_lower_f32", "lauu2_f32"),
-    "d": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
+    "Ozaki pair": ("peel_f32pair", "mm_groups_f32pair"),
+    "d": ("peel_f64", "mm_groups_f64", "potrf_block_f32",
           "trtri_block_f32"),
     "strmm": ("trmm_lln_f32",),
     "sgemm": ("gemm_f32",),
     "ssyrk": ("syrk_lower_f32",),
-    "dtrmm": ("peel_f32pair", "mm_groups_f32pair"),
+    "dtrmm": ("peel_f64", "mm_groups_f64"),
     "spotf2": ("potf2_f32",),
     "strtri n=8320 block_size=8320": ("trti2_f32",),
     "lauum block_size=2048": ("lauu2_f32",),
-    "z": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
+    "z": ("peel_f64", "mm_groups_f64", "potrf_block_f32",
           "trtri_block_f32"),
-    "ztrsm": ("uniform_fill_f64", "peel_f32pair", "mm_groups_f32pair",
+    "ztrsm": ("uniform_fill_f64", "peel_f64", "mm_groups_f64",
               "trtri_block_f32"),
     "cpotrf": ("potrf_stream_f32",),
     "ctrsm": ("uniform_fill_f32", "trtri_block_f32", "gemm_f32"),
@@ -3803,16 +3893,16 @@ PATHS = {
     "dist trsm N": (),
     "dist trsm T": (),
     "dist potri": ("trtri_block_f32", "gemm_f32"),
-    "dist d": ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
+    "dist d": ("peel_f64", "mm_groups_f64", "potrf_block_f32",
                "trtri_block_f32"),
     "dist GP": ("potrf_block_f32", "trtri_block_f32", "gemm_f32"),
     "dist gemm": (),
     "dist syrk": (),
     "dist trsm": ("trtri_block_f32", "gemm_f32"),
     "dist trmm": ("trmm_lln_f32",),
-    "dist d gemm": ("peel_f32pair", "mm_groups_f32pair"),
-    "dist d trsm": ("peel_f32pair", "mm_groups_f32pair", "trtri_block_f32"),
-    "dist d trmm": ("peel_f32pair", "mm_groups_f32pair"),
+    "dist d gemm": ("peel_f64", "mm_groups_f64"),
+    "dist d trsm": ("peel_f64", "mm_groups_f64", "trtri_block_f32"),
+    "dist d trmm": ("peel_f64", "mm_groups_f64"),
     "dist herk": (),
 }
 
@@ -3839,9 +3929,17 @@ SOURCES = {
                   "cholesky_tpu/ops/pallas/leaf.py:297",
                   "lauum block_size=512"),
     "peel_f32pair": ("cholesky_tpu_torch/ops/kernels/csrc/ozaki_peel.cu",
-                     "cholesky_tpu/ops/pallas/ozaki_split.py:57", "d"),
+                     "cholesky_tpu/ops/pallas/ozaki_split.py:57",
+                     "Ozaki pair"),
     "mm_groups_f32pair": ("cholesky_tpu_torch/ops/kernels/csrc/ozaki_mm.cu",
-                          "cholesky_tpu/ops/pallas/ozaki_mm.py:105", "d"),
+                          "cholesky_tpu/ops/pallas/ozaki_mm.py:105",
+                          "Ozaki pair"),
+    "peel_f64": ("cholesky_tpu_torch/ops/kernels/csrc/ozaki_peel.cu",
+                 "none: XLA's fusion of cholesky_tpu/ops/ozaki.py:63-72 "
+                 "before ozaki_split.py:57", "d"),
+    "mm_groups_f64": ("cholesky_tpu_torch/ops/kernels/csrc/ozaki_mm.cu",
+                      "none: XLA's fusion of cholesky_tpu/ops/ozaki.py:"
+                      "158-159 after ozaki_mm.py:105", "d"),
     "potf2_f32": ("cholesky_tpu_torch/ops/kernels/csrc/leaf.cu",
                   "cholesky_tpu/ops/pallas/leaf.py:146", "spotf2"),
     "trti2_f32": ("cholesky_tpu_torch/ops/kernels/csrc/leaf.cu",

@@ -195,20 +195,20 @@ class _OzakiTiles:
         self.hoist = hoist
         self.rescue = False
 
-    def _mm(self, A, B):
-        return ozaki.matmul_f64(A, B, slices=self.slices)
+    def _mm(self, A, B, **update):
+        return ozaki.matmul_f64(A, B, slices=self.slices, **update)
 
     def _split(self, X):
         return ozaki.split_rows(X, self.slices)
 
     def mm(self, A, B, C=None, *, alpha=1.0, beta=0.0, out=None):
-        D = alpha * self._mm(A, B)
-        if C is not None and beta != 0.0:
-            D = D + beta * C
-        if out is None:
-            return D
-        out.copy_(D)
-        return out
+        # the update runs inside the product where it reads only out
+        if C is None or beta == 0.0:
+            return self._mm(A, B, out=out, alpha=alpha)
+        if C is out:
+            return self._mm(A, B, out=out, alpha=alpha, beta=beta)
+        D = self._mm(A, B, alpha=alpha) + beta * C
+        return D if out is None else out.copy_(D)
 
     def syrk_ln(self, alpha, A, beta, C):
         """C := alpha·A·Aᵀ + beta·C in place, the whole square (only the
@@ -218,12 +218,7 @@ class _OzakiTiles:
             self.mm(A, A.T, C, alpha=alpha, beta=beta, out=C)
             return
         As, asc = self._split(A)
-        D = ozaki.matmul_presplit(As, asc, As, asc)
-        if alpha != 1.0:
-            D = alpha * D
-        if beta != 0.0:
-            D = D + (beta * C if beta != 1.0 else C)
-        C.copy_(D)
+        ozaki.matmul_presplit(As, asc, As, asc, out=C, alpha=alpha, beta=beta)
 
     @_ozaki_leaf("potf2")
     def potf2(self, A):
@@ -292,13 +287,14 @@ class _OzakiTiles:
         def rec(i, n, B):
             if n <= nb:
                 T, _ = self.trti2(Lt[i:i + n, i:i + n])
-                B.copy_(self._mm(B, T.T))
+                self._mm(B, T.T, out=B)
                 return
             n1 = _split(n, nb)
             rec(i, n1, B[:, :n1])
             Xs, xsc = self._split(B[:, :n1])
-            B[:, n1:] -= ozaki.matmul_presplit(
-                Xs, xsc, Ls[:, i + n1:i + n, i:i + n1], lsc[i + n1:i + n])
+            ozaki.matmul_presplit(
+                Xs, xsc, Ls[:, i + n1:i + n, i:i + n1], lsc[i + n1:i + n],
+                out=B[:, n1:], alpha=-1.0, beta=1.0)
             rec(i + n1, n - n1, B[:, n1:])
 
         rec(0, L.shape[0], B)
@@ -314,13 +310,14 @@ class _OzakiTiles:
                 T, _ = self.trti2(Lt[i:i + n, i:i + n], unit=unit)
                 if unit:
                     T = _force_unit_diag(T)
-                B.copy_(self._mm(T, B))
+                self._mm(T, B, out=B)
                 return
             n1 = _split(n, nb)
             rec(i, n1, B[:n1])
             Xs, xsc = self._split(B[:n1].T)
-            B[n1:] -= ozaki.matmul_presplit(
-                Ls[:, i + n1:i + n, i:i + n1], lsc[i + n1:i + n], Xs, xsc)
+            ozaki.matmul_presplit(
+                Ls[:, i + n1:i + n, i:i + n1], lsc[i + n1:i + n], Xs, xsc,
+                out=B[n1:], alpha=-1.0, beta=1.0)
             rec(i + n1, n - n1, B[n1:])
 
         rec(0, L.shape[0], B)
@@ -336,13 +333,14 @@ class _OzakiTiles:
                 T, _ = self.trti2(Lt[i:i + n, i:i + n], unit=unit)
                 if unit:
                     T = _force_unit_diag(T)
-                B.copy_(self._mm(T.T, B))
+                self._mm(T.T, B, out=B)
                 return
             n1 = _split(n, nb)
             rec(i + n1, n - n1, B[n1:])
             Xs, xsc = self._split(B[n1:].T)
-            B[:n1] -= ozaki.matmul_presplit(
-                LTs[:, i:i + n1, i + n1:i + n], ltsc[i:i + n1], Xs, xsc)
+            ozaki.matmul_presplit(
+                LTs[:, i:i + n1, i + n1:i + n], ltsc[i:i + n1], Xs, xsc,
+                out=B[:n1], alpha=-1.0, beta=1.0)
             rec(i, n1, B[:n1])
 
         rec(0, L.shape[0], B)
@@ -390,16 +388,16 @@ class _OzakiTiles:
         def rec(i, n):
             C = out[i:i + n]
             if n <= nb + nb // 2:
-                C.copy_(ozaki.matmul_presplit(
+                ozaki.matmul_presplit(
                     Ls[:, i:i + n, i:i + n], lsc[i:i + n],
-                    Bs[:, :, i:i + n], bsc))
+                    Bs[:, :, i:i + n], bsc, out=C)
                 return
             n1 = _split(n, nb)
             rec(i, n1)
             rec(i + n1, n - n1)
-            C[n1:] += ozaki.matmul_presplit(
+            ozaki.matmul_presplit(
                 Ls[:, i + n1:i + n, i:i + n1], lsc[i + n1:i + n],
-                Bs[:, :, i:i + n1], bsc)
+                Bs[:, :, i:i + n1], bsc, out=C[n1:], beta=1.0)
 
         rec(0, L.shape[0])
         del rec   # rec holds itself: free the peels now, not at a collection

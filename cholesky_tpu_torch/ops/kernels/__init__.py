@@ -13,7 +13,8 @@ from cholesky_tpu_torch.ops.kernels.mega import (lauum_stream_f32,
                                                  trtri_block_f32,
                                                  trtri_stream_f32)
 from cholesky_tpu_torch.ops.kernels.ozaki import (mm_groups_f32pair,
-                                                  peel_f32pair)
+                                                  mm_groups_f64, peel_f32pair,
+                                                  peel_f64)
 from cholesky_tpu_torch.ops.kernels.prng import (uniform_fill_f32,
                                                  uniform_fill_f64)
 from cholesky_tpu_torch.ops.kernels.rbf import rbf_f32, rbf_grad_f32
@@ -35,6 +36,8 @@ KERNELS = {
     "trmm_lln_f32": trmm_lln_f32,
     "peel_f32pair": peel_f32pair,
     "mm_groups_f32pair": mm_groups_f32pair,
+    "peel_f64": peel_f64,
+    "mm_groups_f64": mm_groups_f64,
     "uniform_fill_f32": uniform_fill_f32,
     "uniform_fill_f64": uniform_fill_f64,
     "rbf_f32": rbf_f32,

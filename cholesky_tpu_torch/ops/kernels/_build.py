@@ -110,8 +110,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build().path))
-        P, LL, I, F = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_float)
+        P, LL, I, F, D = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_float, ctypes.c_double)
         # every entry point ends with (device index, stream)
         signatures = {
             "ct_gemm_f32": [P, LL, LL, P, LL, LL, P, LL, LL, P, LL, LL,
@@ -132,6 +132,9 @@ def library() -> ctypes.CDLL:
                                 I, I, P],
             "ct_mm_groups_f32pair": [P, LL, LL, P, LL, LL, P, P, LL, I, I, I,
                                      I, I, P],
+            "ct_peel_f64": [P, LL, LL, P, LL, LL, P, I, I, I, I, I, P],
+            "ct_mm_groups_f64": [P, LL, LL, P, LL, LL, P, P, P, LL, LL, D, D,
+                                 I, I, I, I, I, P],
             "ct_uniform_fill_f32": [P, LL, LL, I, P, I, P],
             "ct_uniform_fill_f64": [P, LL, LL, I, P, I, P],
             "ct_rbf_f32": [P, LL, P, LL, I, P, P, P, F, I, P, LL, I, P],

@@ -1,5 +1,6 @@
 // mm_groups_f32pair: every int8 slice product of an Ozaki f64 product,
-// summed by weight group, as an f32 (hi, lo) pair.
+// summed by weight group, as an f32 (hi, lo) pair; mm_groups_f64: the same
+// products with the f64 epilogue, merged into the caller's f64 matrix.
 //
 // Replaces cholesky_tpu/ops/pallas/ozaki_mm.py:mm_groups_f32pair
 // (_make_kernel, _two_sum_into). With As (S, m, k) the int8 row slices of A
@@ -48,6 +49,22 @@
 // peel without a copy. The 16-byte copies need every row to start on a
 // 16-byte boundary: the wrapper copies an operand that does not into an
 // aligned buffer first, and this entry point refuses one.
+//
+// mm_groups_f64 replaces no TPU kernel: the JAX package leaves the f64
+// epilogue to XLA, which fuses it; eagerly it was three torch passes and
+// the caller's update (ops/ozaki.py matmul_presplit), which with the
+// peel's set the d tier's pace on the host. It is the same kernel with
+// another store: each element's renormalized pair, as mm_groups_f32pair
+// stores it, becomes
+//     out[i, j] = beta·out[i, j] + alpha·(((f64)hi + (f64)lo)·ascale_i)·bscale_j
+// in that order, every operation an f64 intrinsic that rounds to nearest,
+// so the result is bit for bit that of the torch passes; beta 0 reads
+// nothing of out, beta 1 and alpha 1 multiply by nothing. out is any
+// strided f64 view whose elements do not overlap. The last warpgroup
+// leaves its pair in shared memory like the others, and after the barrier
+// every thread takes elements along the tile's rows (32 neighbouring
+// doubles a warp): the f64 work beside the live int32 sums spilled at
+// S = 5, 6, and the f32 pair's store pattern would scatter the f64 one.
 #include <cstdint>
 
 #include "sgemm_tile.cuh"  // CT_EXPORT
@@ -203,6 +220,43 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[kAcc<BN>], uint64_t da,
   }
 }
 
+// Where a tile's pair goes: the f32 (hi, lo) pair, stored by the last
+// warpgroup from its registers ...
+struct PairStore {
+  static constexpr bool kStaged = false;
+  float* hi;
+  float* lo;
+  long long ldc;
+  __device__ __forceinline__ void operator()(int r, int c, float h,
+                                             float l) const {
+    hi[r * ldc + c] = h;
+    lo[r * ldc + c] = l;
+  }
+};
+
+// ... or out := beta·out + alpha·(((f64)h + (f64)l)·ascale_r)·bscale_c,
+// stored by every thread from the pair in shared memory once the int32
+// sums are dead
+struct F64Store {
+  static constexpr bool kStaged = true;
+  double* out;
+  long long so0, so1;
+  const double* ascale;
+  const double* bscale;
+  double alpha, beta;
+  __device__ __forceinline__ void operator()(int r, int c, float h,
+                                             float l) const {
+    double v = __dmul_rn(
+        __dmul_rn(__dadd_rn(static_cast<double>(h), static_cast<double>(l)),
+                  ascale[r]),
+        bscale[c]);
+    if (alpha != 1.0) v = __dmul_rn(alpha, v);
+    double* o = out + r * so0 + c * so1;
+    if (beta != 0.0) v = __dadd_rn(beta == 1.0 ? *o : __dmul_rn(beta, *o), v);
+    *o = v;
+  }
+};
+
 // hi + lo += t exactly in hi (Knuth two-sum), the error rounded into lo.
 __device__ __forceinline__ void two_sum_into(float& hi, float& lo, float t) {
   const float s = __fadd_rn(hi, t);
@@ -243,13 +297,12 @@ __device__ __forceinline__ void issue(int (&acc0)[kAcc<BN>],
   }
 }
 
-template <int S, int BN>
+template <int S, int BN, class Store>
 __global__ void __launch_bounds__((S + 1) / 2 * WG, 1)
 mm_groups_kernel(const signed char* __restrict__ A, long long sa_s,
                  long long sa_r, const signed char* __restrict__ B,
-                 long long sb_s, long long sb_r, float* __restrict__ hi_out,
-                 float* __restrict__ lo_out, long long ldc, int m, int n,
-                 int K) {
+                 long long sb_s, long long sb_r, const Store put, int m,
+                 int n, int K) {
   constexpr int NWG = (S + 1) / 2;
   constexpr int NST = stage_bytes<BN>(S);
   constexpr int STAGES = stages<BN>();
@@ -332,7 +385,7 @@ mm_groups_kernel(const signed char* __restrict__ A, long long sa_s,
     for (int q = 0; q < NWG; ++q) {
       if (wg == q) {
         const bool first = ch == 0 && q == 0;
-        const bool store = last && q == NWG - 1;
+        const bool store = !Store::kStaged && last && q == NWG - 1;
         const int lane = t % 32, warp = t / 32;
 #pragma unroll
         for (int i = 0; i < ACC; ++i) {
@@ -349,36 +402,87 @@ mm_groups_kernel(const signed char* __restrict__ A, long long sa_s,
           const int c = c0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
           if (r < m && c < n) {
             const float sum = __fadd_rn(h, l);
-            hi_out[r * ldc + c] = sum;
-            lo_out[r * ldc + c] = __fsub_rn(l, __fsub_rn(sum, h));
+            put(r, c, sum, __fsub_rn(l, __fsub_rn(sum, h)));
           }
         }
       }
       __syncthreads();
     }
+    if constexpr (Store::kStaged) {
+      if (last) {
+        // element (row, col) of the tile is acc[i] of thread slot, as above
+        for (int e = threadIdx.x; e < BM * BN; e += blockDim.x) {
+          const int row = e / BN, col = e % BN;
+          const int r = r0 + row, c = c0 + col;
+          if (r < m && c < n) {
+            const int rr = row % 16, cc = col % 8;
+            const int slot = row / 16 * 32 + rr % 8 * 4 + cc / 2;
+            const int i = col / 8 * 4 + rr / 8 * 2 + cc % 2;
+            const float h = pair[i * WG + slot];
+            const float l = pair[(ACC + i) * WG + slot];
+            const float sum = __fadd_rn(h, l);
+            put(r, c, sum, __fsub_rn(l, __fsub_rn(sum, h)));
+          }
+        }
+      }
+    }
   }
 }
 
-template <int S, int BN>
+template <int S, int BN, class Store>
 int launch(const signed char* A, long long sa_s, long long sa_r,
-           const signed char* B, long long sb_s, long long sb_r, float* hi,
-           float* lo, long long ldc, int m, int n, int k,
-           cudaStream_t stream) {
+           const signed char* B, long long sb_s, long long sb_r,
+           const Store& store, int m, int n, int k, cudaStream_t stream) {
   constexpr int smem = smem_bytes<BN>(S);
   static_assert(smem <= 227 * 1024, "the ring must fit shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      mm_groups_kernel<S, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      mm_groups_kernel<S, BN, Store>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  mm_groups_kernel<S, BN><<<grid, (S + 1) / 2 * WG, smem, stream>>>(
-      A, sa_s, sa_r, B, sb_s, sb_r, hi, lo, ldc, m, n, k);
+  mm_groups_kernel<S, BN, Store><<<grid, (S + 1) / 2 * WG, smem, stream>>>(
+      A, sa_s, sa_r, B, sb_s, sb_r, store, m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p, long long ss, long long sr) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0 && ss % 16 == 0 &&
          sr % 16 == 0;
+}
+
+// The checks both entry points share, then the launch for S and the tile:
+// 64 x 128 tiles where a grid of 64 x 64 ones would fill the card twice
+// over and the two groups' 128 int32 sums per thread leave room (S <= 6);
+// 64 x 64 tiles elsewhere, so that a small product keeps its blocks
+template <class Store>
+int dispatch(const signed char* A, long long sa_s, long long sa_r,
+             const signed char* B, long long sb_s, long long sb_r,
+             const Store& store, int S, int m, int n, int k, int device,
+             void* stream) {
+  if (S < 1 || S > MAX_SLICES || m < 1 || n < 1 || k < 0 ||
+      m > 65535 * BM || !aligned16(A, sa_s, sa_r) ||
+      !aligned16(B, sb_s, sb_r))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int nsm = 0;
+  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles64 = (long long)((m + BM - 1) / BM) * ((n + 63) / 64);
+  const bool wide = S <= 6 && tiles64 >= 2LL * nsm;
+  using Launch = int (*)(const signed char*, long long, long long,
+                         const signed char*, long long, long long,
+                         const Store&, int, int, int, cudaStream_t);
+  constexpr Launch narrow_by_slices[MAX_SLICES] = {
+      launch<1, 64, Store>, launch<2, 64, Store>, launch<3, 64, Store>,
+      launch<4, 64, Store>, launch<5, 64, Store>, launch<6, 64, Store>,
+      launch<7, 64, Store>, launch<8, 64, Store>};
+  constexpr Launch wide_by_slices[6] = {
+      launch<1, 128, Store>, launch<2, 128, Store>, launch<3, 128, Store>,
+      launch<4, 128, Store>, launch<5, 128, Store>, launch<6, 128, Store>};
+  return (wide ? wide_by_slices : narrow_by_slices)[S - 1](
+      A, sa_s, sa_r, B, sb_s, sb_r, store, m, n, k,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -388,30 +492,19 @@ CT_EXPORT int ct_mm_groups_f32pair(const signed char* A, long long sa_s,
                                    long long sb_s, long long sb_r, float* hi,
                                    float* lo, long long ldc, int S, int m,
                                    int n, int k, int device, void* stream) {
-  if (S < 1 || S > MAX_SLICES || m < 1 || n < 1 || k < 0 || ldc < n ||
-      m > 65535 * BM || !aligned16(A, sa_s, sa_r) ||
-      !aligned16(B, sb_s, sb_r))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // 64 x 128 tiles where a grid of 64 x 64 ones would fill the card twice
-  // over and the two groups' 128 int32 sums per thread leave room (S <= 6);
-  // 64 x 64 tiles elsewhere, so that a small product keeps its blocks
-  int nsm = 0;
-  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles64 = (long long)((m + BM - 1) / BM) * ((n + 63) / 64);
-  const bool wide = S <= 6 && tiles64 >= 2LL * nsm;
-  using Launch = int (*)(const signed char*, long long, long long,
-                         const signed char*, long long, long long, float*,
-                         float*, long long, int, int, int, cudaStream_t);
-  constexpr Launch narrow_by_slices[MAX_SLICES] = {
-      launch<1, 64>, launch<2, 64>, launch<3, 64>, launch<4, 64>,
-      launch<5, 64>, launch<6, 64>, launch<7, 64>, launch<8, 64>};
-  constexpr Launch wide_by_slices[6] = {
-      launch<1, 128>, launch<2, 128>, launch<3, 128>,
-      launch<4, 128>, launch<5, 128>, launch<6, 128>};
-  return (wide ? wide_by_slices : narrow_by_slices)[S - 1](
-      A, sa_s, sa_r, B, sb_s, sb_r, hi, lo, ldc, m, n, k,
-      static_cast<cudaStream_t>(stream));
+  if (ldc < n) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(A, sa_s, sa_r, B, sb_s, sb_r, PairStore{hi, lo, ldc}, S, m,
+                  n, k, device, stream);
+}
+
+CT_EXPORT int ct_mm_groups_f64(const signed char* A, long long sa_s,
+                               long long sa_r, const signed char* B,
+                               long long sb_s, long long sb_r,
+                               const double* ascale, const double* bscale,
+                               double* out, long long so0, long long so1,
+                               double alpha, double beta, int S, int m, int n,
+                               int k, int device, void* stream) {
+  return dispatch(A, sa_s, sa_r, B, sb_s, sb_r,
+                  F64Store{out, so0, so1, ascale, bscale, alpha, beta}, S, m,
+                  n, k, device, stream);
 }

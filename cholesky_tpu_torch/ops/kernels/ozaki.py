@@ -1,4 +1,4 @@
-"""The two kernels of the d tier's Ozaki products (ops/ozaki.py), each
+"""The kernels of the d tier's Ozaki products (ops/ozaki.py), each
 beside its plain torch twin:
 
 - peel_f32pair (csrc/ozaki_peel.cu) replaces ``cholesky_tpu/ops/pallas/
@@ -6,10 +6,16 @@ beside its plain torch twin:
   bit for bit;
 - mm_groups_f32pair (csrc/ozaki_mm.cu) replaces ``cholesky_tpu/ops/pallas/
   ozaki_mm.py:mm_groups_f32pair``: all slice products, summed by weight
-  group, as an f32 (hi, lo) pair.
+  group, as an f32 (hi, lo) pair;
+- peel_f64 (csrc/ozaki_peel.cu): the row scales and the slices of an f64
+  matrix in one launch, bit for bit :func:`scaled_pair` then the peel;
+- mm_groups_f64 (csrc/ozaki_mm.cu): mm_groups_f32pair's products with the
+  f64 epilogue, the pair merged, rescaled and added into the caller's f64
+  matrix in one launch, bit for bit :func:`epilogue_plain` of the pair.
 
-A CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
-raises.
+The last two are the d tier's path on the card (ops/ozaki.py); the first
+two stay for the hoisted peels' tests and the JAX package's twins. A CPU
+tensor takes the plain twin; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,6 +28,30 @@ from cholesky_tpu_torch.utils.errors import check
 SLICE_BITS = 7      # bits per slice, as the JAX package's ozaki_mm.SLICE_BITS
 MAX_SLICES = 8      # the kernels' limit, and the S of ozaki.K_EXACT_MAX
 ALIGN = 16          # bytes: where the kernel's slice rows start on the card
+
+
+def _pow2_f32(e):
+    """2^e in f32 for an integer tensor e (|e| < 1000), exactly what the
+    JAX package's f32 ldexp of 1 gives: built from the bits of the f64
+    power of two, whose rounding to f32 is exact for a normal or subnormal
+    result, 0 below 2^-149 and inf above 2^127."""
+    return ((e.to(torch.int64) + 1023) << 52).view(torch.float64).float()
+
+
+def scaled_pair(A):
+    """(rh, rl, scale): the rows of the f64 matrix A (any strided view) as
+    the exact f32 pair rh + rl (48 mantissa bits) in [-1/2, 1/2], and the
+    row scales (m,) f64 powers of two with A = 2·scale·(rh + rl), bit for
+    bit those of the JAX package: the scale from the f32 frexp of the row
+    max, applied as a power of two, which is exact in f32."""
+    amax = A.abs().amax(dim=1, keepdim=True)
+    amax = torch.where(amax == 0, torch.ones_like(amax), amax)
+    _, ex = torch.frexp(amax.float())
+    inv = _pow2_f32(-(ex + 1))                   # 1 / (2·scale)
+    scale = _pow2_f32(ex).to(A.dtype)
+    xh = A.float()                               # correctly rounded high part
+    xl = (A - xh.to(A.dtype)).float()            # exact residual
+    return xh * inv, xl * inv, 2.0 * scale[:, 0]
 
 
 def peel_plain(rh, rl, slices: int):
@@ -67,7 +97,7 @@ def peel_f32pair(rh, rl, *, slices: int):
     check(rh.device.type == "cuda", "peel_f32pair", 1,
           f"unsupported device {rh.device}")
     m, k = rh.shape
-    kp = -(-max(k, 1) // ALIGN) * ALIGN
+    kp = _padded(k)
     out = torch.empty((slices, m, kp), dtype=torch.int8, device=rh.device)
     if m == 0 or k == 0:
         return out[:, :, :k]
@@ -82,18 +112,72 @@ def peel_f32pair(rh, rl, *, slices: int):
     return out[:, :, :k]
 
 
-def _check_groups(As, Bs):
-    check(As.ndim == 3 and Bs.ndim == 3, "mm_groups_f32pair", 1,
+def _padded(k):
+    """k rounded up to ALIGN bytes of int8, at least ALIGN: the row stride
+    of a peel on the card."""
+    return -(-max(k, 1) // ALIGN) * ALIGN
+
+
+def peel_f64_plain(A, slices: int):
+    """The plain torch version of :func:`peel_f64`, any device:
+    :func:`scaled_pair`, then :func:`peel_plain`."""
+    rh, rl, scale = scaled_pair(A)
+    return peel_plain(rh, rl, slices), scale
+
+
+def _peel64_shape(A, *, slices):
+    return {"m": A.shape[0], "k": A.shape[1], "slices": slices}
+
+
+@_build.kernel_span("peel_f64", _peel64_shape)
+def peel_f64(A, *, slices: int):
+    """(slices (S, m, k) int8, row scales (m,) f64) of the f64 matrix A,
+    any strided view: bit for bit :func:`peel_f64_plain`, in one launch
+    on the card. The slices are laid out as :func:`peel_f32pair`'s (a view
+    of an (S, m, kp) buffer, rows padded to ALIGN bytes with zeros). The
+    kernel reads rows along the unit stride one warp a row, and rows
+    across it (a transposed view) 32 rows a block, chosen by A's
+    strides; where those blocks cannot fill the card (few rows, as
+    ``B[:n1].T`` of a solve with few right-hand sides), the same launch
+    splits k among more blocks."""
+    # the messages are formatted only on failure: a d call peels thousands
+    # of times
+    check(A.ndim == 2 and A.dtype == torch.float64, "peel_f64", 1,
+          lambda: f"a 2-D float64 matrix only, got {tuple(A.shape)} "
+                  f"{A.dtype}")
+    check(1 <= slices <= MAX_SLICES, "peel_f64", 2,
+          lambda: f"slices={slices} outside 1..{MAX_SLICES}")
+    device = A.device
+    if device.type == "cpu":
+        return peel_f64_plain(A, slices)
+    check(device.type == "cuda", "peel_f64", 1,
+          lambda: f"unsupported device {device}")
+    m, k = A.shape
+    kp = _padded(k)
+    buf = torch.empty((slices, m, kp), dtype=torch.int8, device=device)
+    out = buf.as_strided((slices, m, k), (m * kp, kp, 1))
+    scale = torch.empty((m,), dtype=torch.float64, device=device)
+    if m == 0:
+        return out, scale
+    _build.launch(
+        "peel_f64", A.data_ptr(), A.stride(0), A.stride(1), out.data_ptr(),
+        kp, m * kp, scale.data_ptr(), m, k, kp, slices,
+        *_build.device_args(A))
+    peel_f64.launches += 1
+    return out, scale
+
+
+def _check_groups(As, Bs, name="mm_groups_f32pair"):
+    check(As.ndim == 3 and Bs.ndim == 3, name, 1,
           "As and Bs must be (S, rows, k)")
     S, m, k = As.shape
-    check(Bs.shape[0] == S and Bs.shape[2] == k, "mm_groups_f32pair", 2,
-          f"slices/k mismatch: {tuple(As.shape)} and {tuple(Bs.shape)}")
-    check(As.dtype == Bs.dtype == torch.int8, "mm_groups_f32pair", 1,
-          "int8 slices only")
-    check(As.device == Bs.device, "mm_groups_f32pair", 2,
-          "operands on different devices")
-    check(1 <= S <= MAX_SLICES, "mm_groups_f32pair", 1,
-          f"S={S} outside 1..{MAX_SLICES}")
+    check(Bs.shape[0] == S and Bs.shape[2] == k, name, 2,
+          lambda: f"slices/k mismatch: {tuple(As.shape)} and "
+                  f"{tuple(Bs.shape)}")
+    check(As.dtype == Bs.dtype == torch.int8, name, 1, "int8 slices only")
+    check(As.device == Bs.device, name, 2, "operands on different devices")
+    check(1 <= S <= MAX_SLICES, name, 1,
+          lambda: f"S={S} outside 1..{MAX_SLICES}")
     return S, m, Bs.shape[1], k
 
 
@@ -122,8 +206,7 @@ def aligned_rows(X):
     if ((X.stride(2) == 1 or k <= 1) and X.data_ptr() % ALIGN == 0
             and X.stride(0) % ALIGN == 0 and X.stride(1) % ALIGN == 0):
         return X
-    kp = -(-max(k, 1) // ALIGN) * ALIGN
-    buf = X.new_empty((S, rows, kp))
+    buf = X.new_empty((S, rows, _padded(k)))
     buf[:, :, :k].copy_(X)
     return buf[:, :, :k]
 
@@ -161,5 +244,81 @@ def mm_groups_f32pair(As, Bs):
     return hi, lo
 
 
+def update_plain(P, out=None, alpha=1.0, beta=0.0):
+    """out := beta·out + alpha·P in torch passes, P a new f64 tensor the
+    caller gives up: alpha·P first, then its sum with beta·out (beta 0
+    reads nothing of out, beta 1 multiplies by nothing), as the d tier's
+    callers composed it (``B -= P`` is ``B + (−1·P)`` bit for bit).
+    Returns out, or alpha·P where out is None."""
+    if alpha != 1.0:
+        P = P.mul_(alpha)
+    if out is None:
+        return P
+    if beta == 0.0:
+        return out.copy_(P)
+    if beta != 1.0:
+        out.mul_(beta)
+    return out.add_(P)
+
+
+def epilogue_plain(hi, lo, ascale, bscale, out=None, alpha=1.0, beta=0.0):
+    """The f64 epilogue of an Ozaki product in torch passes, the plain
+    version of mm_groups_f64's: P = ((hi + lo)·ascale_i)·bscale_j in f64,
+    then :func:`update_plain`."""
+    P = (hi.double() + lo.double()) * ascale[:, None] * bscale[None, :]
+    return update_plain(P, out, alpha, beta)
+
+
+def _groups64_shape(As, ascale, Bs, bscale, *, out=None, alpha=1.0,
+                    beta=0.0):
+    return {**_groups_shape(As, Bs), "c_read": out is not None
+            and beta != 0.0}
+
+
+@_build.kernel_span("mm_groups_f64", _groups64_shape)
+def mm_groups_f64(As, ascale, Bs, bscale, *, out=None, alpha=1.0, beta=0.0):
+    """out := beta·out + alpha·((hi + lo)·ascale_i)·bscale_j, with (hi, lo)
+    :func:`mm_groups_f32pair` of As (S, m, k) and Bs (S, n, k) and the f64
+    row scales ascale (m,) and bscale (n,) of their peels: bit for bit
+    :func:`epilogue_plain` of the pair, in one launch on the card. out is
+    an (m, n) f64 view whose elements do not overlap, or None for a new
+    one (beta 0 then); beta 0 reads nothing of out. Returns out. The
+    operands' rows are aligned as :func:`mm_groups_f32pair`'s."""
+    S, m, n, k = _check_groups(As, Bs, "mm_groups_f64")
+    device = As.device
+    check(ascale.shape == (m,) and bscale.shape == (n,)
+          and ascale.dtype == bscale.dtype == torch.float64, "mm_groups_f64",
+          3, lambda: f"scales must be float64 ({m},) and ({n},), got "
+                     f"{tuple(ascale.shape)} and {tuple(bscale.shape)}")
+    check(out is not None or beta == 0.0, "mm_groups_f64", 4,
+          "beta needs an out to read")
+    if out is not None:
+        check(out.shape == (m, n) and out.dtype == torch.float64
+              and out.device == device, "mm_groups_f64", 4,
+              lambda: f"out must be float64 ({m}, {n}) on {device}")
+    if device.type == "cpu":
+        return epilogue_plain(*mm_groups_plain(As, Bs), ascale, bscale, out,
+                              alpha, beta)
+    check(device.type == "cuda", "mm_groups_f64", 1,
+          lambda: f"unsupported device {device}")
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float64, device=device)
+    check(_build.writable_2d(out), "mm_groups_f64", 4,
+          "out's elements overlap")
+    if m == 0 or n == 0:
+        return out
+    As, Bs = aligned_rows(As), aligned_rows(Bs)
+    ascale, bscale = ascale.contiguous(), bscale.contiguous()
+    _build.launch(
+        "mm_groups_f64", As.data_ptr(), As.stride(0), As.stride(1),
+        Bs.data_ptr(), Bs.stride(0), Bs.stride(1), ascale.data_ptr(),
+        bscale.data_ptr(), out.data_ptr(), out.stride(0), out.stride(1),
+        float(alpha), float(beta), S, m, n, k, *_build.device_args(As))
+    mm_groups_f64.launches += 1
+    return out
+
+
 peel_f32pair.launches = 0
 mm_groups_f32pair.launches = 0
+peel_f64.launches = 0
+mm_groups_f64.launches = 0

@@ -59,7 +59,9 @@ def xerbla(routine: str, arg: int, message: str = "") -> None:
         + (f": {message}" if message else ""))
 
 
-def check(cond: bool, routine: str, arg: int, message: str = "") -> None:
-    """Validate an argument; on failure invoke xerbla and raise."""
+def check(cond: bool, routine: str, arg: int, message="") -> None:
+    """Validate an argument; on failure invoke xerbla and raise. ``message``
+    is a string, or a callable that gives it, called only on failure (for
+    checks on a path that runs thousands of times a call)."""
     if not cond:
-        xerbla(routine, arg, message)
+        xerbla(routine, arg, message() if callable(message) else message)

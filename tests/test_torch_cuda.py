@@ -14,6 +14,7 @@ for a triangular inverse or solve and 3000n for potri. The dense gates
 (F32_GATE below) are tighter: the block-cyclic tier's solves and potri
 are held by them, since 60n and 3000n exceed the entries they check."""
 
+import collections
 import functools
 
 import numpy as np
@@ -34,7 +35,7 @@ from cholesky_tpu_torch.rng import device as rdev
 POTRF_PATH = ("gemm_f32", "syrk_lower_f32", "potrf_stream_f32",
               "trtri_block_f32")
 # the d tier's kernels, which dpotrf runs on the card
-D_PATH = ("peel_f32pair", "mm_groups_f32pair", "potrf_block_f32",
+D_PATH = ("peel_f64", "mm_groups_f64", "potrf_block_f32",
           "trtri_block_f32")
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -1281,8 +1282,8 @@ def test_sgemm_ssyrk_dtrmm_on_the_card(cuda):
     kernels.reset_launch_counts()
     D = ct.dtrmm("L", "L", "N", "N", 1.0, L, X)
     counts = kernels.launch_counts()
-    assert counts["trmm_lln_f32"] == 0 and counts["peel_f32pair"] > 0 \
-        and counts["mm_groups_f32pair"] > 0, counts
+    assert counts["trmm_lln_f32"] == 0 and counts["peel_f64"] > 0 \
+        and counts["mm_groups_f64"] > 0, counts
     ref = L @ X
     assert float((D - ref).abs().max()) <= 700 * 2.0 ** -40 * float(
         ref.abs().max())
@@ -1536,7 +1537,7 @@ def test_dist_f64_on_the_ozaki_kernels(nccl):
     (F, info), launches, _ = dist_counts(
         lambda: par.potrf_sharded("L", A, nb=DIST_NB))
     assert int(info) == 0
-    assert launches["peel_f32pair"] > 0 and launches["mm_groups_f32pair"] > 0
+    assert launches["peel_f64"] > 0 and launches["mm_groups_f64"] > 0
     assert launches["potrf_block_f32"] == n // DIST_NB
     L = torch.tril(F)
     err = float((L @ L.T - A).abs().max()) / float(A.abs().max())
@@ -1577,10 +1578,9 @@ def dense_blas_operands(n, dtype, seed):
     ("trsm", torch.float32, ("trtri_block_f32", "gemm_f32")),
     ("trmm", torch.float32, ("trmm_lln_f32",)),
     ("herk", torch.complex64, ()),
-    ("gemm", torch.float64, ("peel_f32pair", "mm_groups_f32pair")),
-    ("trsm", torch.float64, ("peel_f32pair", "mm_groups_f32pair",
-                             "trtri_block_f32")),
-    ("trmm", torch.float64, ("peel_f32pair", "mm_groups_f32pair")),
+    ("gemm", torch.float64, ("peel_f64", "mm_groups_f64")),
+    ("trsm", torch.float64, ("peel_f64", "mm_groups_f64", "trtri_block_f32")),
+    ("trmm", torch.float64, ("peel_f64", "mm_groups_f64")),
 ], ids=lambda v: str(v).replace("torch.", ""))
 def test_dist_blas_on_the_card(nccl, op, dtype, kernels_used):
     # one call of each distributed BLAS routine on a one-rank NCCL group:
@@ -1697,22 +1697,40 @@ def test_dist_gp_step_on_the_card(nccl):
 @pytest.mark.cuda
 def test_trace_names_a_kernel(cuda, tmp_path):
     # a trace of one gemm_f32 launch inside a span names the kernel and
-    # the span, and device_time counts the launch
+    # the span, and device_time counts the launch. The window is a fresh
+    # process's: the card's profiler loses the first records of a window
+    # in a process that has run many launches, and profiling.trace has no
+    # guards, so the tests that ran before this one must not decide it
     import json as _json
+    import subprocess
+    import sys
+    from pathlib import Path
 
-    from cholesky_tpu_torch.utils import profiling
-    A = rand((1024, 1024), 31).to(cuda)
-    gemm.gemm_f32(A, A)
-    with profiling.trace(str(tmp_path)):
-        with profiling.annotate("sweep-gemm"):
-            gemm.gemm_f32(A, A)
+    child = f"""
+import json
+import torch
+from cholesky_tpu_torch.ops.kernels import gemm
+from cholesky_tpu_torch.utils import profiling
+A = torch.randn((1024, 1024), generator=torch.Generator().manual_seed(31))
+A = A.to("cuda")
+gemm.gemm_f32(A, A)
+with profiling.trace({str(tmp_path)!r}):
+    with profiling.annotate("sweep-gemm"):
+        gemm.gemm_f32(A, A)
+census = profiling.device_time(lambda: gemm.gemm_f32(A, A), "gemm")
+print(json.dumps(census["busy"]))
+"""
+    done = subprocess.run([sys.executable, "-c", child],
+                          cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=600)
+    assert done.returncode == 0, done.stderr[-4000:]
     (path,) = tmp_path.glob("*.pt.trace.json")
     names = [e.get("name", "") for e in
              _json.loads(path.read_text())["traceEvents"]]
     assert "sweep-gemm" in names
     assert any("gemm64_kernel" in x or "gemm128_kernel" in x for x in names)
-    census = profiling.device_time(lambda: gemm.gemm_f32(A, A), "gemm")
-    assert census["busy"][1] == 1 and census["busy"][0] > 0.0
+    busy_ms, launches = _json.loads(done.stdout.strip().splitlines()[-1])
+    assert launches == 1 and busy_ms > 0.0
 
 
 @pytest.mark.cuda
@@ -1808,3 +1826,220 @@ def test_minibench_timer_probe(cuda):
     t = minibench.probe_timer()
     assert t["block_is_trustworthy"], t
     assert t["synchronize_ms"] >= 0.5 * t["event_ms"] > 0.0
+
+
+# ---------------------------------------------------------------------------
+# the d tier's one-launch peel and product against the passes they replace
+# ---------------------------------------------------------------------------
+
+def edge_rows(m, k, seed):
+    """An f64 (m, k) matrix of wide-range rows and, in its first rows, the
+    scaling's edges: a zero row, f32-subnormal and f64-subnormal rows, a
+    max that rounds up to the next power of two in f32, the f32 overflow
+    edge on both sides, NaN, +inf and -inf."""
+    g = torch.Generator().manual_seed(seed)
+    A = torch.randn(m, k, generator=g, dtype=torch.float64) * torch.exp(
+        2.0 * torch.randn(m, k, generator=g, dtype=torch.float64))
+    f32max = float(np.finfo(np.float32).max)
+    A[0] = 0.0
+    A[1] *= 1e-41                              # f32 subnormal maxima
+    A[2] *= 1e-310                             # f64 subnormals: f32 zero
+    A[3] = torch.linspace(-1.0, 1.0, k, dtype=torch.float64)
+    A[3, k // 2] = 2.0 - 2.0 ** -30            # f32(max) = 2.0
+    A[4] = A[3] * f32max / 2.0
+    A[4, k // 3] = f32max                      # max at the f32 edge
+    A[5] = A[4]
+    A[5, k // 3] = 3.5e38                      # f32(max) = inf
+    A[6, k // 4] = float("nan")
+    A[7, k // 5] = float("inf")
+    A[8, k - 1] = float("-inf")
+    return A
+
+
+def padded_slices(X):
+    """The (S, m, kp) buffer a peel is a view of, padding included."""
+    S, m, _ = X.shape
+    return X.as_strided((S, m, X.stride(1)), X.stride())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["rows", "transposed", "k offset 16",
+                                  "k offset 3", "transposed, k offset 3",
+                                  "edges", "edges transposed"])
+@pytest.mark.parametrize("slices", [1, 6, 8])
+def test_peel_f64_vs_scaled_pair_and_peel(cuda, slices, view):
+    # the one-launch peel against the passes it replaces on the card,
+    # slices (padding included) and row scales bit for bit, on both
+    # kernels (rows along and across the unit stride)
+    m, k = 70, 300
+    if view.startswith("edges"):
+        A = edge_rows(m, k, 31).to(cuda)
+    else:
+        A = edge_rows(m + 9, k + 40, 32)[9:].to(cuda)
+    if view == "transposed":                   # as matmul_f64 peels B.T
+        A = A[:, :k].T.contiguous().T
+    elif view == "k offset 16":
+        A = A[:, 16:16 + k]
+    elif view == "k offset 3":
+        A = A[:, 3:3 + k]
+    elif view == "transposed, k offset 3":
+        A = A.T.contiguous()[3:3 + k].T        # a sub-block of Bᵀ
+    elif view == "edges transposed":
+        A = A.T.contiguous().T
+    else:
+        A = A[:, :k].contiguous()
+    assert (A.stride(0) == 1) == ("transposed" in view)
+    kernels.reset_launch_counts()
+    got, gsc = ozk.peel_f64(A, slices=slices)
+    assert kernels.launch_counts()["peel_f64"] == 1
+    rh, rl, wsc = ozk.scaled_pair(A)
+    want = ozk.peel_f32pair(rh, rl, slices=slices)
+    assert got.shape == want.shape == (slices, m, A.shape[1])
+    assert torch.equal(padded_slices(got), padded_slices(want))
+    assert torch.equal(gsc, wsc)
+    assert torch.equal(ozaki.split_rows(A, slices)[0], got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,view", [(1, 8192, "rows"), (1, 4096, "B[:n1].T"),
+                                      (16, 4096, "B[:n1].T"),
+                                      (128, 8192, "B[:n1].T"),
+                                      (40, 3001, "edges"),
+                                      (40, 3001, "edges transposed"),
+                                      (500, 700, "transposed")])
+def test_peel_f64_of_few_rows_splits_k(cuda, m, k, view):
+    # views whose rows cannot fill the card (a solve's B[:n1].T with nrhs
+    # rows) split k among blocks in one launch: slices (padding included)
+    # and row scales bit for bit the passes, NaN, inf and zero rows too
+    if view.startswith("edges"):
+        A = edge_rows(m, k, 33)
+    else:
+        A = torch.randn(m, k, generator=torch.Generator().manual_seed(m + k),
+                        dtype=torch.float64)
+    if view == "B[:n1].T":                     # B (n, nrhs) row-major
+        A = torch.cat([A.T, A.T[:7]]).to(cuda)[:k].T
+    elif view.endswith("transposed"):
+        A = A.T.contiguous().to(cuda).T
+    else:
+        A = A.to(cuda)
+    assert A.stride(0) == 1 or A.stride(1) == 1
+    kernels.reset_launch_counts()
+    got, gsc = ozk.peel_f64(A, slices=6)
+    assert kernels.launch_counts()["peel_f64"] == 1
+    rh, rl, wsc = ozk.scaled_pair(A)
+    want = ozk.peel_f32pair(rh, rl, slices=6)
+    assert torch.equal(padded_slices(got), padded_slices(want))
+    assert torch.equal(gsc, wsc)
+
+
+def composed(As, asc, Bs, bsc, out, alpha, beta):
+    """The torch passes mm_groups_f64 replaces, as the d tier composed
+    them: the pair of mm_groups_f32pair (summed in f64 chunk by chunk past
+    K_EXACT_MAX), rescaled, then the caller's update."""
+    k = As.shape[2]
+    if k > ozaki.K_EXACT_MAX:
+        P = torch.zeros((As.shape[1], Bs.shape[1]), dtype=torch.float64,
+                        device=As.device)
+        for c in range(0, k, ozaki._K_CHUNK):
+            hi, lo = kernels.mm_groups_f32pair(As[:, :, c:c + ozaki._K_CHUNK],
+                                               Bs[:, :, c:c + ozaki._K_CHUNK])
+            P += (hi.double() + lo.double()) * asc[:, None] * bsc[None, :]
+    else:
+        hi, lo = kernels.mm_groups_f32pair(As, Bs)
+        P = (hi.double() + lo.double()) * asc[:, None] * bsc[None, :]
+    ref = out.clone()
+    if (alpha, beta) == (-1.0, 1.0):
+        ref -= P                               # the trsm updates
+    elif (alpha, beta) == (1.0, 1.0):
+        ref += P                               # trmm's
+    elif (alpha, beta) == (1.0, 0.0):
+        ref.copy_(P)                           # trmm's leaf
+    else:
+        D = alpha * P                          # syrk_ln's and mm's
+        ref = D + beta * ref if beta != 0.0 else D
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha,beta", [(1.0, 0.0), (-1.0, 1.0), (1.0, 1.0),
+                                        (-1.0, 0.0), (0.5, 2.0)])
+@pytest.mark.parametrize("m,n,k,layout", [(200, 130, 300, "rows"),
+                                          (1100, 700, 500, "rows"),
+                                          (130, 200, 300, "columns"),
+                                          (16, 24, 40000, "rows"),
+                                          (16, 24, 64000, "columns")])
+def test_mm_groups_f64_vs_the_composed_passes(cuda, alpha, beta, m, n, k,
+                                              layout):
+    # the product's f64 epilogue in place in a strided view of a wider
+    # matrix, bit for bit the passes it replaces: both tile widths, k past
+    # the kernel's int32 chunk (40000) and past K_EXACT_MAX (64000)
+    g = torch.Generator().manual_seed(m + n + k)
+    A = torch.randn(m, k, generator=g, dtype=torch.float64) * torch.exp(
+        2.0 * torch.randn(m, k, generator=g, dtype=torch.float64))
+    B = torch.randn(n, k, generator=g, dtype=torch.float64)
+    As, asc = ozaki.split_rows(A.to(cuda), 6)
+    Bs, bsc = ozaki.split_rows(B.to(cuda), 6)
+    big = torch.randn(m + n + 9, m + n + 7, generator=g,
+                      dtype=torch.float64).to(cuda)
+    out = big[3:3 + m, 4:4 + n] if layout == "rows" else \
+        big[5:5 + n, 2:2 + m].T
+    ref = composed(As, asc, Bs, bsc, out, alpha, beta)
+    before = big.clone()
+    kernels.reset_launch_counts()
+    got = ozaki.matmul_presplit(As, asc, Bs, bsc, out=out, alpha=alpha,
+                                beta=beta)
+    chunks = -(-k // ozaki._K_CHUNK) if k > ozaki.K_EXACT_MAX else 1
+    assert kernels.launch_counts()["mm_groups_f64"] == chunks
+    assert got is out and torch.equal(out, ref)
+    out.copy_(before[3:3 + m, 4:4 + n] if layout == "rows" else
+              before[5:5 + n, 2:2 + m].T)
+    assert torch.equal(big, before)            # nothing outside the view
+
+
+@pytest.mark.cuda
+def test_dtier_peels_and_products_are_one_launch_each(cuda, monkeypatch):
+    # dpotrf + dpotri at 1024, hoisted: one launch of peel_f64 for every
+    # ozaki.split span and one of mm_groups_f64 for every ozaki.product
+    # span, and no torch op inside either span launches a device kernel
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", True)
+    A = (spd(1024).double()).to(cuda)
+    A = 0.5 * (A + A.T)
+    ct.dpotri("L", ct.dpotrf("L", A)[0])       # build and warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        F, i1 = ct.dpotrf("L", A)
+        inv, i2 = ct.dpotri("L", F)
+        torch.cuda.synchronize()
+    assert int(i1) == int(i2) == 0
+    counts = kernels.launch_counts()
+    assert counts["peel_f32pair"] == counts["mm_groups_f32pair"] == 0
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = {"ozaki.split": [], "ozaki.product": []}
+    for e in events:
+        if e.name in spans:
+            spans[e.name].append(e)
+    assert counts["peel_f64"] == len(spans["ozaki.split"]) > 0
+    assert counts["mm_groups_f64"] == len(spans["ozaki.product"]) > 0
+
+    def inside(e):
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+            if e.name in spans:
+                return True
+        return False
+
+    # allocation and views are host work; any other torch op would be a
+    # pass over device memory
+    host_only = {"aten::empty", "aten::empty_strided", "aten::slice",
+                 "aten::as_strided", "aten::view", "aten::t",
+                 "aten::transpose", "aten::select", "aten::alias"}
+    passes = collections.Counter(
+        e.name for e in events if e.name.startswith("aten::")
+        and e.name not in host_only and inside(e))
+    assert not passes, passes
+    launched = [e for e in events if "Launch" in e.name and inside(e)]
+    assert len(launched) == counts["peel_f64"] + counts["mm_groups_f64"]

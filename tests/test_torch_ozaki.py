@@ -20,10 +20,12 @@ from cholesky_tpu.ops import ozaki as jozaki
 from cholesky_tpu.ops.pallas.ozaki_mm import mm_groups_f32pair as j_mm
 from cholesky_tpu.ops.pallas.ozaki_split import peel_f32pair as j_peel
 from cholesky_tpu_torch.ops import kernels, ozaki
-from cholesky_tpu_torch.ops.kernels.ozaki import (ALIGN, aligned_rows,
+from cholesky_tpu_torch.ops.kernels.ozaki import (ALIGN, _pow2_f32,
+                                                  aligned_rows,
                                                   mm_groups_f32pair,
                                                   mm_groups_plain,
-                                                  peel_f32pair, peel_plain)
+                                                  peel_f32pair, peel_plain,
+                                                  scaled_pair)
 
 
 def rnd(seed, shape, spread=False):
@@ -71,7 +73,7 @@ def test_split_rows_bit_exact_vs_jax(spread, slices):
 
 def test_pow2_is_exact_over_the_f32_range():
     e = np.arange(-160, 140, dtype=np.int32)
-    got = ozaki._pow2_f32(torch.from_numpy(e)).numpy()
+    got = _pow2_f32(torch.from_numpy(e)).numpy()
     with np.errstate(over="ignore"):            # 2^128 and up: inf
         want = np.ldexp(np.float32(1.0), e).astype(np.float32)
     np.testing.assert_array_equal(got, want)
@@ -107,6 +109,43 @@ def test_matmul_presplit_vs_jax():
     scale = np.max(np.abs(ref))
     assert np.max(np.abs(got - ref)) / scale < 1e-12
     assert np.max(np.abs(got - A @ B)) / scale < 1e-9
+
+
+@pytest.mark.parametrize("update", ["sub", "copy", "add", "scaled", "none"])
+def test_matmul_presplit_update_matches_the_composed_passes(update):
+    # out=, alpha=, beta= give bit for bit what the d tier's callers
+    # composed around the product: B -= P, C.copy_(P), C += P,
+    # alpha·P + beta·C, alpha·P; out a strided view of a wider matrix
+    As, asc = ozaki.split_rows(torch.from_numpy(rnd(21, (20, 40), True)), 6)
+    Bs, bsc = ozaki.split_rows(torch.from_numpy(rnd(22, (12, 40))), 6)
+    hi, lo = mm_groups_f32pair(As, Bs)
+    P = (hi.double() + lo.double()) * asc[:, None] * bsc[None, :]
+    big = torch.from_numpy(rnd(23, (30, 24)))
+    before = big.clone()
+    out = big[3:23, 5:17]
+    ref = out.clone()
+    alpha, beta = {"sub": (-1.0, 1.0), "copy": (1.0, 0.0), "add": (1.0, 1.0),
+                   "scaled": (-0.5, 2.0), "none": (0.75, 0.0)}[update]
+    if update == "sub":
+        ref -= P
+    elif update == "copy":
+        ref = P
+    elif update == "add":
+        ref += P
+    else:
+        ref = alpha * P
+        if beta != 0.0:
+            ref = ref + beta * out
+    if update == "none":
+        got = ozaki.matmul_presplit(As, asc, Bs, bsc, alpha=alpha)
+    else:
+        got = ozaki.matmul_presplit(As, asc, Bs, bsc, out=out, alpha=alpha,
+                                    beta=beta)
+        assert got is out
+        outside = torch.ones_like(big, dtype=torch.bool)
+        outside[3:23, 5:17] = False
+        assert torch.equal(big[outside], before[outside])
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("k", [64, 300])
@@ -170,6 +209,25 @@ def test_kernel_wrappers_on_the_cpu():
     # the twins ran: nothing was launched
     assert kernels.launch_counts()["peel_f32pair"] == 0
     assert kernels.launch_counts()["mm_groups_f32pair"] == 0
+
+
+def test_f64_kernel_wrappers_on_the_cpu():
+    # the one-launch peel and product take their twins on the CPU: the
+    # scaling passes then the peel, the pair then the epilogue passes
+    kernels.reset_launch_counts()
+    A = torch.from_numpy(rnd(4, (10, 7), True))
+    S, sc = kernels.peel_f64(A, slices=6)
+    rh, rl, want_sc = scaled_pair(A)
+    assert torch.equal(S, peel_plain(rh, rl, 6)) and torch.equal(sc, want_sc)
+    out = torch.ones((10, 10), dtype=torch.float64)
+    got = kernels.mm_groups_f64(S, sc, S, sc, out=out, alpha=-1.0, beta=1.0)
+    hi, lo = mm_groups_plain(S, S)
+    P = (hi.double() + lo.double()) * sc[:, None] * sc[None, :]
+    assert got is out and torch.equal(out, 1.0 - P)
+    assert kernels.launch_counts()["peel_f64"] == 0
+    assert kernels.launch_counts()["mm_groups_f64"] == 0
+    with pytest.raises(ValueError):             # beta reads an out
+        kernels.mm_groups_f64(S, sc, S, sc, beta=1.0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "slices", "k", "too_many"])

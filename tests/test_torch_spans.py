@@ -114,9 +114,9 @@ def test_a_d_call_spans_its_ozaki_layer():
             # the twins of the d tier's kernels and of its f32 leaves
             assert by[s.parent].name.startswith("ozaki."), s
     assert {by[s.parent].name for s in spans
-            if s.name == "kernel.peel_f32pair"} == {"ozaki.split"}
+            if s.name == "kernel.peel_f64"} == {"ozaki.split"}
     assert {by[s.parent].name for s in spans
-            if s.name == "kernel.mm_groups_f32pair"} == {"ozaki.product"}
+            if s.name == "kernel.mm_groups_f64"} == {"ozaki.product"}
     assert sum(self_ns(spans, s) for s in spans) == sum(
         s.host_ns for s in spans if s.parent is None)
 
@@ -157,6 +157,16 @@ def test_the_rescue_pass_is_one_span():
     (lambda: prng.uniform_fill_f32(torch.zeros((1,), dtype=torch.int32),
                                    4, 6),
      "uniform_fill_f32", {"m": 4, "n": 6}),
+    (lambda: ozaki.peel_f64(torch.zeros((3, 5), dtype=torch.float64),
+                            slices=2),
+     "peel_f64", {"m": 3, "k": 5, "slices": 2}),
+    (lambda: ozaki.mm_groups_f64(
+        torch.zeros((2, 3, 5), dtype=torch.int8),
+        torch.ones(3, dtype=torch.float64),
+        torch.zeros((2, 4, 5), dtype=torch.int8),
+        torch.ones(4, dtype=torch.float64),
+        out=torch.zeros((3, 4), dtype=torch.float64), beta=1.0),
+     "mm_groups_f64", {"slices": 2, "m": 3, "n": 4, "k": 5, "c_read": True}),
 ])
 def test_a_kernel_wrapper_records_its_shape(call, name, attrs):
     with profiling.collect(device=True) as spans:

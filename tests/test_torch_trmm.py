@@ -168,9 +168,9 @@ def test_ozaki_trmm_lln_recursion_absorbs_the_tail(small_nb, monkeypatch):
     calls = []
     real = tblocked.ozaki.matmul_presplit
 
-    def spy(As, asc, Bs, bsc):
+    def spy(As, asc, Bs, bsc, **update):
         calls.append((As.shape[1], As.shape[2]))
-        return real(As, asc, Bs, bsc)
+        return real(As, asc, Bs, bsc, **update)
 
     monkeypatch.setattr(tblocked.ozaki, "matmul_presplit", spy)
     L = torch.from_numpy(np.tril(rnd((200, 200), 13, np.float64)))
