@@ -237,8 +237,7 @@ def public_paths(tree: str, tag: str) -> int:
     Lc = factor(4096, torch.complex64)
     timed("cpotri 4096", lambda: ct.cpotri("L", Lc))
     del Lc
-    # the d tier (host-bound): the hoisted peel or not, as the table's
-    # ozaki_f64.hoist_min_n decides per call
+    # the d tier (host-bound)
     for n in (4096, 6144):
         A = latmc(g, n, 100.0, torch.float64)
         timed(f"dpotrf {n}", lambda: ct.dpotrf("L", A))

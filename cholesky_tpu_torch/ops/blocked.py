@@ -33,8 +33,9 @@ Tile backends:
             tensor, 'embed' for a complex CUDA tensor (as the JAX package
             on its accelerator), 'torch' for a CPU tensor.
 An (re, im) pair of real planes always takes the embedding, as in the
-JAX package (``_route_complex``). The BLAS wrappers send a complex tensor
-that is not embedded to the oracle (blas_ref), as JAX does.
+JAX package. ``route`` names the route of an operand under a backend, for
+the drivers and for the spans alike. The BLAS wrappers send a complex
+tensor that is not embedded to the oracle (blas_ref), as JAX does.
 """
 
 from __future__ import annotations
@@ -74,25 +75,6 @@ def _mega_ok(n: int, op: str = "potrf") -> bool:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-# Force the d tier's hoisted-peel recursions on (True) or off (False)
-# whatever the size, for tests and A/B runs; None: _ozaki_hoist decides per
-# driver call.
-_OZAKI_HOIST_OVERRIDE: Optional[bool] = None
-
-
-def _ozaki_hoist(n: Optional[int], op: str = "potrf") -> bool:
-    """Should this driver call use the hoisted-peel recursions
-    (_OzakiTiles.trsm_*/trtri_lower and the single-peel syrk_ln)? From
-    n >= ``ozaki_f64.hoist_min_n`` (per op: ``hoist_min_n_<op>``), as in
-    the JAX package, whose threshold came from an A/B on a TPU."""
-    if _OZAKI_HOIST_OVERRIDE is not None:
-        return bool(_OZAKI_HOIST_OVERRIDE)
-    if n is None:
-        return True
-    p = get_params("ozaki_f64")
-    return n >= int(p.get(f"hoist_min_n_{op}", p.get("hoist_min_n", 0)))
 
 
 # ---------------------------------------------------------------------------
@@ -185,15 +167,17 @@ class _OzakiTiles:
     sets it only for a second pass, after a first one reported info > 0).
     Each leaf is the span ``ozaki.potf2``, ``ozaki.trti2`` or
     ``ozaki.lauu2``, and the second pass ``ozaki.rescue``.
+
+    The tier has one recursion of each driver: the triangular solves, the
+    inverse and trmm peel the factor once for every block product
+    (``trsm_rlt``, ``trsm_lln``, ``trsm_llt``, ``trtri_lower``,
+    ``trmm_lln``), and ``syrk_ln`` peels A once for both sides. The JAX
+    package also keeps a per-call peel below a size gate tuned on a TPU;
+    on an H100 the one-peel recursions were no slower at any size.
     """
     default_nb = 128
     slices = 6
-
-    def __init__(self, hoist: bool = True):
-        # the hoisted-peel recursions below and the single-peel syrk_ln,
-        # chosen per driver call (_ozaki_hoist)
-        self.hoist = hoist
-        self.rescue = False
+    rescue = False
 
     def _mm(self, A, B, **update):
         return ozaki.matmul_f64(A, B, slices=self.slices, **update)
@@ -212,11 +196,8 @@ class _OzakiTiles:
 
     def syrk_ln(self, alpha, A, beta, C):
         """C := alpha·A·Aᵀ + beta·C in place, the whole square (only the
-        lower triangle is read later). Hoisted: ONE peel of A serves both
-        sides of the product."""
-        if not self.hoist:
-            self.mm(A, A.T, C, alpha=alpha, beta=beta, out=C)
-            return
+        lower triangle is read later). ONE peel of A serves both sides of
+        the product."""
         As, asc = self._split(A)
         ozaki.matmul_presplit(As, asc, As, asc, out=C, alpha=alpha, beta=beta)
 
@@ -272,12 +253,12 @@ class _OzakiTiles:
         T = torch.tril(L)
         return torch.tril(self._mm(T.T, T)) + torch.triu(L, 1)
 
-    # The hoisted recursions: the factor-side operand of every
-    # off-diagonal update is a sub-block of ONE peel of the whole
-    # triangle, with the row scales of its full rows (a sub-block of a
-    # peel is an exact peel; only the dropped-pair bound loosens from the
-    # block's max to the row's). In place on B (or L), as the generic
-    # recursions.
+    # The d tier's own recursions, which the generic drivers hand it
+    # whole: the factor-side operand of every off-diagonal update is a
+    # sub-block of ONE peel of the whole triangle, with the row scales of
+    # its full rows (a sub-block of a peel is an exact peel; only the
+    # dropped-pair bound loosens from the block's max to the row's). In
+    # place on B (or L), as the generic recursions.
 
     def trsm_rlt(self, L, B, nb):
         """X·Lᵀ = B in place (the potrf panel solve)."""
@@ -324,7 +305,7 @@ class _OzakiTiles:
         del rec   # rec holds itself: free the peel now, not at a collection
 
     def trsm_llt(self, L, B, nb, unit):
-        """Lᵀ·X = B in place, backward; the hoisted peel is that of Lᵀ."""
+        """Lᵀ·X = B in place, backward; the one peel is that of Lᵀ."""
         Lt = torch.tril(L)
         LTs, ltsc = self._split(Lt.T)
 
@@ -404,21 +385,33 @@ class _OzakiTiles:
         return out
 
 
-def _route_complex(A, backend: str) -> bool:
-    """Does this operand go through the real embedding
-    (ops/complex_embed.py)? As the JAX package's ``_route_complex``
-    (``blocked.py:497-518``): an (re, im) pair always; a complex tensor
-    under 'embed', and under 'auto' on a CUDA device, the port's
-    accelerator. A complex CPU tensor under 'auto' takes the torch tile
-    natively. Also rejects an unknown backend name."""
+def route(A, backend: str) -> str:
+    """The route operand A takes under ``backend``: 'embed' for an (re, im)
+    pair; under 'auto', 'torch' on the CPU, and on a CUDA device 'embed'
+    for a complex tensor, 'ozaki' for float64 and 'cuda' for the rest;
+    otherwise ``backend`` as given. The drivers (``_route_complex``,
+    ``_tiles_for``) and the ``api.*`` spans' ``backend`` attribute
+    (ops/dispatch.py) read it. Rejects an unknown backend name."""
     check(backend in BACKENDS, "blocked", 0,
           f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if isinstance(A, tuple):
-        return True
-    if not A.is_complex():
-        return False
-    return backend == "embed" or (backend == "auto"
-                                  and A.device.type == "cuda")
+        return "embed"
+    if backend != "auto":
+        return backend
+    if A.device.type != "cuda":
+        return "torch"
+    if A.is_complex():
+        return "embed"
+    return "ozaki" if A.dtype == torch.float64 else "cuda"
+
+
+def _route_complex(A, backend: str) -> bool:
+    """Does this operand go through the real embedding
+    (ops/complex_embed.py)? As the JAX package's ``_route_complex``
+    (``blocked.py:497-518``): an (re, im) pair always, a complex tensor
+    where :func:`route` says 'embed'."""
+    return route(A, backend) == "embed" and (isinstance(A, tuple)
+                                             or A.is_complex())
 
 
 def _embed_backend(backend: str) -> str:
@@ -434,24 +427,20 @@ def _embedding():
     return complex_embed
 
 
-def _tiles_for(A, backend: str, n: Optional[int] = None,
-               op: str = "potrf"):
-    """The tile backend for operand A of a driver call on an n×n matrix,
-    or raise for what the port does not run yet."""
-    check(backend in BACKENDS, "blocked", 0,
-          f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    check(backend != "embed", "blocked", 0,
+def _tiles_for(A, backend: str):
+    """The tile backend for operand A (:func:`route`), or raise for what
+    the port does not run."""
+    r = route(A, backend)
+    check(r != "embed", "blocked", 0,
           "backend='embed' requires complex operands (tensors or (re, im) "
           "pairs)")
     dtype = A.dtype
-    on_cuda = A.device.type == "cuda"
-    if backend == "ozaki" or (backend == "auto" and on_cuda
-                              and dtype == torch.float64):
+    if r == "ozaki":
         check(dtype == torch.float64, "blocked", 0,
               f"ozaki backend supports float64 only, got {dtype}")
-        return _OzakiTiles(hoist=_ozaki_hoist(n, op))
-    if backend == "cuda" or (backend == "auto" and on_cuda):
-        check(on_cuda, "blocked", 0,
+        return _OzakiTiles()
+    if r == "cuda":
+        check(A.device.type == "cuda", "blocked", 0,
               f"backend='cuda' needs a CUDA tensor, got one on {A.device}")
         check(dtype == torch.float32, "blocked", 0,
               f"cuda backend supports float32 only, got {dtype}; float64 "
@@ -461,7 +450,11 @@ def _tiles_for(A, backend: str, n: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
-# Recursive cores, in place on lower-triangular views
+# Recursive cores, in place on lower-triangular views. A tile backend with
+# a method of a driver's name (the d tier's trsm_rlt, trsm_lln, trsm_llt,
+# trtri_lower and trmm_lln: one peel of the factor for every block
+# product) takes the whole call; the recursions below serve the torch and
+# kernel tiles.
 # ---------------------------------------------------------------------------
 
 def _split(n: int, nb: int) -> int:
@@ -471,7 +464,7 @@ def _split(n: int, nb: int) -> int:
 def _trsm_rlt(L, B, t, nb):
     """Solve X·Lᴴ = B in place (B := X): the potrf panel solve, by the
     inverse of each leaf of L (Lᴴ is Lᵀ for a real L)."""
-    if getattr(t, "hoist", False):          # the d tier's hoisted peel
+    if hasattr(t, "trsm_rlt"):
         return t.trsm_rlt(L, B, nb)
     n = L.shape[0]
     if n <= nb:
@@ -493,7 +486,7 @@ def _force_unit_diag(T):
 
 def _trsm_lln(L, B, t, nb, unit):
     """Solve L·X = B in place (B := X), left, lower, no transpose."""
-    if getattr(t, "hoist", False):
+    if hasattr(t, "trsm_lln"):
         return t.trsm_lln(L, B, nb, unit)
     n = L.shape[0]
     if n <= nb:
@@ -511,7 +504,7 @@ def _trsm_lln(L, B, t, nb, unit):
 
 def _trsm_llt(L, B, t, nb, unit):
     """Solve Lᵀ·X = B in place (B := X), left, lower, transposed."""
-    if getattr(t, "hoist", False):
+    if hasattr(t, "trsm_llt"):
         return t.trsm_llt(L, B, nb, unit)
     n = L.shape[0]
     if n <= nb:
@@ -549,7 +542,7 @@ def _trtri_lower(L, t, nb, unit, allow_mega=False):
     """Invert the lower-triangular view L in place; returns info. The
     strict upper of L must be zero: the off-diagonal products read the
     inverted diagonal blocks whole."""
-    if getattr(t, "hoist", False):
+    if hasattr(t, "trtri_lower"):
         return t.trtri_lower(L, nb, unit)
     n = L.shape[0]
     # with the default block size, diagonal sub-blocks re-enter the
@@ -685,7 +678,7 @@ def _potrf_work(uplo, A, backend, block_size):
     A, now with the f64 rescue on every failing leaf, which gives the JAX
     package's verdict."""
     n = lapack_ref._square(A, "potrf")
-    t = _tiles_for(A, backend, n)
+    t = _tiles_for(A, backend)
     if n == 0:
         return A.clone(), torch.zeros((), dtype=torch.int32,
                                       device=A.device)
@@ -748,7 +741,7 @@ def potf2(uplo, A, backend: str = "auto"):
     n = lapack_ref._square(A, "potf2")
     if backend == "ref":
         return lapack_ref.potf2(u, A)
-    t = _tiles_for(A, backend, n)
+    t = _tiles_for(A, backend)
     if isinstance(t, _KernelTiles) and 0 < n and (
             n <= _mega.NB or n % _mega.NB == 0):
         W = _to_lower(A, u).clone(memory_format=torch.contiguous_format)
@@ -792,7 +785,7 @@ def trtri(uplo, diag, A, backend: str = "auto",
     n = lapack_ref._square(A, "trtri")
     if backend == "ref":
         return lapack_ref.trtri(uplo, diag, A)
-    t = _tiles_for(A, backend, n, "trtri")
+    t = _tiles_for(A, backend)
     if n == 0:
         return A.clone(), torch.zeros((), dtype=torch.int32,
                                       device=A.device)
@@ -826,7 +819,7 @@ def lauum(uplo, A, backend: str = "auto", block_size: Optional[int] = None):
     n = lapack_ref._square(A, "lauum")
     if backend == "ref":
         return lapack_ref.lauum(uplo, A)
-    t = _tiles_for(A, backend, n, "lauum")
+    t = _tiles_for(A, backend)
     if n == 0:
         return A.clone()
     nb = block_size or t.default_nb
@@ -880,8 +873,7 @@ def _check_no_stray_pairs(name, *operands):
               "the card")
 
 
-def _fast_tiles_or_none(A, backend: str, n: Optional[int] = None,
-                        op: str = "potrf", scalars=()):
+def _fast_tiles_or_none(A, backend: str, scalars=()):
     """The tile backend of a BLAS wrapper (``_tiles_for``), or None for the
     oracle: under backend='ref', for a complex tensor (the embedding was
     not chosen: JAX sends it to its oracle too), and for a CPU operand
@@ -895,7 +887,7 @@ def _fast_tiles_or_none(A, backend: str, n: Optional[int] = None,
     if backend == "ref" or A.is_complex() or (
             A.device.type != "cuda" and not all(map(_static_scalar, scalars))):
         return None
-    return _tiles_for(A, backend, n, op)
+    return _tiles_for(A, backend)
 
 
 def _flip_trans(transa):
@@ -939,8 +931,7 @@ def syrk(uplo, trans, alpha, A, beta, C, backend: str = "auto"):
           "the complex rank-k update is herk; the reference has no "
           "csyrk/zsyrk (include/blas.h:57-66)")
     uplo, trans = norm_uplo(uplo), norm_trans(trans)
-    t = _fast_tiles_or_none(A, backend, C.shape[0], "syrk",
-                            scalars=(alpha, beta))
+    t = _fast_tiles_or_none(A, backend, scalars=(alpha, beta))
     if t is None:
         return blas_ref.syrk(uplo, trans, alpha, A, beta, C)
     alpha, beta = float(alpha), float(beta)
@@ -988,7 +979,7 @@ def trmm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto"):
     _check_no_stray_pairs("trmm", A, B)
     side, uplo = norm_side(side), norm_uplo(uplo)
     transa, diag = norm_trans(transa), norm_diag(diag)
-    t = _fast_tiles_or_none(A, backend, op="trmm", scalars=(alpha,))
+    t = _fast_tiles_or_none(A, backend, scalars=(alpha,))
     if t is None:
         return blas_ref.trmm(side, uplo, transa, diag, alpha, A, B)
     alpha = float(alpha)
@@ -1087,7 +1078,7 @@ def trsm(side, uplo, transa, diag, alpha, A, B, backend: str = "auto",
     uplo = norm_uplo(uplo)
     transa = norm_trans(transa)
     diag = norm_diag(diag)
-    t = _fast_tiles_or_none(A, backend, A.shape[0], "trsm", scalars=(alpha,))
+    t = _fast_tiles_or_none(A, backend, scalars=(alpha,))
     if t is None:
         return blas_ref.trsm(side, uplo, transa, diag, alpha, A, B)
     alpha = float(alpha)

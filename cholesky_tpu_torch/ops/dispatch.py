@@ -16,7 +16,8 @@ tensor, 'embed' for a complex CUDA tensor, 'torch' on the CPU; an
 
 Each routine is the span ``api.<routine>`` (``utils/profiling.py``),
 whose attributes are its first matrix operand's shape and dtype and the
-backend that ``auto`` resolves to.
+backend: the one the caller named, or the route that ``auto`` takes
+(``blocked.route``).
 """
 
 from __future__ import annotations
@@ -29,27 +30,19 @@ from cholesky_tpu_torch.ops import blocked, lapack_ref
 from cholesky_tpu_torch.utils import profiling
 
 
-def _resolved(A, backend: str) -> str:
-    if backend != "auto":
-        return backend
-    plane = A[0] if isinstance(A, tuple) else A
-    if plane.device.type != "cuda":
-        return "torch"
-    if isinstance(A, tuple) or A.is_complex():
-        return "embed"
-    return "ozaki" if A.dtype == torch.float64 else "cuda"
-
-
 def _attrs(*args, backend: str | None = None, **kwargs) -> dict:
     """A span's attributes: those of the first operand that is a tensor
-    or an (re, im) pair, and the backend ``auto`` resolves to for it."""
+    or an (re, im) pair, and the backend: the one the caller named, or
+    under ``auto`` the route the call takes (``blocked.route``)."""
+    backend = backend or "auto"
     for A in (*args, *kwargs.values()):
         if isinstance(A, (torch.Tensor, tuple)):
             plane = A[0] if isinstance(A, tuple) else A
             return {"shape": tuple(plane.shape),
                     "dtype": str(plane.dtype).removeprefix("torch."),
                     "pair": isinstance(A, tuple),
-                    "backend": _resolved(A, backend or "auto")}
+                    "backend": (backend if backend != "auto"
+                                else blocked.route(A, backend))}
     return {}
 
 

@@ -65,7 +65,7 @@ def _dist_tiles(local, nb: int, tiles: str):
     if local.dtype == torch.float32:
         return blocked._KernelTiles() if cuda else blocked._TorchTiles()
     if local.dtype == torch.float64 and (tiles == "fast" or cuda):
-        t = blocked._OzakiTiles(hoist=False)
+        t = blocked._OzakiTiles()
         t.rescue = True      # a failed f32 leaf gets an f64 verdict
         return t
     return None

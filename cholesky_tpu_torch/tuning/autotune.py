@@ -1,7 +1,6 @@
 """Tuning-table autotuner for the card: the port of ``tools/autotune.py``.
 
-    python -m cholesky_tpu_torch.tuning.autotune [--quick] [--ozaki]
-                                                 [--commit REV]
+    python -m cholesky_tpu_torch.tuning.autotune [--quick] [--commit REV]
 
 Runs on a CUDA card (it exits non-zero without one) and writes
 ``tables/<slug of the card's name>.json`` (``table.table_path``), merged
@@ -26,19 +25,15 @@ under a candidate table that stands in for ``ops.blocked.get_params``
   The fastest on the GP step is taken unless on another point it is
   slower than that point's fastest by more than both spreads together;
   then the value in force stays (``choose_leaf_nb``).
-- ``ozaki_f64.hoist_min_n``, only with ``--ozaki``: dpotrf with the d
-  tier's hoisted peel forced on and off (``blocked._OZAKI_HOIST_OVERRIDE``)
-  at 4096-10240, the two variants called in turns, and the JAX package's
-  midpoint rule where they separate by more than their spreads
-  (``hoist_min_n``).
 - ``_meta``: the card, its power limit, the commit, the rates of
   ``gemm_f32``, ``syrk_lower_f32`` and ``trmm_lln_f32`` at 4096, spotrf and
   ``torch.linalg.cholesky_ex`` at 4096, and every reading above.
 
-``matmul_f32``, ``syrk_f32`` and ``trmm_f32`` get no keys: ``gemm_f32`` and
-``syrk_lower_f32`` choose their launch per call (``launch_plan``) and
-``trmm_lln_f32`` has one tile. The decisions are the pure functions
-``crossover_cap``, ``choose_leaf_nb``, ``hoist_min_n`` and ``merge_tables``.
+``matmul_f32``, ``syrk_f32``, ``trmm_f32`` and ``ozaki_f64`` get no keys:
+``gemm_f32`` and ``syrk_lower_f32`` choose their launch per call
+(``launch_plan``), ``trmm_lln_f32`` has one tile, and the d tier has one
+recursion (``table.py``). The decisions are the pure functions
+``crossover_cap``, ``choose_leaf_nb`` and ``merge_tables``.
 """
 
 from __future__ import annotations
@@ -66,15 +61,13 @@ QUICK_LEAVES = (512, 1024)
 #: spotrf at POTRF_N and strsm of one column at TRSM_N
 GP_N, POTRF_N, TRSM_N = 8192, 16384, 8192
 LEAF_PRIMARY = f"GP step {GP_N}"
-HOIST_SIZES = (4096, 6144, 8192, 10240)
-HOIST_REPS = 6             # calls of each variant a size, in turns
 RATES_N = 4096
-HOIST_OFF = 1 << 30        # hoisted never won: the JAX package's "off"
-NOTE = ("matmul_f32, syrk_f32 and trmm_f32 get no keys: gemm_f32 and "
-        "syrk_lower_f32 choose their launch per call (launch_plan in "
-        "ops/kernels/gemm.py and syrk.py), trmm_lln_f32 has one 128 x 128 "
-        "tile. Rates at n = 4096, median CUDA-event time of one call; "
-        "readings in ms as [median, max - min].")
+NOTE = ("matmul_f32, syrk_f32, trmm_f32 and ozaki_f64 get no keys: "
+        "gemm_f32 and syrk_lower_f32 choose their launch per call "
+        "(launch_plan in ops/kernels/gemm.py and syrk.py), trmm_lln_f32 "
+        "has one 128 x 128 tile, the d tier has one recursion. Rates at "
+        "n = 4096, median CUDA-event time of one call; readings in ms as "
+        "[median, max - min].")
 
 
 def log(*a):
@@ -120,31 +113,6 @@ def choose_leaf_nb(rows: dict, incumbent: int,
     (:func:`losses`); then ``incumbent``, the value in force, stays."""
     best = min(rows, key=lambda c: rows[c][primary][0])
     return incumbent if losses(rows, best, primary) else best
-
-
-def separated(readings) -> bool:
-    """Do the two hoist variants differ anywhere by more than both
-    spreads together? ``readings`` as for :func:`hoist_min_n`."""
-    return any(abs(mh - mp) > sh + sp
-               for _, (mh, sh), (mp, sp) in readings)
-
-
-def hoist_min_n(readings, default: int, nb: int = mega.NB) -> int:
-    """ozaki_f64.hoist_min_n from ``readings``, (n, (median, spread)
-    hoisted, (median, spread) per call) in ascending n. Where the
-    variants never separate by more than their spreads, ``default`` stays.
-    Otherwise the JAX package's rule: the midpoint between the first n at
-    which the hoisted variant is faster and the size before it (n // 2
-    for the first), rounded up to ``nb``; HOIST_OFF if it never is."""
-    if not separated(readings):
-        return default
-    prev = None
-    for n, (mh, _), (mp, _) in readings:
-        if mh < mp:
-            lo = prev if prev is not None else n // 2
-            return -(-((lo + n) // 2) // nb) * nb
-        prev = n
-    return HOIST_OFF
 
 
 def merge_tables(existing: dict, new: dict) -> dict:
@@ -198,8 +166,7 @@ def event_stats(fn, x, reps: int) -> tuple:
 
 def wall_stats(fn, reps: int, warmup: int = 1) -> tuple:
     """(median, spread) in ms of ``fn()`` on the host's clock, each call
-    ended by a synchronize: for host-bound paths (the GP step, the d
-    tier)."""
+    ended by a synchronize: for a host-bound path (the GP step)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -212,10 +179,10 @@ def wall_stats(fn, reps: int, warmup: int = 1) -> tuple:
     return stats(times)
 
 
-def spd(gen, n, dtype=torch.float32):
+def spd(gen, n):
     from cholesky_tpu_torch.rng import latmc
 
-    return latmc(gen, n, 50.0, dtype)
+    return latmc(gen, n, 50.0, torch.float32)
 
 
 def factor(gen, n):
@@ -311,44 +278,6 @@ def tune_leaf(gen, caps: dict, incumbent: int, quick: bool):
     return best, rows
 
 
-def tune_ozaki_hoist(gen, default: int):
-    """hoist_min_n and its readings [n, hoisted, per call]."""
-    import cholesky_tpu_torch as ct
-    from cholesky_tpu_torch.ops import blocked
-
-    def call(hoisted):
-        blocked._OZAKI_HOIST_OVERRIDE = hoisted
-        try:
-            ct.potrf("L", A)
-            torch.cuda.synchronize()
-        finally:
-            blocked._OZAKI_HOIST_OVERRIDE = None
-
-    readings = []
-    for n in HOIST_SIZES:
-        A = spd(gen, n, torch.float64)
-        times = {True: [], False: []}
-        for hoisted in (True, False):       # warm-up
-            call(hoisted)
-        # in turns (H P P H ...): a drift of the host's pace, which sets
-        # the d tier's time, reaches both variants alike
-        for order in [(True, False), (False, True)] * (HOIST_REPS // 2):
-            for hoisted in order:
-                t0 = time.perf_counter()
-                call(hoisted)
-                times[hoisted].append((time.perf_counter() - t0) * 1e3)
-        got = {h: stats(t) for h, t in times.items()}
-        log(f"  ozaki hoist n={n}: hoisted {got[True][0]:.1f} ms (spread "
-            f"{got[True][1]:.1f}) vs per call {got[False][0]:.1f} ms "
-            f"(spread {got[False][1]:.1f})")
-        readings.append([n, list(got[True]), list(got[False])])
-        del A
-    best = hoist_min_n(readings, default)
-    log(f"ozaki hoist_min_n = {best}" + ("" if separated(readings) else
-        " (kept: the variants do not separate by more than their spreads)"))
-    return best, readings
-
-
 def rates(gen) -> dict:
     """The _meta rates at n = 4096."""
     import cholesky_tpu_torch as ct
@@ -378,9 +307,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="three sizes a crossover, two leaf candidates")
-    ap.add_argument("--ozaki", action="store_true",
-                    help="also measure ozaki_f64.hoist_min_n (dpotrf at "
-                         "4096-10240, both variants)")
     ap.add_argument("--commit", default="not recorded",
                     help="the commit of the tree measured, for _meta")
     args = ap.parse_args(argv)
@@ -402,11 +328,6 @@ def main(argv=None) -> int:
     leaf, readings["potrf_f32.leaf_nb"] = tune_leaf(gen, dict(new), leaf_nb,
                                                     args.quick)
     new["potrf_f32"]["leaf_nb"] = leaf
-    if args.ozaki:
-        default = table.get_params("ozaki_f64", kind)["hoist_min_n"]
-        hoist, readings["ozaki_f64.hoist_min_n"] = tune_ozaki_hoist(
-            gen, default)
-        new["ozaki_f64"] = {"hoist_min_n": hoist}
     new["_meta"] = {"device_kind": kind, "card": line,
                     "power_limit": line.split(",")[-1].strip(),
                     "commit": args.commit, "note": NOTE,

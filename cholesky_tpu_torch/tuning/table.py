@@ -1,13 +1,19 @@
 """Tuning table: per-device-kind kernel parameters.
 
-The counterpart of ``cholesky_tpu/tuning/table.py``, with the same key set
-(``matmul_f32``, ``syrk_f32``, ``trmm_f32``,
-``potrf_f32.{leaf_nb,mega_max_n}``, ``{trtri,lauum}_f32.mega_max_n``,
-``ozaki_f64.hoist_min_n``). Tables are JSON files in ``tables/`` keyed by
-the slug of ``torch.cuda.get_device_name()``, written on their card by
-``python -m cholesky_tpu_torch.tuning.autotune``; a value a table does not
-give, and every value on a card without a table (or on the CPU), comes
-from DEFAULTS.
+The counterpart of ``cholesky_tpu/tuning/table.py`` for the keys the port
+reads: ``potrf_f32.{leaf_nb,mega_max_n}`` and
+``{trtri,lauum}_f32.mega_max_n``. The JAX package's other keys have no
+reader here: ``matmul_f32``, ``syrk_f32`` and ``trmm_f32`` because
+``gemm_f32`` and ``syrk_lower_f32`` choose their launch per call
+(``launch_plan`` in ops/kernels/gemm.py and syrk.py) and ``trmm_lln_f32``
+has one 128 x 128 tile; ``ozaki_f64``, the size from which the JAX
+package's d tier peels the factor once for every block product, because
+the port's d tier always does: on an H100 that was no slower at any size
+(ops/blocked.py ``_OzakiTiles``). Tables are JSON files in ``tables/``
+keyed by the slug of ``torch.cuda.get_device_name()``, written on their
+card by ``python -m cholesky_tpu_torch.tuning.autotune``; a value a table
+does not give, and every value on a card without a table (or on the CPU),
+comes from DEFAULTS.
 """
 
 from __future__ import annotations
@@ -23,13 +29,6 @@ _TABLES_DIR = Path(__file__).parent / "tables"
 
 #: shipped defaults, used when no table matches the device
 DEFAULTS = {
-    # kept so the key set matches the JAX package's; the CUDA gemm_f32
-    # and syrk_lower_f32 pick their tiles per launch (ops/kernels/gemm.py
-    # and syrk.py, launch_plan) and trmm_lln_f32 has one 128 x 128 tile
-    # (csrc/trmm.cu): none of them reads anything here
-    "matmul_f32": {"bm": 64, "bn": 64, "bk": 16},
-    "syrk_f32": {"bn": 64, "bk": 16},
-    "trmm_f32": {"bn": 128, "bm": 128},
     # mega_max_n: largest block factored/inverted/squared by ONE
     # whole-matrix kernel (ops/kernels/mega.py); above it the blocked
     # recursion runs with leaf_nb leaves. The values are the JAX DEFAULTS:
@@ -37,11 +36,6 @@ DEFAULTS = {
     "potrf_f32": {"leaf_nb": 512, "mega_max_n": 8192},
     "trtri_f32": {"mega_max_n": 4096},
     "lauum_f32": {"mega_max_n": 8192},
-    # smallest n at which the d tier's recursions share one int8 peel of
-    # the factor (ops/blocked.py _ozaki_hoist). The JAX DEFAULTS value,
-    # which was measured on a TPU: kept for parity only until an A/B on
-    # the card sets it.
-    "ozaki_f64": {"hoist_min_n": 7168},
 }
 
 

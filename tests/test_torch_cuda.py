@@ -925,11 +925,9 @@ def test_mm_groups_on_views_of_one_peel(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hoist", [None, True])
-def test_dpotrf_on_the_card(cuda, hoist, monkeypatch):
+def test_dpotrf_on_the_card(cuda):
     # f64 on the card goes to the d tier under auto, through both Ozaki
     # kernels and the f32 leaf kernels
-    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", hoist)
     n = 1024
     A = torch.from_numpy(spd(n).double().numpy())
     A = 0.5 * (A + A.T)
@@ -969,10 +967,9 @@ def test_dlogdet_dpotri_dtrsm_on_the_card(cuda):
 
 
 @pytest.mark.cuda
-def test_hoisted_drivers_with_block_size_40_on_the_card(cuda, monkeypatch):
+def test_hoisted_drivers_with_block_size_40_on_the_card(cuda):
     # the hoisted peel sliced at k offsets 40, 80, ...: the wrapper realigns
     # those rows and the kernel runs
-    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", True)
     n = 200
     A = spd(n, cond=30.0).double()
     A = 0.5 * (A + A.T)
@@ -1997,13 +1994,12 @@ def test_mm_groups_f64_vs_the_composed_passes(cuda, alpha, beta, m, n, k,
 
 
 @pytest.mark.cuda
-def test_dtier_peels_and_products_are_one_launch_each(cuda, monkeypatch):
-    # dpotrf + dpotri at 1024, hoisted: one launch of peel_f64 for every
+def test_dtier_peels_and_products_are_one_launch_each(cuda):
+    # dpotrf + dpotri at 1024: one launch of peel_f64 for every
     # ozaki.split span and one of mm_groups_f64 for every ozaki.product
     # span, and no torch op inside either span launches a device kernel
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    monkeypatch.setattr(blocked, "_OZAKI_HOIST_OVERRIDE", True)
     A = (spd(1024).double()).to(cuda)
     A = 0.5 * (A + A.T)
     ct.dpotri("L", ct.dpotrf("L", A)[0])       # build and warm

@@ -1,9 +1,12 @@
 """The d tier as a whole: cholesky_tpu_torch's dpotrf, dlogdet, dtrtri,
 dlauum, dpotri and dtrsm with backend="ozaki" against cholesky_tpu's
 blocked drivers with backend="ozaki" (its Pallas kernels in interpret
-mode), on the same numpy matrices, in both variants of the recursion (the
-hoisted peel and the per-call peel, forced through _OZAKI_HOIST_OVERRIDE
-in both packages). On the CPU the port's kernel wrappers run their twins.
+mode), on the same numpy matrices. The port has one recursion of each
+driver, whose one peel of the factor serves every block product; the JAX
+package has two, the hoisted peel and the per-call peel, and each parity
+case holds the port against both (forced through the JAX package's
+_OZAKI_HOIST_OVERRIDE). On the CPU the port's kernel wrappers run their
+twins.
 
 Bounds: the JAX package's own (tests/test_ozaki.py): 1e-9 relative for a
 factor, 1e-8 for an inverse or a solve, 1e-7 absolute for potri and 1e-9
@@ -20,6 +23,7 @@ import torch
 import cholesky_tpu_torch as ct
 from cholesky_tpu.ops import blocked as jblocked
 from cholesky_tpu_torch.ops import blocked as tblocked
+from cholesky_tpu_torch.ops import ozaki
 
 
 def spd_np(n, cond=100.0, seed=0):
@@ -37,12 +41,11 @@ def tri_np(n, uplo, seed=2):
     return T if uplo == "L" else T.T.copy()
 
 
-@pytest.fixture(params=[True, False], ids=["hoist", "prehoist"])
+@pytest.fixture(params=[True, False], ids=["jax_hoist", "jax_prehoist"])
 def hoist(request, monkeypatch):
-    """Both recursion variants in both packages, whatever the size gate
+    """Both recursion variants of the JAX package, whatever its size gate
     says (tests/test_ozaki.py:25-32)."""
     monkeypatch.setattr(jblocked, "_OZAKI_HOIST_OVERRIDE", request.param)
-    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", request.param)
     return request.param
 
 
@@ -142,11 +145,10 @@ def test_dtrsm_vs_jax(side, uplo, trans, diag, hoist):
     assert rel(X.numpy(), np.asarray(X_j)) < 1e-8
 
 
-def test_hoisted_recursions_leave_no_cyclic_garbage(monkeypatch):
+def test_hoisted_recursions_leave_no_cyclic_garbage():
     # every peel of a hoisted recursion is freed when the driver returns,
     # not held by the recursion's closure until a cyclic collection (GBs
     # of the card's memory at n = 8192)
-    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", True)
     A = torch.from_numpy(spd_np(200))
     B = torch.from_numpy(np.random.default_rng(4).standard_normal((200, 96)))
     gc.collect()
@@ -192,30 +194,20 @@ def test_dpotrf_nonpd_vs_jax():
     assert rel(lead, np.tril(np.asarray(F_j)[:100, :100])) < 1e-9
 
 
-def test_ozaki_hoist_gate_routing(monkeypatch):
-    # the tuned ozaki_f64.hoist_min_n picks the variant per driver call
-    # (test_ozaki.py:377-400)
-    real = tblocked.get_params
-
-    def fake(op, device_kind=None):
-        if op == "ozaki_f64":
-            return {"hoist_min_n": 512}
-        return real(op, device_kind)
-
-    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", None)
-    monkeypatch.setattr(tblocked, "get_params", fake)
-    assert not tblocked._ozaki_hoist(256)
-    assert tblocked._ozaki_hoist(512)
-    assert tblocked._ozaki_hoist(None)
-    A = torch.zeros(8, 8, dtype=torch.float64)
-    assert not tblocked._tiles_for(A, "ozaki", 256).hoist
-    assert tblocked._tiles_for(A, "ozaki", 512, "trsm").hoist
-    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", True)
-    assert tblocked._ozaki_hoist(64)
-    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", False)
-    assert not tblocked._ozaki_hoist(1 << 20)
-    # the shipped default is the JAX package's
-    assert real("ozaki_f64") == {"hoist_min_n": 7168}
+@pytest.mark.parametrize("alpha,beta", [(-1.0, 1.0), (1.0, 0.0)])
+@pytest.mark.parametrize("shape", [(64, 64), (200, 96), (96, 200)])
+def test_syrk_ln_is_the_two_peel_product_bit_for_bit(shape, alpha, beta):
+    # the one-peel syrk_ln (dsyrk, _potrf_lower, _lauum_lower) against the
+    # product with A and Aᵀ peeled apart: split_rows(A) and
+    # split_rows((Aᵀ)ᵀ) are the same peel while k <= K_EXACT_MAX
+    rng = np.random.default_rng(9)
+    A = torch.from_numpy(rng.standard_normal(shape))
+    C0 = torch.from_numpy(rng.standard_normal((shape[0], shape[0])))
+    C = C0.clone()
+    tblocked._OzakiTiles().syrk_ln(alpha, A, beta, C)
+    want = ozaki.matmul_f64(A, A.T, slices=6, out=C0.clone(), alpha=alpha,
+                            beta=beta)
+    assert torch.equal(C, want)
 
 
 def test_backend_routing_for_f64():
@@ -256,7 +248,6 @@ def test_hoisted_drivers_with_block_size_40_vs_jax(uplo, monkeypatch):
     # slice one peel at k offsets 40, 80, ... (on the card the wrapper
     # realigns those rows); dpotrf, dtrsm both ways, dtrtri and dpotri
     monkeypatch.setattr(jblocked, "_OZAKI_HOIST_OVERRIDE", True)
-    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", True)
     A = spd_np(120, seed=6)
     F, info = ct.dpotrf(uplo, torch.from_numpy(A), backend="ozaki",
                         block_size=40)

@@ -285,7 +285,6 @@ def test_hoisted_drivers_pass_misaligned_views_that_realign(monkeypatch):
 
     monkeypatch.setattr(ozaki._kz, "mm_groups_plain", via_aligned)
     from cholesky_tpu_torch.ops import blocked as tblocked
-    monkeypatch.setattr(tblocked, "_OZAKI_HOIST_OVERRIDE", True)
     rng = np.random.default_rng(5)
     G = rng.standard_normal((160, 160))
     A = G @ G.T / 160 + np.eye(160)

@@ -66,6 +66,60 @@ def test_potrf_is_one_root_over_its_layers():
     assert all(s.end_ns > 0 and s.events is None for s in spans)
 
 
+def hpd(n, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    G = torch.randn((n, n), dtype=dtype, generator=g)
+    return G @ G.mH / n + torch.eye(n, dtype=dtype)
+
+
+def planes(Z):
+    return (Z.real.contiguous(), Z.imag.contiguous())
+
+
+@pytest.mark.parametrize("operand,backend,route,attr", [
+    (lambda: spd(16), "auto", "torch", "torch"),
+    (lambda: spd(16).double(), "auto", "torch", "torch"),
+    (lambda: hpd(16, torch.complex64), "auto", "torch", "torch"),
+    (lambda: planes(hpd(16, torch.complex64)), "auto", "embed", "embed"),
+    (lambda: planes(hpd(16, torch.complex128)), "auto", "embed", "embed"),
+    (lambda: spd(16).double(), "ozaki", "ozaki", "ozaki"),
+    (lambda: hpd(16, torch.complex64), "embed", "embed", "embed"),
+    # an explicit backend is the span's attribute as the caller named it
+    (lambda: planes(hpd(16, torch.complex64)), "torch", "embed", "torch"),
+], ids=["f32", "f64", "c64", "pair-f32", "pair-f64", "f64-ozaki",
+        "c64-embed", "pair-torch"])
+def test_api_span_backend_names_the_route_the_call_takes(
+        operand, backend, route, attr, monkeypatch):
+    from cholesky_tpu_torch.ops import blocked
+
+    taken = []
+    tiles_for, embedding = blocked._tiles_for, blocked._embedding
+    names = {blocked._TorchTiles: "torch", blocked._KernelTiles: "cuda",
+             blocked._OzakiTiles: "ozaki"}
+
+    def spy_tiles(*args, **kwargs):
+        t = tiles_for(*args, **kwargs)
+        taken.append(names[type(t)])
+        return t
+
+    def spy_embedding():
+        taken.append("embed")
+        return embedding()
+
+    monkeypatch.setattr(blocked, "_tiles_for", spy_tiles)
+    monkeypatch.setattr(blocked, "_embedding", spy_embedding)
+    A = operand()
+    assert blocked.route(A, backend) == route
+    with profiling.collect() as spans:
+        _, info = ct.potrf("L", A, backend=backend)
+    assert int(info) == 0
+    (root,) = [s for s in spans if s.parent is None]
+    assert taken[0] == route
+    assert root.attrs["backend"] == attr
+    if backend == "auto":
+        assert root.attrs["backend"] == taken[0]
+
+
 def test_gp_train_step_is_one_root_with_five_api_calls():
     g = torch.Generator().manual_seed(1)
     X = torch.rand((256, 8), generator=g) * 2 - 1

@@ -43,9 +43,7 @@ def test_h100_table_keys_and_values():
     for op, params in t.items():
         if op == "_meta":
             continue
-        extra = {k for k in params if op == "ozaki_f64"
-                 and k.startswith("hoist_min_n_")}
-        assert set(params) - extra <= set(DEFAULTS[op]), (op, params)
+        assert set(params) <= set(DEFAULTS[op]), (op, params)
         for k, v in params.items():
             assert isinstance(v, int) and v > 0, (op, k, v)
         if "mega_max_n" in params:
@@ -197,39 +195,19 @@ def test_leaf_nb_incumbent_fastest_stays():
     assert autotune.choose_leaf_nb(rows, 512, "GP") == 512
 
 
-@pytest.mark.parametrize("readings,want", [
-    # the JAX package's r5 shape: per call ahead at 6144, hoisted at 8192
-    ([(4096, (10.0, 0.1), (9.0, 0.1)), (6144, (30.0, 0.1), (25.0, 0.1)),
-      (8192, (50.0, 0.1), (60.0, 0.1))], 7168),
-    # hoisted ahead from the first size: the midpoint with n // 2
-    ([(4096, (8.0, 0.1), (9.0, 0.1))], 3072),
-    # the midpoint rounded up to 128: (4000 + 6000) // 2 = 5000 -> 5120
-    ([(4000, (9.0, 0.1), (8.0, 0.1)), (6000, (7.0, 0.1), (8.0, 0.1))], 5120),
-    # hoisted never ahead: off
-    ([(4096, (10.0, 0.1), (9.0, 0.1)), (8192, (60.0, 0.1), (50.0, 0.1))],
-     autotune.HOIST_OFF),
-    # no size separates by more than both spreads: the default stays
-    ([(4096, (10.0, 1.0), (9.5, 1.0)), (8192, (50.0, 5.0), (55.0, 5.0))],
-     7168 + 128),
-])
-def test_hoist_min_n_rule(readings, want):
-    assert autotune.hoist_min_n(readings, default=7168 + 128) == want
-
-
 def test_merge_keeps_what_was_not_measured():
     old = {"potrf_f32": {"leaf_nb": 256, "mega_max_n": 2048},
            "trtri_f32": {"mega_max_n": 4096},
-           "ozaki_f64": {"hoist_min_n": 7168, "hoist_min_n_trsm": 4096},
+           "lauum_f32": {"mega_max_n": 8192},
            "_meta": {"device_kind": "old", "note": "kept"}}
     snapshot = json.loads(json.dumps(old))
     new = {"potrf_f32": {"mega_max_n": 8192},
-           "ozaki_f64": {"hoist_min_n": 6144},
+           "lauum_f32": {"mega_max_n": 6144},
            "_meta": {"device_kind": "new"}}
     got = autotune.merge_tables(old, new)
     assert got == {"potrf_f32": {"leaf_nb": 256, "mega_max_n": 8192},
                    "trtri_f32": {"mega_max_n": 4096},
-                   "ozaki_f64": {"hoist_min_n": 6144,
-                                 "hoist_min_n_trsm": 4096},
+                   "lauum_f32": {"mega_max_n": 6144},
                    "_meta": {"device_kind": "new", "note": "kept"}}
     assert old == snapshot          # the table read is not modified
     assert autotune.merge_tables({}, new) == new
