@@ -18,6 +18,7 @@ import cholesky_tpu_torch as ct
 from cholesky_tpu.ops import blocked as jblocked
 from cholesky_tpu_torch.ops import blocked as tblocked
 from cholesky_tpu_torch.ops import kernels
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 F32, F64 = np.float32, np.float64

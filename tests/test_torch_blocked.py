@@ -20,6 +20,7 @@ from cholesky_tpu.ops import blocked as jblocked
 from cholesky_tpu.ops import lapack_ref as jref
 from cholesky_tpu_torch.ops import blocked as tblocked
 from cholesky_tpu_torch.ops import kernels
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 F32 = np.float32

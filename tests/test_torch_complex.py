@@ -15,7 +15,6 @@ test_complex_embed.py): 16n for a factor (the embedding works at 2n), 80n
 for a triangular inverse or a logdet, 4000n for potri, 150n for a solve,
 2k+3 for a product of depth k."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +27,8 @@ from cholesky_tpu.ops import complex_embed as jce
 from cholesky_tpu.ops import lapack_ref as jlapack
 from cholesky_tpu_torch.ops import blas_ref, blocked, lapack_ref
 from cholesky_tpu_torch.ops import complex_embed as ce
+from tests.torch_jcall import jcall
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 N, NB = 96, 32
@@ -75,20 +76,6 @@ def to_np(x):
 
 def jx(x):
     return jnp.asarray(x)
-
-
-def jcall(fn, *args, **kw):
-    """fn(*args, **kw) of the JAX package, jitted over its array
-    arguments: an eager call traces every leaf's loop anew."""
-    idx = [i for i, a in enumerate(args) if hasattr(a, "shape")]
-
-    def f(*arrays):
-        full = list(args)
-        for i, a in zip(idx, arrays):
-            full[i] = a
-        return fn(*full, **kw)
-
-    return jax.jit(f)(*(jnp.asarray(args[i]) for i in idx))
 
 
 # ---------------------------------------------------------------------------

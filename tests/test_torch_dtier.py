@@ -24,6 +24,7 @@ import cholesky_tpu_torch as ct
 from cholesky_tpu.ops import blocked as jblocked
 from cholesky_tpu_torch.ops import blocked as tblocked
 from cholesky_tpu_torch.ops import ozaki
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 
 def spd_np(n, cond=100.0, seed=0):

@@ -21,6 +21,7 @@ import cholesky_tpu_torch as ct
 from benchmark import compare, inputs
 from benchmark.reference.lapack import potrf_lower
 from benchmark.reference.potri import potri_lower
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 FACTOR_BOUND = 1e-9
 INVERSE_BOUND = 1e-8

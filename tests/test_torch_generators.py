@@ -17,6 +17,7 @@ import torch
 from cholesky_tpu.rng import generators as jgen
 from cholesky_tpu_torch.rng import (Interval, interval_transform, latmc,
                                     latmc_pair, random_triangular, uniform)
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -19,6 +19,7 @@ import torch
 
 from cholesky_tpu.models import gp as jgp
 from cholesky_tpu_torch.models import gp
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 F32 = np.float32

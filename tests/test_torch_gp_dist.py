@@ -29,6 +29,7 @@ from cholesky_tpu_torch import entry
 from cholesky_tpu_torch.models import make_gp_train_step
 from cholesky_tpu_torch.parallel import launch
 from tests import torch_dist_ranks as ranks
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 DP = MP = 2
 BATCH = 2 * DP
@@ -63,7 +64,8 @@ CASES = {"f32": step_case("f32"), "f64": step_case("f64"),
 @pytest.fixture(scope="module")
 def world():
     """Every case on every rank of one world of DP·MP gloo ranks."""
-    return launch.spawn(DP * MP, ranks.run, CASES, timeout=300.0)
+    # 11-12 s in the suite under six workers
+    return launch.spawn(DP * MP, ranks.run, CASES, timeout=60.0)
 
 
 @pytest.fixture(scope="module")
@@ -73,13 +75,19 @@ def mesh():
 
 
 @functools.lru_cache(maxsize=None)
+def jax_train_step(mesh, n_train, n_features, n_probes, dtype):
+    """JAX's jitted train step: one compile serves a dtype's two cases."""
+    return jax_make_step(mesh, n_train, n_features, BATCH, nb=NB,
+                         n_probes=n_probes, lr=LR, dtype=jnp.dtype(dtype))
+
+
+@functools.lru_cache(maxsize=None)
 def jax_step(name, mesh):
     """JAX's (params', mean nll, infos) of CASES[name], as numpy."""
     kw = CASES[name][1]
     X = kw["X"]
-    step = jax_make_step(mesh, X.shape[1], X.shape[2], BATCH, nb=NB,
-                         n_probes=kw["probes"].shape[2], lr=LR,
-                         dtype=jnp.dtype(X.dtype))
+    step = jax_train_step(mesh, X.shape[1], X.shape[2],
+                          kw["probes"].shape[2], X.dtype.name)
     new, nll, info = step(JGPParams(*map(jnp.asarray, kw["params"])),
                           jnp.asarray(X), jnp.asarray(kw["y"]),
                           jnp.asarray(kw["probes"]))
@@ -195,6 +203,8 @@ def test_nan_row_f64_info_is_lapacks(world, mesh):
     assert (got["infos"][mask] == 0).all() and (infos[mask] == 0).all()
 
 
+# 8-12 s in the suite; the dry run's own spawn allows its world 600 s, the
+# test's limit (tests/torch_limits.py) 300 s
 def test_dryrun_multichip_cpu(capsys):
     entry.dryrun_multichip(4, device="cpu")
     out = capsys.readouterr().out

@@ -17,6 +17,7 @@ from cholesky_tpu_torch.ops import blocked
 from cholesky_tpu_torch.ops.kernels import _build
 from cholesky_tpu_torch.tuning import DEFAULTS, get_params
 from cholesky_tpu_torch.utils import benchlib, errors
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -52,8 +53,9 @@ def test_import_loads_neither_jax_nor_triton():
         "assert not bad, bad\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
+    # this and each child below: 4-9 s in the suite under six workers
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=40)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
 
@@ -63,7 +65,7 @@ def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=40)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
 
@@ -73,7 +75,7 @@ def test_bench_torch_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     out = subprocess.run([sys.executable, "bench_torch.py"], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=40)
     assert out.returncode != 0
     assert '"value"' not in out.stdout
 
@@ -83,7 +85,7 @@ def test_chip_compare_fails_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
     out = subprocess.run([sys.executable, "chip_compare.py"], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=40)
     assert out.returncode != 0
     assert "{" not in out.stdout
 

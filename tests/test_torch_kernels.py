@@ -29,6 +29,7 @@ from cholesky_tpu_torch.ops.kernels import leaf
 from cholesky_tpu_torch.ops.kernels.leaf import lauu2_plain
 from cholesky_tpu_torch.ops.kernels import mega
 from cholesky_tpu_torch.ops.kernels import syrk as ksyrk
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 F32 = np.float32

@@ -12,6 +12,7 @@ import torch
 
 from cholesky_tpu.ops import lapack_ref as jref
 from cholesky_tpu_torch.ops import lapack_ref as tref
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 DTYPES = {"f32": (np.float32, torch.float32), "f64": (np.float64,

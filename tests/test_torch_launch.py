@@ -9,19 +9,19 @@ import pytest
 
 from cholesky_tpu_torch.parallel import launch
 from tests import torch_dist_ranks as ranks
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 
 def test_spawn_returns_each_rank_in_order():
-    # the time limit of the suite's other worlds: three ranks start in
-    # about 4 s alone, 15-18 s beside the dist tier's test files at a load
-    # of 35 on eight cores, and the limit only ends a world that hangs
-    assert launch.spawn(3, ranks.fail_on, -1, timeout=600.0) == [0, 1, 2]
+    # three ranks start in about 4 s alone and 5-7 s in the suite under
+    # six workers; the limit only ends a world that hangs
+    assert launch.spawn(3, ranks.fail_on, -1, timeout=60.0) == [0, 1, 2]
 
 
 def test_spawn_raises_when_a_rank_fails():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
-        launch.spawn(2, ranks.fail_on, 1, timeout=120.0)
+        launch.spawn(2, ranks.fail_on, 1, timeout=30.0)     # 3.5-5 s measured
     assert time.monotonic() - t0 < 60.0
 
 

@@ -23,6 +23,7 @@ from cholesky_tpu.ops.pallas import leaf as pleaf
 from cholesky_tpu_torch.ops import blocked as tblocked
 from cholesky_tpu_torch.ops import kernels
 from cholesky_tpu_torch.ops.kernels import leaf, potf2_f32, trti2_f32
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 F32 = np.float32

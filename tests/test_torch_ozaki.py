@@ -26,6 +26,7 @@ from cholesky_tpu_torch.ops.kernels.ozaki import (ALIGN, _pow2_f32,
                                                   mm_groups_plain,
                                                   peel_f32pair, peel_plain,
                                                   scaled_pair)
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 
 def rnd(seed, shape, spread=False):

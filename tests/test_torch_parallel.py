@@ -19,6 +19,7 @@ Queue 3, "Garbage past a failed pivot").
 The collective census (the port's form of tests/test_parallel_hlo.py)
 reads the counts of ``parallel.comm`` per call."""
 
+import dataclasses
 import functools
 
 import jax
@@ -33,6 +34,8 @@ from cholesky_tpu.parallel import potrf as jpotrf
 from cholesky_tpu.parallel import trsm as jtrsm
 from cholesky_tpu_torch.parallel import comm, launch
 from tests import torch_dist_ranks as ranks
+from tests.torch_jcall import jcall, on_shards
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 P = 4
@@ -96,7 +99,8 @@ CASES = {
 @pytest.fixture(scope="module")
 def world():
     """Every case on every rank of one world of P gloo ranks."""
-    return launch.spawn(P, ranks.run, CASES, timeout=600.0)
+    # 24-29 s in the suite under six workers
+    return launch.spawn(P, ranks.run, CASES, timeout=120.0)
 
 
 @pytest.fixture(scope="module")
@@ -105,23 +109,23 @@ def mesh():
 
 
 # --- the JAX side, each call once per module ------------------------------
-# (an eager JAX call compiles its shard_map anew, most of this file's time:
-# one factor of each input serves every case that factors it as is)
+# (one factor of each input serves every case that factors it as is, and
+# one jit of each function, tests/torch_jcall.py, every input of one dtype)
 
 @functools.lru_cache(maxsize=None)
 def jax_potrf(key, mesh, **kw):
     A = {"nonpd": NONPD, **INPUTS}[key]
-    F, info = jpotrf.potrf_sharded("L", jnp.asarray(A), mesh, nb=NB,
-                                   tiles="ref", **kw)
+    F, info = jcall(jpotrf.potrf_sharded, "L", A, mesh, nb=NB, tiles="ref",
+                    **kw)
     return np.asarray(F), int(info)
 
 
 @functools.lru_cache(maxsize=None)
 def jax_factor(key, mesh):
     """JAX's potrf_dist of INPUTS[key] at the defaults: (fbc, info)."""
-    fbc, info = jpotrf.potrf_dist(
-        jbc.distribute(jnp.asarray(INPUTS[key]), mesh, nb=NB), tiles="ref")
-    return fbc, int(info)
+    bc = jbc.distribute(jnp.asarray(INPUTS[key]), mesh, nb=NB)
+    local, info = on_shards(jpotrf.potrf_dist, bc, tiles="ref")
+    return dataclasses.replace(bc, local=local), int(info)
 
 
 def jax_lower(key, mesh):
@@ -247,8 +251,8 @@ def test_potrf_dist_vs_jax(world, mesh):
 
 @functools.lru_cache(maxsize=None)
 def jax_logdet(mesh):
-    val, info = jpotrf.logdet_dist(
-        jbc.distribute(jnp.asarray(A32), mesh, nb=NB), tiles="ref")
+    bc = jbc.distribute(jnp.asarray(A32), mesh, nb=NB)
+    val, info = on_shards(jpotrf.logdet_dist, bc, tiles="ref")
     return float(val), int(info)
 
 
@@ -269,8 +273,8 @@ def test_logdet_vs_jax(world, mesh, name):
 def jax_solve(name, mesh):
     kw = CASES[name][1]
     fbc, _ = jax_factor("c64" if kw["A"] is INPUTS["c64"] else "f32", mesh)
-    return np.asarray(jtrsm.trsm_factor_dist(fbc, jnp.asarray(kw["B"]),
-                                             trans=kw["trans"]))
+    return np.asarray(on_shards(jtrsm.trsm_factor_dist, fbc, kw["B"],
+                                trans=kw["trans"]))
 
 
 @pytest.mark.parametrize("name", ["solve_N", "solve_T", "solve_vec",

@@ -19,7 +19,6 @@ exactly one all_gather (of the output)."""
 import functools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 from jax.sharding import Mesh
@@ -27,6 +26,8 @@ from jax.sharding import Mesh
 from cholesky_tpu.parallel import blas as jblas
 from cholesky_tpu_torch.parallel import launch
 from tests import torch_dist_ranks as ranks
+from tests.torch_jcall import jcall
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close, to_np128
 
 P = 4
@@ -165,7 +166,8 @@ JAX_FORMS = ("gemm_NN_256", "syrk_LN_200", "syrk_LN_201", "herk_LN_200",
 @pytest.fixture(scope="module")
 def world():
     """Every case on every rank of one world of P gloo ranks."""
-    return launch.spawn(P, ranks.run, CASES, timeout=600.0)
+    # 20-23 s in the suite under six workers
+    return launch.spawn(P, ranks.run, CASES, timeout=90.0)
 
 
 @pytest.fixture(scope="module")
@@ -200,9 +202,7 @@ def test_rank_k_keeps_the_other_triangle(world, name):
 @functools.lru_cache(maxsize=None)
 def jax_result(name, mesh):
     fn, (args, _, _, _) = SPECS[name]
-    jargs = [jnp.asarray(a) if isinstance(a, np.ndarray) else a
-             for a in args]
-    return np.asarray(getattr(jblas, fn)(*jargs, mesh))
+    return np.asarray(jcall(getattr(jblas, fn), *args, mesh))
 
 
 @pytest.mark.parametrize("name", JAX_FORMS)

@@ -33,6 +33,7 @@ from cholesky_tpu_torch.ops import blas_ref as tblas
 from cholesky_tpu_torch.ops import blocked as tblocked
 from cholesky_tpu_torch.ops import kernels
 from cholesky_tpu_torch.ops import lapack_ref as tref
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 F32 = np.float32

@@ -20,6 +20,7 @@ from cholesky_tpu_torch.ops.kernels import prng as kprng
 from cholesky_tpu_torch.rng import (Interval, uniform_device,
                                     uniform_device64)
 from cholesky_tpu_torch.rng import device as rdev
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 MASK = 0xFFFFFFFF
 

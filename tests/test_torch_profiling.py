@@ -15,6 +15,7 @@ import torch
 from torch.autograd import DeviceType
 
 from cholesky_tpu_torch.utils import profiling
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 
 def _files(logdir):

@@ -16,6 +16,7 @@ import cholesky_tpu_torch as ct
 from cholesky_tpu_torch.models import gp
 from cholesky_tpu_torch.ops.kernels import gemm, mega, ozaki, prng, syrk, trmm
 from cholesky_tpu_torch.utils import profiling
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 
 
 def spd(n, seed=0):

@@ -27,6 +27,7 @@ from cholesky_tpu.ops.pallas import trmm as ptrmm
 from cholesky_tpu_torch.ops import blocked as tblocked
 from cholesky_tpu_torch.ops import kernels
 from cholesky_tpu_torch.ops.kernels.trmm import trmm_lln_f32
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 F32 = np.float32

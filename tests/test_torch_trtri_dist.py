@@ -9,6 +9,7 @@ Bounds are tests/util.assert_close's, with the JAX package's own fpe for
 each routine (tests/test_trtri_dist.py): 60n for a triangular inverse,
 2n+3 for lauum (a product of depth n), 3000n for potri."""
 
+import dataclasses
 import functools
 
 import jax
@@ -22,6 +23,8 @@ from cholesky_tpu.parallel import potrf as jpotrf
 from cholesky_tpu.parallel import trtri as jtrtri
 from cholesky_tpu_torch.parallel import launch
 from tests import torch_dist_ranks as ranks
+from tests.torch_jcall import jcall, on_shards
+from tests.torch_limits import module_time_limit, time_limit  # noqa: F401
 from tests.util import assert_close
 
 P = 4
@@ -70,7 +73,8 @@ CASES = {
 
 @pytest.fixture(scope="module")
 def world():
-    return launch.spawn(P, ranks.run, CASES, timeout=600.0)
+    # 27-31 s in the suite under six workers
+    return launch.spawn(P, ranks.run, CASES, timeout=120.0)
 
 
 @pytest.fixture(scope="module")
@@ -82,12 +86,20 @@ def case(world, name, rank=0):
     return world[rank][name]
 
 
+# --- the JAX side ---------------------------------------------------------
+# (each function jitted once for its static arguments, tests/torch_jcall.py:
+# one jit of trtri_dist serves both of its inputs)
+
+def collected(bc, local):
+    return np.asarray(jbc.collect(dataclasses.replace(bc, local=local)))
+
+
 @functools.lru_cache(maxsize=None)
 def jax_trtri(key, mesh):
     L = {"trtri": L32, "singular": SINGULAR}[key]
-    W, info = jtrtri.trtri_dist(jbc.distribute(jnp.asarray(L), mesh, nb=NB),
-                                tiles="ref")
-    return np.asarray(jbc.collect(W)), int(info)
+    bc = jbc.distribute(jnp.asarray(L), mesh, nb=NB)
+    W, info = on_shards(jtrtri.trtri_dist, bc, tiles="ref")
+    return collected(bc, W), int(info)
 
 
 @pytest.mark.parametrize("tiles", ["ref", "auto"])
@@ -112,7 +124,7 @@ def test_trtri_dist_singular_info_vs_jax(world, mesh, tiles):
 def test_lauum_dist_vs_jax(world, mesh):
     got = case(world, "lauum")
     bc = jbc.distribute(jnp.asarray(L32), mesh, nb=NB, pad_identity=False)
-    B = np.asarray(jbc.collect(jtrtri.lauum_dist(bc)))
+    B = collected(bc, on_shards(jtrtri.lauum_dist, bc))
     assert_close(np.tril(got["B"]), np.tril(B), np.float32, 2 * N + 3,
                  "lauum_dist")
     # the strict upper region passes through: zero here
@@ -121,10 +133,11 @@ def test_lauum_dist_vs_jax(world, mesh):
 
 def test_potri_dist_vs_jax(world, mesh):
     got = case(world, "potri_dist")
-    fbc, info0 = jpotrf.potrf_dist(jbc.distribute(jnp.asarray(A32), mesh,
-                                                  nb=NB), tiles="ref")
-    out, info = jtrtri.potri_dist(fbc)
-    Inv = np.asarray(jbc.collect(out))
+    bc = jbc.distribute(jnp.asarray(A32), mesh, nb=NB)
+    F, info0 = on_shards(jpotrf.potrf_dist, bc, tiles="ref")
+    out, info = on_shards(jtrtri.potri_dist,
+                          dataclasses.replace(bc, local=F))
+    Inv = collected(bc, out)
     assert int(got["info0"]) == int(info0) == 0
     assert int(got["info"]) == int(info) == 0
     assert_close(np.tril(got["Inv"]), np.tril(Inv), np.float32, 3000 * N,
@@ -138,7 +151,7 @@ def test_potri_dist_vs_jax(world, mesh):
 def test_potri_sharded_vs_jax(world, mesh, uplo):
     kw = CASES[f"potri_sharded_{uplo}"][1]
     got = case(world, f"potri_sharded_{uplo}")
-    Inv, info = jtrtri.potri_sharded(uplo, jnp.asarray(kw["F"]), mesh, nb=NB)
+    Inv, info = jcall(jtrtri.potri_sharded, uplo, kw["F"], mesh, nb=NB)
     Inv = np.asarray(Inv)
     assert int(got["info"]) == int(info) == 0
     tri = np.tril if uplo == "L" else np.triu
